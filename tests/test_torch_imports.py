@@ -1,0 +1,60 @@
+"""The PyTorch port imports no jax, flax, optax or orbax, and nothing of the
+JAX package (whose ``__init__`` imports jax when a ``TCVAE_*`` override is
+set)."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = "trustedai_cl_vae_ad_tpu_torch"
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "trustedai_cl_vae_ad_tpu", "camera_streamer")
+ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "profile_stream_torch.py")
+
+
+def _port_sources():
+    for root, _dirs, files in os.walk(os.path.join(REPO, PACKAGE)):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    for f in ENTRY_POINTS:
+        yield os.path.join(REPO, f)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    """With the JAX package's jax-importing overrides set, as its tool CLIs
+    are run, importing the port, the CLI and chip_smoke loads neither jax nor
+    the JAX package."""
+    code = f"""
+import importlib, json, pkgutil, sys
+import {PACKAGE}
+for m in pkgutil.walk_packages({PACKAGE}.__path__, "{PACKAGE}."):
+    importlib.import_module(m.name)
+sys.path.insert(0, {REPO!r})
+import camera_streamer_torch, chip_smoke, profile_stream_torch
+print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO, TCVAE_PLATFORM="cpu", TCVAE_CPU_DEVICES="1")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_sources_have_no_jax_import():
+    found = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                if name.split(".")[0] in FORBIDDEN:
+                    found.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
+    assert not found, found

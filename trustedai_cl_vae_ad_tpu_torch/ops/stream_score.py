@@ -1,0 +1,169 @@
+"""Fused streaming anomaly scorer: per-pixel EMA statistics -> scalar score.
+
+Counterpart of ``trustedai_cl_vae_ad_tpu/ops/stream_score.py``. The update
+(the TF original's live scoring block):
+
+  * err = sum_ch (x - x_hat)^2                       (per-pixel map)
+  * EMA min/max -> normalized error map
+  * EMA of err and err^2, seeded from the first frame -> per-pixel z-scores
+    z = (err - ema) * rsqrt(|ema2 - ema^2| + 1e-10)
+  * z-of-z: standardize z over the frame, count pixels with zz > 3
+  * EMA of that count and its square -> standardized scalar anomaly score
+    score = (count - ema_c) / sqrt(ema_c2 - ema_c^2), NaN kept
+
+State layout, as in the JAX package:
+
+  maps:    (2, H, W) float32 — [err_ema, err_sq_ema]
+  scalars: (6,) float32 — [err_min_ema, err_max_ema, count_ema, count_sq_ema,
+                           initialized, unused]
+
+On a CUDA tensor ``stream_score_step`` launches the hand-written kernel
+``csrc/stream_score.cu`` (which replaces the TPU's Pallas ``_stream_kernel``;
+the source's header says what bounds it and how its design answers). On a
+CPU tensor it runs ``stream_score_step_reference``, the plain PyTorch
+version, which is also what the kernel is checked against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
+
+import torch
+
+#: launches of the CUDA kernel in this process (the plain version does not count)
+launches = 0
+
+_LIB_NAME = "stream_score"
+_lib = None
+
+
+class StreamScoreState(NamedTuple):
+    maps: torch.Tensor     # (2, H, W): [err_ema, err_sq_ema]
+    scalars: torch.Tensor  # (6,): [min_ema, max_ema, as_sum, as_sum_2, initialized, 0]
+
+
+def init_state(height: int, width: int, device) -> StreamScoreState:
+    return StreamScoreState(
+        maps=torch.zeros((2, height, width), dtype=torch.float32, device=device),
+        scalars=torch.zeros((6,), dtype=torch.float32, device=device),
+    )
+
+
+def build():
+    """Compile (first call) and load the CUDA kernel; returns the library."""
+    global _lib
+    if _lib is None:
+        from trustedai_cl_vae_ad_tpu_torch.ops._build import load_library
+
+        lib = load_library(_LIB_NAME)
+        p = ctypes.c_void_p
+        lib.stream_score_launch.argtypes = [p, p, p, p, ctypes.c_float, p, p, p, p, p,
+                                            ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        lib.stream_score_launch.restype = ctypes.c_int
+        lib.stream_score_error_string.argtypes = [ctypes.c_int]
+        lib.stream_score_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def stream_score_step_reference(state: StreamScoreState, img: torch.Tensor,
+                                rec: torch.Tensor, alpha) -> Tuple[StreamScoreState, torch.Tensor,
+                                                                   torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of one update (the JAX ``_score_math``).
+
+    Every elementwise step is one IEEE-rounded op in the JAX order; the
+    channel sum runs in channel order and 1/sqrt is written out, so the
+    per-pixel values match the kernel bit for bit and only the frame-wide
+    sums differ in their order.
+    """
+    maps, scalars = state.maps, state.scalars
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=img.device)
+    oma = 1.0 - a
+    d = img - rec
+    err = d[..., 0] * d[..., 0]
+    for ch in range(1, img.shape[-1]):
+        err = err + d[..., ch] * d[..., ch]
+    initialized = scalars[4] > 0
+    min_ema = a * scalars[0] + oma * err.min()
+    max_ema = a * scalars[1] + oma * err.max()
+    denom = max_ema - min_ema
+    norm = (err - min_ema) / torch.where(denom == 0, torch.ones_like(denom), denom)
+
+    prev_ema = torch.where(initialized, maps[0], err)
+    prev_ema2 = torch.where(initialized, maps[1], err * err)
+    err_ema = a * prev_ema + oma * err
+    err_ema2 = a * prev_ema2 + oma * err * err
+    var = torch.abs(err_ema2 - err_ema * err_ema)
+    z = (err - err_ema) * torch.reciprocal(torch.sqrt(var + 1e-10))
+
+    n = float(z.numel())
+    z_mean = z.sum() / n
+    zc = z - z_mean
+    z_std = torch.sqrt((zc * zc).sum() / n)
+    zz = zc / torch.where(z_std == 0, torch.ones_like(z_std), z_std)
+    count = (zz > 3.0).sum().to(torch.float32)
+
+    as_sum = a * scalars[2] + oma * count
+    as_sum2 = a * scalars[3] + oma * count * count
+    # the TF original takes sqrt of the RAW variance estimate: NaN when it
+    # is 0 or rounds negative, filtered downstream as the engines do
+    a_var = as_sum2 - as_sum * as_sum
+    score = (count - as_sum) / torch.sqrt(a_var)
+
+    one = torch.ones_like(count)
+    new_scalars = torch.stack([min_ema, max_ema, as_sum, as_sum2, one, torch.zeros_like(one)])
+    return StreamScoreState(torch.stack([err_ema, err_ema2]), new_scalars), norm, score, count
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream_cuda(state: StreamScoreState, img: torch.Tensor, rec: torch.Tensor, alpha: float):
+    global launches
+    lib = build()
+    h, w, c = img.shape
+    dev = img.device
+    _check("img", img, (h, w, c), dev)
+    _check("rec", rec, (h, w, c), dev)
+    _check("state.maps", state.maps, (2, h, w), dev)
+    _check("state.scalars", state.scalars, (6,), dev)
+    out_maps = torch.empty((2, h, w), dtype=torch.float32, device=dev)
+    out_scalars = torch.empty((6,), dtype=torch.float32, device=dev)
+    norm = torch.empty((h, w), dtype=torch.float32, device=dev)
+    score_count = torch.empty((2,), dtype=torch.float32, device=dev)
+    zbuf = torch.empty((h, w), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.stream_score_launch(
+            img.data_ptr(), rec.data_ptr(), state.maps.data_ptr(), state.scalars.data_ptr(),
+            float(alpha), out_maps.data_ptr(), out_scalars.data_ptr(), norm.data_ptr(),
+            score_count.data_ptr(), zbuf.data_ptr(), 1, h * w, c, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"stream_score kernel launch failed: {lib.stream_score_error_string(rc).decode()}")
+    launches += 1
+    return StreamScoreState(out_maps, out_scalars), norm, score_count[0], score_count[1]
+
+
+def stream_score_step(state: StreamScoreState, img: torch.Tensor, rec: torch.Tensor,
+                      alpha: float) -> Tuple[StreamScoreState, torch.Tensor,
+                                             torch.Tensor, torch.Tensor]:
+    """One scorer update. img/rec: (H, W, C) f32 in [0, 1]; alpha: EMA weight
+    (a Python float). Returns (new_state, norm_err_map, score, pixel_count).
+
+    CUDA tensors go through the kernel (or raise); CPU tensors through the
+    plain version."""
+    if img.device.type == "cuda":
+        return _stream_cuda(state, img, rec, alpha)
+    if img.device.type != "cpu":
+        raise ValueError(f"stream_score_step supports cuda and cpu tensors, got {img.device}")
+    return stream_score_step_reference(state, img, rec, alpha)
