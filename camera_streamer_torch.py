@@ -4,13 +4,14 @@
 The single-stream path of ``camera_streamer.py`` on the port
 (``trustedai_cl_vae_ad_tpu_torch``): capture (RTSP / webcam / video file /
 frame directory / synthetic) -> device inference + streaming anomaly score.
-The model is built from a config with seeded random weights; reading a
-trained log directory (``-m``) waits for the port's checkpoint reader
-(ROADMAP.md queue 1 item 8). Continual learning, recording, multi-camera and
-int8 serving are not ported yet.
+The model comes from a log directory that ``train_torch.py`` wrote (``-m``),
+or is built from a config with seeded random weights (``--config``).
+Continual learning, recording, multi-camera and int8 serving are not ported
+yet.
 
 Usage:
   python camera_streamer_torch.py --config configs/config.yml --source synthetic --max-frames 64
+  python camera_streamer_torch.py -m logs/fit_20260101-000000 --source synthetic --max-frames 64
   python camera_streamer_torch.py cam_config.yml --config configs/config.yml --device cuda
 """
 
@@ -18,7 +19,10 @@ import argparse
 
 import torch
 
-from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config_path
+from trustedai_cl_vae_ad_tpu_torch.registry import (
+    load_model_from_config_path,
+    load_model_from_directory,
+)
 from trustedai_cl_vae_ad_tpu_torch.stream.capture import make_source
 from trustedai_cl_vae_ad_tpu_torch.stream.run import (
     StopRequest,
@@ -34,8 +38,11 @@ def get_args(argv=None):
     parser.add_argument("cam_config", type=str, nargs="?", default=None,
                         help="cam_config.yml with camera_list + anomaly_settings")
     parser.add_argument("--cam-config-index", type=int, default=0)
-    parser.add_argument("--config", type=str, required=True,
-                        help="Model config YAML (e.g. configs/config.yml)")
+    parser.add_argument("--model-dir", "-m", type=str, default=None,
+                        help="Trained log directory written by train_torch.py "
+                             "(config.yml, encoder/, decoder/)")
+    parser.add_argument("--config", type=str, default=None,
+                        help="Model config YAML (e.g. configs/config.yml): random weights")
     parser.add_argument("--init-seed", type=int, default=0,
                         help="Seed of the random initial weights")
     parser.add_argument("--device", type=str, default="cuda",
@@ -56,6 +63,8 @@ def get_args(argv=None):
                              "or omit the value for the model's native size")
     args = parser.parse_args(argv)
     args.warmup = parse_warmup_spec(args.warmup, parser.error)
+    if (args.model_dir is None) == (args.config is None):
+        parser.error("give exactly one of -m/--model-dir and --config")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: CUDA is not available")
@@ -69,8 +78,11 @@ def main(argv=None):
 
     anomaly_settings, _cam_info, fps, source_spec = resolve_camera(
         args.cam_config, args.cam_config_index, args.source)
-    model, config = load_model_from_config_path(args.config, seed=args.init_seed,
-                                                device=args.device)
+    if args.model_dir is not None:
+        model, config = load_model_from_directory(args.model_dir, device=args.device)
+    else:
+        model, config = load_model_from_config_path(args.config, seed=args.init_seed,
+                                                    device=args.device)
     engine = build_engine(model, config, anomaly_settings=anomaly_settings,
                           realtime=args.realtime,
                           host_resize=args.host_resize, pipelined=args.pipelined)

@@ -27,7 +27,7 @@ def test_round_trip_is_exact():
         keys = [p.key for p in path]
         np.testing.assert_array_equal(back[keys[0]][keys[1]][keys[2]], np.asarray(leaf))
     # the state dict loads into the port's model under the flax names
-    model = load_model_from_config(config, seed=1)
+    model = load_model_from_config(config, seed=1, device="cpu")
     model.core.load_state_dict(sd)
     assert "encoder.layers.Dense_1.weight" in model.params
     again = params_to_flax(model.params)

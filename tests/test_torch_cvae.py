@@ -116,21 +116,39 @@ def test_registry_types_precision_and_unported_loss():
     core = registry.build_core_from_config(tiny_config())
     assert next(core.parameters()).device.type == "meta"  # nothing allocated
     assert not torch.backends.cudnn.allow_tf32  # float32 means float32
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        core.compute_loss(None)
+    assert type(core).compute_loss is not registry.AbstractCVAE.compute_loss
+    for name in ("KurtosisSingle", "KLGaussian"):  # their losses are not ported yet
+        unported = registry.build_core_from_config(tiny_config(model_type=name))
+        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+            unported.compute_loss(None)
     # model.s2d_input / model.fast_vjp are accepted and change nothing
     cfg = tiny_config()
     cfg["model"].update(s2d_input=True, fast_vjp=False)
     registry.build_core_from_config(cfg)
 
 
+def test_loaders_default_to_the_card():
+    """No entry point of the port runs on the CPU unless the caller asks."""
+    import inspect
+
+    from trustedai_cl_vae_ad_tpu_torch import registry
+    from trustedai_cl_vae_ad_tpu_torch.data.loader import load_data
+
+    for fn in (registry.load_model_from_config, registry.load_model_from_config_path,
+               registry.load_model_from_directory, load_data):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            registry.load_model_from_config(tiny_config())
+
+
 def test_seeded_init_is_glorot_and_reproducible():
     from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
 
     config = tiny_config()
-    a = load_model_from_config(config, seed=7).params
-    b = load_model_from_config(config, seed=7).params
-    c = load_model_from_config(config, seed=8).params
+    a = load_model_from_config(config, seed=7, device="cpu").params
+    b = load_model_from_config(config, seed=7, device="cpu").params
+    c = load_model_from_config(config, seed=8, device="cpu").params
     for k in a:
         assert torch.equal(a[k], b[k])
     w = a["encoder.layers.Dense_0.weight"]  # (16, 768)

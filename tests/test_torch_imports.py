@@ -11,7 +11,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "trustedai_cl_vae_ad_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "trustedai_cl_vae_ad_tpu", "camera_streamer")
-ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "profile_stream_torch.py")
+ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "profile_stream_torch.py",
+                "profile_train_torch.py", "train_torch.py")
 
 
 def _port_sources():
@@ -34,6 +35,7 @@ for m in pkgutil.walk_packages({PACKAGE}.__path__, "{PACKAGE}."):
     importlib.import_module(m.name)
 sys.path.insert(0, {REPO!r})
 import camera_streamer_torch, chip_smoke, profile_stream_torch
+import profile_train_torch, train_torch
 print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
 """
     env = dict(os.environ, PYTHONPATH=REPO, TCVAE_PLATFORM="cpu", TCVAE_CPU_DEVICES="1")
@@ -41,6 +43,18 @@ print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!
                           timeout=120, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_slices_new_modules_are_in_the_walk():
+    """The walk above covers the package by directory; the training slice's
+    modules are where it expects them."""
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("ops/moments.py", "ops/adam.py", "models/batch_stats.py",
+                "models/kurtosis_global.py", "data/loader.py", "data/saved_dataset.py",
+                "utils/metrics.py", "train/__init__.py", "train/checkpoint.py",
+                "train/loop.py", "train/bench_step.py"):
+        assert os.path.join(PACKAGE, rel) in sources, rel
+    assert {"train_torch.py", "profile_train_torch.py"} <= sources
 
 
 def test_port_sources_have_no_jax_import():

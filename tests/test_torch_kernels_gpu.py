@@ -1,4 +1,5 @@
-"""The stream-scorer CUDA kernel vs its plain PyTorch version on the card.
+"""The CUDA kernels (stream scorer, global moments) vs their plain PyTorch
+versions on the card.
 
 Marked ``cuda``: without a CUDA device these tests skip. On the card run
 ``python -m pytest tests/test_torch_kernels_gpu.py -q``.
@@ -69,3 +70,101 @@ def test_kernel_rejects_bad_inputs(cuda_device):
         ss.stream_score_step(state, img.transpose(0, 1), img, 0.9)
     with pytest.raises(ValueError):
         ss.stream_score_step(state, img, img.cpu(), 0.9)
+
+
+MOMENT_CASES = [((256, 2000), "float32"), ((768, 2000), "float32"), ((7, 13), "float32"),
+                ((256, 2000), "bfloat16"), ((7, 13), "bfloat16")]
+
+
+@pytest.mark.parametrize("shape, dtype", MOMENT_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{d}" for s, d in MOMENT_CASES])
+def test_moments_kernel_matches_plain_version(cuda_device, shape, dtype):
+    """Forward and backward; rtol 1e-5 on mean and variance, 1e-4 on skew,
+    kurtosis and the gradient (the order of the sums differs), with an
+    absolute floor where a value is a small difference of large sums."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    z = (torch.randn(shape, device=cuda_device, generator=gen) * 1.3 + 0.4).to(
+        getattr(torch, dtype))
+    before = (mo.launches, mo.bwd_launches)
+    out = mo.global_moments_packed(z)
+    ref = torch.stack(mo.global_moments_reference(z))
+    torch.testing.assert_close(out[:2], ref[:2], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out[2:], ref[2:], rtol=1e-4, atol=1e-6)
+    assert torch.equal(out, mo.global_moments_packed(z))  # the same bits from run to run
+    gout = torch.tensor([0.3, -0.7, 1.1, 0.9], device=cuda_device)
+    grad = mo.global_moments_backward(z, out, gout)
+    grad_ref = mo.global_moments_backward_reference(z, out, gout)
+    scale = float(grad_ref.float().abs().max())
+    torch.testing.assert_close(grad.float(), grad_ref.float(), rtol=1e-4, atol=1e-6 * scale)
+    assert grad.dtype == z.dtype
+    assert torch.equal(grad, mo.global_moments_backward(z, out, gout))
+    assert (mo.launches, mo.bwd_launches) == (before[0] + 2, before[1] + 2)
+    # through autograd: one forward and one backward launch, no plain version
+    za = z.clone().requires_grad_(True)
+    m, var, skew, kurt = mo.global_moments(za)
+    (0.3 * m - 0.7 * var + 1.1 * skew + 0.9 * kurt).backward()
+    assert (mo.launches, mo.bwd_launches) == (before[0] + 3, before[1] + 3)
+    # bfloat16 gradients are rounded to 8 bits
+    rtol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    torch.testing.assert_close(za.grad.float(), grad_ref.float(), rtol=rtol, atol=rtol * scale)
+
+
+def test_moments_kernel_constant_input_and_unaligned_views(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+
+    const = torch.full((16, 128), 2.0, device=cuda_device)
+    out = mo.global_moments_packed(const)
+    assert out.tolist() == [2.0, 0.0, 0.0, 0.0]
+    gout = torch.ones(4, device=cuda_device)
+    grad = mo.global_moments_backward(const, out, gout)
+    assert torch.isfinite(grad).all()
+    # a contiguous view that starts 4 bytes into an allocation: no 16-byte loads
+    base = torch.randn(1001, device=cuda_device)
+    view = base[1:].view(10, 100)
+    torch.testing.assert_close(mo.global_moments_packed(view),
+                               torch.stack(mo.global_moments_reference(view)),
+                               rtol=1e-4, atol=1e-6)
+    out = mo.global_moments_packed(view)
+    torch.testing.assert_close(mo.global_moments_backward(view, out, gout),
+                               mo.global_moments_backward_reference(view, out, gout),
+                               rtol=1e-4, atol=1e-7)
+
+
+def test_moments_kernel_rejects_bad_inputs(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+
+    z = torch.randn(8, 16, device=cuda_device)
+    for bad, error in ((z.double(), TypeError), (z.half(), TypeError), (z[0], ValueError),
+                       (z.t(), ValueError), (z[:0], ValueError)):
+        with pytest.raises(error):
+            mo.global_moments(bad)
+    out = mo.global_moments_packed(z)
+    with pytest.raises(ValueError):
+        mo.global_moments_backward(z, out.cpu(), torch.ones(4, device=cuda_device))
+    with pytest.raises(ValueError):
+        mo.global_moments_backward(z, out, torch.ones(3, device=cuda_device))
+
+
+def test_training_step_on_the_card_launches_the_moments_kernels(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+    from trustedai_cl_vae_ad_tpu_torch.testing import run_train_steps, train_inputs
+
+    config = {
+        "data": {"image_size": [32, 48, 3]},
+        "loss": {"kurtosis": 1.8, "w_kl_divergence": 0.0, "w_kurtosis": 1e-2, "w_mse": 1.0,
+                 "w_skew": 0.0, "w_z_l1_reg": 0.0},
+        "model": {"type": "KurtosisGlobal", "latent_dimensions": 8, "layers": [4, 8],
+                  "decoder_dense_filters": 4},
+        "training": {"batch_size": 8, "beta": 1e-6, "learning_rate": 1e-3, "max_epochs": 1},
+    }
+    model = load_model_from_config(config, seed=0)
+    assert model.device.type == "cuda"
+    model.compile()
+    before = (mo.launches, mo.bwd_launches)
+    outs = run_train_steps(model, train_inputs(config, n_steps=2, batch=8))
+    model.test_step(train_inputs(config, n_steps=1, batch=8)[0][0])
+    assert (mo.launches, mo.bwd_launches) == (before[0] + 3, before[1] + 2)
+    assert all(np.isfinite(o["loss"]) for o in outs)

@@ -1,5 +1,6 @@
 """Shared pieces of the PyTorch-port parity tests (tests/test_torch_*.py):
-tiny configs, and the same weights in the JAX core and the port."""
+tiny configs, the same weights in the JAX core and the port, and the two
+stateful models side by side with the JAX step's latent noise reproduced."""
 
 import jax
 import numpy as np
@@ -45,3 +46,38 @@ def to_np(t):
     if isinstance(t, torch.Tensor):
         return t.detach().to("cpu", torch.float32).numpy()
     return np.asarray(t, dtype=np.float32)
+
+
+LOSS_KEYS = ["loss", "mse", "z_l1", "var_loss", "skew_loss", "z_kurtosis_loss", "z_kurtosis",
+             "r_min", "r_max", "cross_entropy", "kl_div", "x_std_loss"]
+
+
+def paired_models(config, seed=0, compile=True):
+    """(JAX VAEModel, the port's VAEModel) on the CPU carrying the same
+    weights (the JAX model's seeded init, through the bridge)."""
+    from trustedai_cl_vae_ad_tpu.models.wrapper import VAEModel as JaxVAEModel
+    from trustedai_cl_vae_ad_tpu.registry import build_core_from_config
+
+    jmodel = JaxVAEModel(build_core_from_config(config), seed=seed)
+    tmodel = torch_model_like(config, jmodel.params)
+    if compile:
+        jmodel.compile()
+        tmodel.compile()
+    return jmodel, tmodel
+
+
+def next_jax_eps(jmodel, batch):
+    """The latent eps the JAX model's NEXT ``train_step`` will draw, as a
+    numpy array (B, latent): that step splits ``jmodel._rng`` once and hands
+    the sub-key to ``reparameterize``, which draws
+    ``jax.random.normal(key, (B, latent), float32)``. Reads the key without
+    advancing it."""
+    import jax.numpy as jnp
+
+    _, sub = jax.random.split(jmodel._rng)
+    return np.array(jax.random.normal(sub, (batch, jmodel.latent_size), jnp.float32))
+
+
+def loss_to_np(loss):
+    """A loss dict of either package -> {key: float}, in its own key order."""
+    return {k: float(np.asarray(to_np(v))) for k, v in loss.items()}

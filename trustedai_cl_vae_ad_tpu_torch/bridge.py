@@ -1,4 +1,5 @@
-"""Weight bridge between a flax parameter tree and the port's state dict.
+"""Weight bridge between a flax parameter tree and the port's state dict;
+gradients and Adam moments cross the same way.
 
 The tree is the JAX core's ``{'encoder': {...}, 'decoder': {...}}`` with
 numpy leaves (``jax.device_get(params)``); this module takes numpy only, so
@@ -78,3 +79,17 @@ def params_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
         else:
             tree[part].setdefault(layer, {})["bias"] = a.copy()
     return tree
+
+
+def opt_state_from_optax(count, mu_tree: dict, nu_tree: dict) -> dict:
+    """optax's Adam state (``count``, ``mu``, ``nu``; the moment trees have
+    the parameters' structure and cross by the same permutations) -> the
+    dict that ``ops.adam.Adam.load_state_dict`` takes."""
+    return {"count": int(count), "mu": params_from_flax(mu_tree),
+            "nu": params_from_flax(nu_tree)}
+
+
+def opt_state_to_optax(state: dict):
+    """``ops.adam.Adam.state_dict()`` -> (count, mu tree, nu tree) of numpy
+    arrays in the flax layout."""
+    return int(state["count"]), params_to_flax(state["mu"]), params_to_flax(state["nu"])

@@ -171,8 +171,8 @@ class AbstractCVAE(nn.Module):
     ``forward(params, x)`` signature the engines call.
     """
 
-    #: ROADMAP item that ports this type's loss; subclasses name their own
-    loss_roadmap_item = "queue 1 item 4"
+    #: ROADMAP item that ports the loss of a type that has none yet
+    loss_roadmap_item = "queue 1 item 11"
 
     def __init__(self, config: dict, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32, device=None):

@@ -2,18 +2,22 @@
 
 Counterpart of ``trustedai_cl_vae_ad_tpu/registry.py``: the same three type
 names, KurtosisGlobal as the default, the same precision modes. The three
-types share the CVAE's eval forward; their losses are not ported yet, so
-``compute_loss`` raises and names the ROADMAP item that ports it.
+types share the CVAE's eval forward. KurtosisGlobal has its loss
+(``models/kurtosis_global.py``); the losses of KurtosisSingle and KLGaussian
+are not ported yet, so their ``compute_loss`` raises and names the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
 
+import os
 from copy import deepcopy
 
 import torch
 
 from trustedai_cl_vae_ad_tpu_torch.config import load_config, validate_config
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import AbstractCVAE
+from trustedai_cl_vae_ad_tpu_torch.models.kurtosis_global import KurtosisGlobalCVAE
 
 AVAILABLE_TYPES = [
     "KLGaussian",
@@ -24,10 +28,6 @@ AVAILABLE_TYPES = [
 
 class KLGaussianCVAE(AbstractCVAE):
     loss_roadmap_item = "queue 1 item 11"
-
-
-class KurtosisGlobalCVAE(AbstractCVAE):
-    loss_roadmap_item = "queue 1 item 4"
 
 
 class KurtosisSingleCVAE(AbstractCVAE):
@@ -88,17 +88,31 @@ def build_core_from_config(config: dict, device="meta") -> AbstractCVAE:
     return core_cls(deepcopy(config), dtype=dtype, param_dtype=param_dtype, device=device)
 
 
-def load_model_from_config(config: dict, seed: int = 0, device="cpu"):
+def load_model_from_config(config: dict, seed: int = 0, device="cuda"):
     """The stateful wrapper with fresh random params, drawn on ``device``
-    from ``seed``."""
+    from ``seed``. The card is the default; the CPU is for callers that ask
+    for it (``device="cpu"``), as the tests do."""
     from trustedai_cl_vae_ad_tpu_torch.models.wrapper import VAEModel
 
     device = torch.device(device)
     core = build_core_from_config(config).to_empty(device=device)
     core.init_params(seed)
-    return VAEModel(core, device)
+    return VAEModel(core, device, seed=seed)
 
 
-def load_model_from_config_path(config_path: str, seed: int = 0, device="cpu"):
+def load_model_from_config_path(config_path: str, seed: int = 0, device="cuda"):
     config = validate_config(load_config(config_path))
     return load_model_from_config(config, seed=seed, device=device), config
+
+
+def load_model_from_directory(logdir: str, device="cuda"):
+    """(model, config) from a log directory this package's ``save_model``
+    wrote: ``config.yml`` beside ``encoder/`` and ``decoder/``. The weights
+    are restored; Adam moments are not (``model.load_model(logdir,
+    restore_optimizer=True)`` restores them for a resume)."""
+    config_path = os.path.join(logdir, "config.yml")
+    if not os.path.isfile(config_path):
+        raise FileNotFoundError(f"{config_path} not found: not a training log directory")
+    model, config = load_model_from_config_path(config_path, device=device)
+    model.load_model(logdir, restore_optimizer=False)
+    return model, config

@@ -1,4 +1,5 @@
-"""Scorer parity fixtures and checks shared by the tests and ``chip_smoke.py``.
+"""Parity fixtures and checks shared by the tests and ``chip_smoke.py``: the
+stream scorer's, then the training step's (at the end of the file).
 
 One place states the inputs and the tolerances with which an implementation
 of the stream-scorer update (the CUDA kernel, the plain PyTorch version, the
@@ -122,3 +123,55 @@ def compare_sequences(got: Sequence[Tuple], ref: Sequence[Tuple], label: str = "
                                        atol=MAP_ATOL, err_msg=where)
             np.testing.assert_allclose(g_score, r_score, rtol=SCORE_RTOL, err_msg=where)
     return max_err
+
+
+# -- training-step parity ----------------------------------------------------------
+#
+# Two runs of the same training steps (the port on cuda and on cpu, or the
+# port and the JAX package) start from the same weights and take the same
+# batches and the same latent noise, so they differ only in the order of
+# sums and, on the card, in cuDNN's choice of algorithms.
+
+def train_inputs(config: dict, n_steps: int = 3, batch: int = 8, seed: int = 0):
+    """[(x, eps)] per step: x (B, W, H, C) float32 in [0, 1] (a fixed scene
+    plus per-frame noise, so there is something to reconstruct) and the
+    latent noise eps (B, latent) float32, all from numpy's ``seed``."""
+    w, h, c = (int(v) for v in config["data"]["image_size"])
+    latent = int(config["model"]["latent_dimensions"])
+    rng = np.random.RandomState(seed)
+    scene = rng.uniform(0.2, 0.8, (w, h, c))
+    steps = []
+    for _ in range(n_steps):
+        x = np.clip(scene + rng.normal(0, 0.1, (batch, w, h, c)), 0, 1).astype(np.float32)
+        steps.append((x, rng.standard_normal((batch, latent)).astype(np.float32)))
+    return steps
+
+
+def run_train_steps(model, inputs) -> List[dict]:
+    """``model.train_step_and_run`` over ``train_inputs``; the loss dicts as
+    floats plus ``x_hat`` as numpy, per step. The model must be compiled."""
+    import torch
+
+    outs = []
+    for x, eps in inputs:
+        loss, x_hat = model.train_step_and_run(torch.from_numpy(x),
+                                               eps=torch.from_numpy(eps).to(model.device))
+        out = {k: float(v) for k, v in loss.items()}
+        out["x_hat"] = x_hat.to("cpu", torch.float32).numpy()
+        outs.append(out)
+    return outs
+
+
+def compare_train_runs(got: Sequence[dict], ref: Sequence[dict], rtol: float, atol: float,
+                       label: str = "") -> float:
+    """Hold the per-step outputs of ``run_train_steps`` (or dicts of the same
+    keys from the JAX package) against each other; returns the largest
+    absolute difference of the loss."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert set(g) == set(r), f"{label} step {i}: keys {sorted(g)} vs {sorted(r)}"
+        for k in g:
+            np.testing.assert_allclose(g[k], r[k], rtol=rtol, atol=atol,
+                                       err_msg=f"{label} step {i} {k}")
+        worst = max(worst, abs(g["loss"] - r["loss"]))
+    return worst
