@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the flagship's training step spends its time, on one GPU.
 
-Builds the flagship (KurtosisGlobal 224x300x3, latent 2000, seeded random
-weights) on the card and drives the combined train + score step that the
+Builds the flagship (224x300x3, latent 2000, seeded random weights;
+--model-type KurtosisGlobal by default, KurtosisSingle or KLGaussian) on the
+card and drives the combined train + score step that the
 benchmark times (train/bench_step.py::train_score_step: uint8 batch in,
 normalize, loss, backward, Adam update, per-frame z-scores) at batch 256:
 
@@ -17,7 +18,8 @@ idle share of the traced steps' wall time; then the optimizer's update
 alone. Prints a summary and writes it as
 JSON to --out (default build/profile_train.json, git-ignored).
 
-Usage: python3 profile_train_torch.py [--precision bfloat16] [--steps 10] [--traced 3]
+Usage: python3 profile_train_torch.py [--precision bfloat16] [--model-type KurtosisSingle]
+           [--steps 10] [--traced 3]
 """
 
 import argparse
@@ -35,6 +37,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--precision", default="bfloat16", choices=["bfloat16", "float32"])
+    parser.add_argument("--model-type", default="KurtosisGlobal",
+                        choices=["KurtosisGlobal", "KurtosisSingle", "KLGaussian"])
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--steps", type=int, default=10, help="untraced steps timed")
     parser.add_argument("--traced", type=int, default=3, help="steps under the profiler")
@@ -55,6 +59,7 @@ def main(argv=None):
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     config = flagship_config()
     config["training"]["precision"] = args.precision
+    config["model"]["type"] = args.model_type
     model = load_model_from_config(config, seed=0, device="cuda")
     model.compile()
     w, h, c = config["data"]["image_size"]
@@ -62,7 +67,8 @@ def main(argv=None):
     x_u8 = torch.randint(0, 256, (args.batch, w, h, c), dtype=torch.uint8, device="cuda",
                          generator=gen)
     summary = {"card": smi.splitlines()[0], "torch": torch.__version__,
-               "precision": args.precision, "optimizer": model.optimizer.name,
+               "model_type": args.model_type, "precision": args.precision,
+               "optimizer": model.optimizer.name,
                "batch": args.batch,
                "parameters": sum(p.numel() for p in model.core.parameters())}
 
@@ -112,7 +118,7 @@ def main(argv=None):
 
     tr = summary["traced"]
     print(f"{summary['card']}; torch {summary['torch']}; {summary['parameters']:,} parameters, "
-          f"{args.precision}, {summary['optimizer']}, batch {args.batch}")
+          f"{args.model_type}, {args.precision}, {summary['optimizer']}, batch {args.batch}")
     print(f"untraced {args.steps} steps: {step_ms:.3f} ms/step, "
           f"{summary['frames_per_s']:.1f} frames/s, last loss {summary['last_loss']:.6f}")
     print(f"traced {args.traced} steps: wall {tr['window_ms_per_frame']:.3f} ms/step, "
@@ -123,7 +129,7 @@ def main(argv=None):
     print("the moments kernels (csrc/moments.cu) in the traced steps:")
     for r in tr["kernels"]:
         if any(k in r["kernel"] for k in ("sum_kernel", "centred_kernel", "finalize_kernel",
-                                          "backward_kernel")):
+                                          "backward_kernel", "perdim_")):
             print(f"  {r['ms_per_frame']:9.4f} ms  x{r['launches_per_frame']:<5g} {r['kernel']}")
     print(f"{summary['optimizer']} update alone: {summary['optimizer_alone_ms']:.3f} ms")
     print(f"peak device memory {summary['peak_device_GiB']:.2f} GiB")

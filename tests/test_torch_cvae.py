@@ -117,10 +117,12 @@ def test_registry_types_precision_and_unported_loss():
     assert next(core.parameters()).device.type == "meta"  # nothing allocated
     assert not torch.backends.cudnn.allow_tf32  # float32 means float32
     assert type(core).compute_loss is not registry.AbstractCVAE.compute_loss
-    for name in ("KurtosisSingle", "KLGaussian"):  # their losses are not ported yet
-        unported = registry.build_core_from_config(tiny_config(model_type=name))
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            unported.compute_loss(None)
+    for name in ("KurtosisSingle", "KLGaussian"):  # every type has its own loss
+        typed = registry.build_core_from_config(tiny_config(model_type=name))
+        assert type(typed).__name__ == f"{name}CVAE"
+        assert type(typed).compute_loss is not registry.AbstractCVAE.compute_loss
+    with pytest.raises(NotImplementedError, match="has no loss"):  # only the abstract base
+        registry.AbstractCVAE.compute_loss(core, None)
     # model.s2d_input / model.fast_vjp are accepted and change nothing
     cfg = tiny_config()
     cfg["model"].update(s2d_input=True, fast_vjp=False)

@@ -156,6 +156,8 @@ def test_hold_off_and_state_machine(models):
 
 
 def test_unported_options_raise(models):
+    """What stays unported raises and names its ROADMAP item: int8 serving,
+    autosave, recording."""
     from trustedai_cl_vae_ad_tpu_torch.ops.quant import serving_forward
     from trustedai_cl_vae_ad_tpu_torch.stream.engine import StreamingEngine
 
@@ -167,21 +169,34 @@ def test_unported_options_raise(models):
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         StreamingEngine(tmodel, config, model_cache_dir="model_cache")
     t = StreamingEngine(tmodel, config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.enable_cont_learning = True
-    t.enable_cont_learning = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.set_learning_rate(1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.warmup(cl=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         t.begin_recording("rec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.load_replay_buffer_from_file("replay.txt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.load_replay_buffer_from_filelist(["a.png"])
+    assert not hasattr(t, "terminate_recording") and not hasattr(t, "save_model_to_dir")
     t.warmup(frame_shape=(40, 64, 3))  # the scratch run leaves the state untouched
     assert t.ring_filled == 0 and float(t.score_state.scalars.abs().sum()) == 0.0
+
+
+def test_cl_controls_exist_and_default_off(models):
+    """The controls that used to raise: continual learning is a plain
+    attribute, off by default, and an engine that never uses it allocates no
+    optimizer."""
+    from trustedai_cl_vae_ad_tpu_torch.stream.engine import StreamingEngine
+
+    config, _, tmodel = models
+    assert tmodel.optimizer is None
+    t = StreamingEngine(tmodel, config, cam_info={"name": "cam"}, replay_capacity=32,
+                        continuous_learning_period_ms=250.0)
+    assert t.enable_cont_learning is False and t.cl_epochs == 0 and t.last_epoch_loss is None
+    assert t.model_changed_flag is False and t.cam_info == {"name": "cam"}
+    assert t.replay_capacity == 32 and t.replay_buffer is None and t.replay_n == 0
+    assert t.continuous_learning_period_ms == 250.0
+    t.enable_cont_learning = True
+    t.enable_cont_learning = False
+    t.inference_period_ms = 0.0
+    r = t.process_frame(_frames(1)[0], now=10.0)
+    assert r.cl_stepped is False and r.loss is None and t.timings["cl_s"] >= 0.0
+    assert t.load_replay_buffer_from_filelist(["no_such.png"]) == 0 and t.replay_buffer is None
+    assert tmodel.optimizer is None
 
 
 def test_camera_streamer_torch_cli(tmp_path):

@@ -11,8 +11,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "trustedai_cl_vae_ad_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "trustedai_cl_vae_ad_tpu", "camera_streamer")
-ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "profile_stream_torch.py",
-                "profile_train_torch.py", "train_torch.py")
+ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "kernel_bounds_torch.py",
+                "profile_stream_torch.py", "profile_train_torch.py", "train_torch.py")
 
 
 def _port_sources():
@@ -34,7 +34,7 @@ import {PACKAGE}
 for m in pkgutil.walk_packages({PACKAGE}.__path__, "{PACKAGE}."):
     importlib.import_module(m.name)
 sys.path.insert(0, {REPO!r})
-import camera_streamer_torch, chip_smoke, profile_stream_torch
+import camera_streamer_torch, chip_smoke, kernel_bounds_torch, profile_stream_torch
 import profile_train_torch, train_torch
 print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
 """
@@ -52,7 +52,9 @@ def test_the_slices_new_modules_are_in_the_walk():
     for rel in ("ops/moments.py", "ops/adam.py", "models/batch_stats.py",
                 "models/kurtosis_global.py", "data/loader.py", "data/saved_dataset.py",
                 "utils/metrics.py", "train/__init__.py", "train/checkpoint.py",
-                "train/loop.py", "train/bench_step.py"):
+                "train/loop.py", "train/bench_step.py", "models/kurtosis_single.py",
+                "models/kl_gaussian.py", "data/pipeline.py", "stream/engine.py",
+                "stream/run.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
     assert {"train_torch.py", "profile_train_torch.py"} <= sources
 

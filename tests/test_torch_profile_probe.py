@@ -59,3 +59,22 @@ def test_trace_without_frames_is_refused():
 ])
 def test_short_name(name, short):
     assert short_name(name) == short
+
+
+def test_kernel_bounds_follow_from_the_shapes():
+    """kernel_bounds_torch.py: each bound is the larger of bytes over 3.35 TB/s
+    and operations over the peak of their type, at the probes' shapes."""
+    import kernel_bounds_torch as kb
+
+    table = kb.bounds()
+    assert sorted({r["row"] for r in table}) == list(range(3, 12))
+    by_kernel = {r["kernel"]: r for r in table}
+    fwd = by_kernel["ops/moments.py:98 _perdim_kernel forward"]
+    assert fwd["bytes"] == 2_048_000 + 32_000 and fwd["bound_by"] == "bytes"
+    assert abs(fwd["bound_ms"] - 2_080_000 / 3.35e12 * 1e3) < 1e-12
+    dot = by_kernel["r11_diag.py:163 dot_only"]
+    assert dot["bound_by"] == "operations"
+    assert abs(dot["bound_ms"] - 2 * 768 * 12800 * 4000 / 989e12 * 1e3) < 1e-12
+    for r in table:
+        assert r["bound_ms"] == max(r["bytes_ms"], r["operations_ms"]) > 0
+    assert kb.main(["--json"]) == 0

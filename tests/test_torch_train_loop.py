@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import LOSS_KEYS, tiny_config
+from torch_port_helpers import LOSS_KEYS, LOSS_KEYS_BY_TYPE, tiny_config
 from trustedai_cl_vae_ad_tpu.train.loop import lr_schedule_fn as jax_lr_schedule_fn
 from trustedai_cl_vae_ad_tpu_torch.data.loader import load_data
 from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
@@ -194,3 +194,49 @@ def test_train_torch_cli_dry_run_and_resume(tmp_path, monkeypatch, capsys):
     assert [r["train/epoch"] for r in recs if "train/epoch" in r] == [1.0, 2.0]
     # steps are numbered on from the first run's three
     assert [r["step"] for r in recs if "train/epoch" in r] == [6, 9]
+
+
+@pytest.mark.parametrize("model_type", ["KurtosisSingle", "KLGaussian"])
+def test_train_torch_cli_runs_and_resumes_the_smoke_config(model_type, tmp_path, monkeypatch,
+                                                           capsys):
+    """``configs/synthetic_small.yml`` (the repo's smoke config, type
+    KurtosisSingle), cut to 48 training frames and one epoch, trains on the
+    CPU, writes its type's metric keys and resumes for a second epoch."""
+    import yaml
+
+    import train_torch
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "synthetic_small.yml")) as f:
+        cfg = yaml.safe_load(f)
+    assert cfg["model"]["type"] == "KurtosisSingle"
+    cfg["model"]["type"] = model_type
+    cfg["data"].update(n_train=48, n_val=16)
+    cfg["training"]["max_epochs"] = 1
+    path = tmp_path / "small.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    monkeypatch.chdir(tmp_path)
+    train_torch.main([str(path), "--device", "cpu"])
+    (first,) = os.listdir(tmp_path / "logs")
+    first = str(tmp_path / "logs" / first)
+    assert load_train_state(first)["step"] == 3
+    with open(os.path.join(first, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    keys = LOSS_KEYS_BY_TYPE[model_type]
+    (train,) = [r for r in recs if "train/loss" in r]
+    (val,) = [r for r in recs if "val/loss" in r]
+    assert {k for k in train if k.startswith("train/")} == {f"train/{k}" for k in keys}
+    assert {k for k in val if k.startswith("val/")} == {f"val/{k}" for k in keys}
+    assert all(np.isfinite(val[f"val/{k}"]) for k in keys)
+    os.rename(first, tmp_path / "first")
+
+    cfg["training"]["max_epochs"] = 2
+    path.write_text(yaml.safe_dump(cfg))
+    train_torch.main([str(path), "--device", "cpu", "--resume", str(tmp_path / "first")])
+    assert "1 epochs done, step 3" in capsys.readouterr().out
+    (second,) = os.listdir(tmp_path / "logs")
+    assert load_train_state(str(tmp_path / "logs" / second))["epochs_completed"] == 2
+    restored = load_model_from_config(cfg, seed=0, device="cpu")
+    restored.load_model(str(tmp_path / "logs" / second), restore_optimizer=True)
+    assert restored.optimizer.count == 6
+    assert type(restored.core).__name__ == f"{model_type}CVAE"

@@ -50,11 +50,27 @@ def to_np(t):
 
 LOSS_KEYS = ["loss", "mse", "z_l1", "var_loss", "skew_loss", "z_kurtosis_loss", "z_kurtosis",
              "r_min", "r_max", "cross_entropy", "kl_div", "x_std_loss"]
+#: the metric dict's keys, in the order the JAX core builds them, per model type
+LOSS_KEYS_BY_TYPE = {
+    "KurtosisGlobal": LOSS_KEYS,
+    "KurtosisSingle": ["loss", "mse", "z_l1", "z_l2", "skew_loss", "z_kurtosis_loss",
+                       "z_kurtosis", "r_min", "r_max", "x_std_loss"],
+    "KLGaussian": ["loss", "mse", "kl_div", "z_l1", "r_min", "r_max", "x_std_loss"],
+}
+
+
+def typed_config(model_type, **kwargs):
+    """``tiny_config`` for ``model_type`` with every optimized loss term of
+    that type switched on."""
+    cfg = tiny_config(model_type=model_type, **kwargs)
+    cfg["loss"].update(w_kurtosis=1e-2, w_skew=5e-3, w_z_l1_reg=1e-3, w_kl_divergence=1e-3)
+    return cfg
 
 
 def paired_models(config, seed=0, compile=True):
     """(JAX VAEModel, the port's VAEModel) on the CPU carrying the same
-    weights (the JAX model's seeded init, through the bridge)."""
+    weights (the JAX model's seeded init, through the bridge); the model type
+    is the config's ``model.type``."""
     from trustedai_cl_vae_ad_tpu.models.wrapper import VAEModel as JaxVAEModel
     from trustedai_cl_vae_ad_tpu.registry import build_core_from_config
 

@@ -1,4 +1,4 @@
-"""Weighted (masked-batch) image-space statistics of the losses.
+"""Image-space statistics of the losses, plain and weighted (masked batch).
 
 Counterpart of ``trustedai_cl_vae_ad_tpu/models/batch_stats.py``. A
 fixed-capacity replay buffer pads batches with weight-0 rows; every batch
@@ -9,6 +9,19 @@ unmasked loss on the valid rows.
 from __future__ import annotations
 
 import torch
+
+
+def unweighted_image_stats(x: torch.Tensor, x_hat_prob: torch.Tensor) -> dict:
+    """mse, per-pixel std-matching loss (population std) and r_min / r_max of
+    a whole batch: the terms the three loss families share."""
+    x_std = torch.std(x, dim=0, correction=0)
+    x_hat_std = torch.std(x_hat_prob, dim=0, correction=0)
+    return {
+        "mse": ((x - x_hat_prob) ** 2).mean(),
+        "x_std_loss": ((x_std - x_hat_std) ** 2).mean(),
+        "r_min": x_hat_prob.min(),
+        "r_max": x_hat_prob.max(),
+    }
 
 
 def weighted_image_stats(x: torch.Tensor, x_hat_prob: torch.Tensor, weights) -> dict:

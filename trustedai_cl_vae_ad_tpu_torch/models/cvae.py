@@ -171,9 +171,6 @@ class AbstractCVAE(nn.Module):
     ``forward(params, x)`` signature the engines call.
     """
 
-    #: ROADMAP item that ports the loss of a type that has none yet
-    loss_roadmap_item = "queue 1 item 11"
-
     def __init__(self, config: dict, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
@@ -277,6 +274,5 @@ class AbstractCVAE(nn.Module):
 
     def compute_loss(self, *args, **kwargs):
         raise NotImplementedError(
-            f"{type(self).__name__}.compute_loss is not ported yet "
-            f"(ROADMAP.md {self.loss_roadmap_item})"
-        )
+            f"{type(self).__name__} has no loss: the model types of registry.py "
+            "(KurtosisGlobal, KurtosisSingle, KLGaussian) define compute_loss")

@@ -26,7 +26,11 @@ from typing import Optional
 
 import torch
 
-from trustedai_cl_vae_ad_tpu_torch.models.batch_stats import weighted_image_stats, weighted_z_l1
+from trustedai_cl_vae_ad_tpu_torch.models.batch_stats import (
+    unweighted_image_stats,
+    weighted_image_stats,
+    weighted_z_l1,
+)
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import AbstractCVAE, normalize_image_input
 from trustedai_cl_vae_ad_tpu_torch.ops.moments import global_moments, global_moments_weighted
 
@@ -77,23 +81,13 @@ class KurtosisGlobalCVAE(AbstractCVAE):
             x_logit = torch.log(torch.exp(x) / torch.exp(x).sum())
             likelihood_cross_entropy = -(x_hat_prob * x_logit).mean()
 
-            mse = ((x - x_hat_prob) ** 2).mean()
-
+            st = unweighted_image_stats(x, x_hat_prob)
             z_mean, z_var, z_skew, z_kurtosis = global_moments(z)
-
-            x_std = torch.std(x, dim=0, correction=0)
-            x_hat_std = torch.std(x_hat_prob, dim=0, correction=0)
-            x_std_loss = ((x_std - x_hat_std) ** 2).mean()
-
             kl_div_gaus = self.kl_divergence_gaussian(mean, logvar)
             z_l1_reg = z.abs().mean()
-            r_min = x_hat_prob.min()
-            r_max = x_hat_prob.max()
         else:
             st = weighted_image_stats(x, x_hat_prob, weights)
             w, wx, wsum, n_el = st["w"], st["wx"], st["wsum"], st["n_el"]
-            mse, x_std_loss = st["mse"], st["x_std_loss"]
-            r_min, r_max = st["r_min"], st["r_max"]
 
             x_logit = torch.log(torch.exp(x) / (wx * torch.exp(x)).sum())
             likelihood_cross_entropy = -(wx * x_hat_prob * x_logit).sum() / n_el
@@ -103,6 +97,8 @@ class KurtosisGlobalCVAE(AbstractCVAE):
             kl_div_gaus = 0.5 * (w[:, None] * _abs_kl_terms(mean, logvar)).sum()
             z_l1_reg = weighted_z_l1(z, w, wsum)
 
+        mse, x_std_loss = st["mse"], st["x_std_loss"]
+        r_min, r_max = st["r_min"], st["r_max"]
         var_loss = torch.abs(1.0 - z_var)
         z_skew_loss = torch.abs(z_skew)
         z_kurtosis_loss = torch.abs(self.kurtosis_target - z_kurtosis)

@@ -117,14 +117,16 @@ class VAEModel:
         loss, _ = self.train_step_and_run(x, eps=eps)
         return loss
 
-    def train_step_and_run(self, x, eps: Optional[torch.Tensor] = None):
+    def train_step_and_run(self, x, eps: Optional[torch.Tensor] = None, weights=None):
         """One gradient step; returns (loss dict, x_hat) as detached device
         tensors, without waiting for the device. ``eps`` injects the latent
-        noise (B, latent); otherwise it is drawn from the model's generator."""
+        noise (B, latent); otherwise it is drawn from the model's generator.
+        ``weights`` (B,) masks rows out of every batch statistic (the live
+        engine's padded replay buffer)."""
         optimizer = self._need_optimizer()
         x = self._as_image_input(x)
         loss_dict, x_hat = self.core.compute_loss(x, training=True, return_inf=True, eps=eps,
-                                                  generator=self.generator)
+                                                  generator=self.generator, weights=weights)
         grads = torch.autograd.grad(loss_dict["loss"], optimizer.params)
         optimizer.step(list(grads))
         return {k: v.detach() for k, v in loss_dict.items()}, x_hat.detach()

@@ -2,10 +2,9 @@
 
 Counterpart of ``trustedai_cl_vae_ad_tpu/registry.py``: the same three type
 names, KurtosisGlobal as the default, the same precision modes. The three
-types share the CVAE's eval forward. KurtosisGlobal has its loss
-(``models/kurtosis_global.py``); the losses of KurtosisSingle and KLGaussian
-are not ported yet, so their ``compute_loss`` raises and names the ROADMAP
-item that ports it.
+types share the CVAE's encoder, decoder and parameter tree; the type selects
+the loss (``models/kurtosis_global.py``, ``models/kurtosis_single.py``,
+``models/kl_gaussian.py``).
 """
 
 from __future__ import annotations
@@ -17,21 +16,15 @@ import torch
 
 from trustedai_cl_vae_ad_tpu_torch.config import load_config, validate_config
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import AbstractCVAE
+from trustedai_cl_vae_ad_tpu_torch.models.kl_gaussian import KLGaussianCVAE
 from trustedai_cl_vae_ad_tpu_torch.models.kurtosis_global import KurtosisGlobalCVAE
+from trustedai_cl_vae_ad_tpu_torch.models.kurtosis_single import KurtosisSingleCVAE
 
 AVAILABLE_TYPES = [
     "KLGaussian",
     "KurtosisGlobal",
     "KurtosisSingle",
 ]
-
-
-class KLGaussianCVAE(AbstractCVAE):
-    loss_roadmap_item = "queue 1 item 11"
-
-
-class KurtosisSingleCVAE(AbstractCVAE):
-    loss_roadmap_item = "queue 1 item 11"
 
 
 _TYPES = {
@@ -105,14 +98,16 @@ def load_model_from_config_path(config_path: str, seed: int = 0, device="cuda"):
     return load_model_from_config(config, seed=seed, device=device), config
 
 
-def load_model_from_directory(logdir: str, device="cuda"):
+def load_model_from_directory(logdir: str, device="cuda", restore_optimizer=False):
     """(model, config) from a log directory this package's ``save_model``
     wrote: ``config.yml`` beside ``encoder/`` and ``decoder/``. The weights
-    are restored; Adam moments are not (``model.load_model(logdir,
-    restore_optimizer=True)`` restores them for a resume)."""
+    are restored. ``restore_optimizer=True`` also compiles the model and
+    restores checkpointed Adam moments, when the directory holds them (a
+    resume of training or of continual learning); the default allocates
+    none."""
     config_path = os.path.join(logdir, "config.yml")
     if not os.path.isfile(config_path):
         raise FileNotFoundError(f"{config_path} not found: not a training log directory")
     model, config = load_model_from_config_path(config_path, device=device)
-    model.load_model(logdir, restore_optimizer=False)
+    model.load_model(logdir, restore_optimizer=bool(restore_optimizer))
     return model, config

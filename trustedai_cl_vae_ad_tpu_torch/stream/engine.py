@@ -1,7 +1,7 @@
-"""Headless single-stream inference engine.
+"""Headless single-stream inference and continual-learning engine.
 
-Counterpart of the inference path of ``trustedai_cl_vae_ad_tpu/stream/
-engine.py::StreamingEngine``:
+Counterpart of ``trustedai_cl_vae_ad_tpu/stream/engine.py::StreamingEngine``
+without its recording and autosave:
 
   * a device ring of 16 frames; the first frame seeds every slot;
   * per frame: upload the uint8 frame, normalize it, resize it on the device
@@ -12,15 +12,27 @@ engine.py::StreamingEngine``:
     with the frame's tag);
   * the inference hold-off, the anomaly state machine with its hold period,
     fixed and per-task CDF thresholds, ``new_task``;
+  * continual learning: at its own cadence a gradient step on the ring
+    [+ the replay buffer] with the loss of the model's type and Adam in
+    place, so the next frame is scored with the updated weights (the serving
+    forward reads the same tensors). The learning rate is re-dialed at run
+    time; the img-noise dial is stored but, as in the JAX engine, has no
+    effect on the training loss (the input-fuzz path is dead). The optimizer
+    and its moments are allocated at the first use of a CL control, never
+    for an inference-only stream;
+  * the replay buffer, loaded from a txt or csv of image paths and held on
+    the device padded to a fixed capacity; padded rows carry weight 0 and
+    drop out of every loss statistic;
   * the per-phase ``timings`` dict.
 
-Continual learning, recording, replay buffers, int8 serving and autosave
-are not ported yet: asking for them raises NotImplementedError naming the
-ROADMAP item that ports them.
+Recording, int8 serving and autosave are not ported yet: asking for them
+raises NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import csv
+import os
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -31,15 +43,14 @@ import torch
 
 from trustedai_cl_vae_ad_tpu_torch.anomaly.cdf import CDFObject, threshold_from_cdf
 from trustedai_cl_vae_ad_tpu_torch.config import load_config
-from trustedai_cl_vae_ad_tpu_torch.data.ingest import resize_images
-from trustedai_cl_vae_ad_tpu_torch.ops import stream_score
+from trustedai_cl_vae_ad_tpu_torch.data.ingest import preprocess_batch, resize_images
+from trustedai_cl_vae_ad_tpu_torch.data.pipeline import ParallelDecodeIterable
+from trustedai_cl_vae_ad_tpu_torch.ops import moments, stream_score
 from trustedai_cl_vae_ad_tpu_torch.ops.quant import serving_forward
 from trustedai_cl_vae_ad_tpu_torch.ops.stream_score import StreamScoreState
 from trustedai_cl_vae_ad_tpu_torch.utils.profiling import defer_signals
 
-_CL_ITEM = "continual learning is not ported yet (ROADMAP.md queue 1 items 3-7)"
 _RECORD_ITEM = "recording is not ported yet (ROADMAP.md queue 1 item 12)"
-_REPLAY_ITEM = "replay buffers are not ported yet (ROADMAP.md queue 1 item 12)"
 _AUTOSAVE_ITEM = "model autosave is not ported yet (ROADMAP.md queue 1 item 8)"
 
 
@@ -80,6 +91,7 @@ class FrameResult:
     _norm_dev: object = None       # device tensors; fetched lazily
     _rec_dev: object = None
     cl_stepped: bool = False
+    loss: Optional[dict] = None    # the CL step's loss dict, when one ran
     tag: object = None             # caller's id of the SCORED frame (pipelined
     # results lag one submitted frame, and hold-off skips drop submissions)
     _norm_np: object = None        # memoized host copies (one fetch each)
@@ -112,11 +124,15 @@ class StreamingEngine:
         model,
         config: dict,
         anomaly_settings: Optional[dict] = None,
+        cam_info: Optional[dict] = None,
         stream_error_ma: float = 0.99,
         anomaly_ma_weight: float = 0.9,
         inference_period_ms: float = 50.0,
+        continuous_learning_period_ms: float = 500.0,
         host_resize: bool = False,
         pipelined: bool = False,
+        metrics=None,
+        replay_capacity: int = 256,
         quantize: bool = False,
         model_cache_dir: Optional[str] = None,
     ):
@@ -124,6 +140,7 @@ class StreamingEngine:
             raise NotImplementedError(_AUTOSAVE_ITEM)
         self.model = model
         self.device = model.device
+        self.cam_info = cam_info or {}
         self.anomaly_settings = (
             validate_anomaly_settings(anomaly_settings)
             if anomaly_settings is not None
@@ -132,6 +149,7 @@ class StreamingEngine:
         self.stream_error_ma = float(stream_error_ma)
         self.anomaly_ma_weight = float(anomaly_ma_weight)
         self.inference_period_ms = inference_period_ms
+        self.continuous_learning_period_ms = continuous_learning_period_ms
         # shrink frames on the host (cv2 INTER_AREA) before upload: a smaller
         # host->device copy in place of the device's antialiased resize
         self.host_resize = host_resize
@@ -151,6 +169,18 @@ class StreamingEngine:
         self.ring_filled = 0
         self.score_state: StreamScoreState = stream_score.init_state(
             self.height, self.width, self.device)
+        # The replay buffer is held PADDED to a fixed capacity with a row
+        # weight vector: weight-0 rows drop out of every loss statistic, so
+        # the CL batch has one shape however many images a replay file holds
+        # (one cuDNN algorithm choice, one allocator footprint).
+        self.replay_capacity = int(replay_capacity)
+        self.replay_buffer: Optional[torch.Tensor] = None
+        self.replay_n = 0
+        self.replay_buffer_paths: Optional[list] = None
+
+        # each CL epoch's loss dict, with anomaly_score and anomaly_score_ma,
+        # goes to this writer (utils/metrics.py::MetricsWriter) under "cl/"
+        self.metrics = metrics
 
         # per-task CDF thresholding over the recent score history
         self._score_history: deque = deque(maxlen=1024)
@@ -158,12 +188,18 @@ class StreamingEngine:
         self._cdf_dirty = 0
         self._task_scored = 0  # frames scored since the last new_task()
 
+        # mutable dials
+        self.enable_cont_learning = False
         self.enable_anomaly_state = True
         self.anomaly_score = 0.0
         self.anomaly_score_ma = 0.0
         self.anomalous_state = False
         self.anomalous_start_time: Optional[float] = None
+        self.cl_epochs = 0
+        self.last_epoch_loss: Optional[dict] = None
+        self.model_changed_flag = False
         self._last_inference_t = 0.0
+        self._last_cl_t = 0.0
 
         self.process_rate = 0.0
         self.timings: dict = {}
@@ -172,26 +208,8 @@ class StreamingEngine:
             model.core, model.params, quantize=quantize)
 
     # ----------------------------------------------------- unported controls
-    @property
-    def enable_cont_learning(self) -> bool:
-        return False
-
-    @enable_cont_learning.setter
-    def enable_cont_learning(self, value: bool) -> None:
-        if value:
-            raise NotImplementedError(_CL_ITEM)
-
-    def set_learning_rate(self, lr: float) -> None:
-        raise NotImplementedError(_CL_ITEM)
-
     def begin_recording(self, record_dir: str) -> str:
         raise NotImplementedError(_RECORD_ITEM)
-
-    def load_replay_buffer_from_file(self, input_filename: str) -> int:
-        raise NotImplementedError(_REPLAY_ITEM)
-
-    def load_replay_buffer_from_filelist(self, filelist: list) -> int:
-        raise NotImplementedError(_REPLAY_ITEM)
 
     # -------------------------------------------------------- the dispatch
     def _infer_score(self, ring, idx, frame_u8, state, seed_ring):
@@ -218,9 +236,13 @@ class StreamingEngine:
         The engine's ring and scorer state are untouched.
 
         ``frame_shape``: (H, W, C) the camera delivers (default: model size).
+        ``cl``: also prepare the continual-learning step: allocate the
+        optimizer and its moments, build the moments kernels, and run the
+        loss and its backward once on a scratch batch of the CL step's shape
+        (load the replay buffer first, as the CLI does). The gradients are
+        dropped: parameters, moments, the model's generator and the ring
+        stay as they were.
         """
-        if cl:
-            raise NotImplementedError(_CL_ITEM)
         shape = tuple(frame_shape) if frame_shape is not None else (
             self.height, self.width, self.channels)
         if self.device.type == "cuda":
@@ -231,11 +253,33 @@ class StreamingEngine:
             _, _, _, score_count = self._infer_score(
                 ring, 0, np.zeros(shape, np.uint8), state, True)
             score_count.cpu()
+        if cl:
+            self._ensure_cl()
+            if self.device.type == "cuda":
+                moments.build()
+            n = self.RING_SIZE + (0 if self.replay_buffer is None else self.replay_buffer.shape[0])
+            # mid-grey, not zeros: an all-zero latent has no z_l2 gradient
+            stacked = torch.full((n, self.height, self.width, self.channels), 0.5,
+                                 dtype=self.ring.dtype, device=self.device)
+            eps = torch.zeros((n, self.model.latent_size), device=self.device)
+            loss = self.model.core.compute_loss(
+                stacked, training=True, eps=eps,
+                weights=torch.ones(n, device=self.device))["loss"]
+            grads = torch.autograd.grad(loss, self.model.optimizer.params)
+            float(grads[0].flatten()[0])  # wait for the backward
+
+    def _ensure_cl(self) -> None:
+        """Attach the optimizer (allocating Adam's moments on the device) at
+        the first use of a CL control: an inference-only stream never holds
+        them (the flagship's are twice its parameter bytes)."""
+        if self.model.optimizer is None:
+            self.model.compile()
 
     # -------------------------------------------------------------- main path
     def process_frame(self, frame_u8: np.ndarray, now: Optional[float] = None,
                       tag: object = None) -> Optional[FrameResult]:
-        """Run inference + scoring for one RGB uint8 frame.
+        """Run inference + scoring (+ continual learning at its cadence)
+        for one RGB uint8 frame.
 
         Returns None inside the inference hold-off period, and for the first
         frame in pipelined mode (its result comes with the next call)."""
@@ -271,13 +315,27 @@ class StreamingEngine:
         score, count = score_count.cpu().numpy()  # single small device->host fetch
         t_infer = time.perf_counter()
 
-        result = self._finish(float(score), float(count), norm_u8, rec_u8, tag, now)
+        # continual learning at its cadence, before this frame's score is
+        # booked (the CL record carries the previous frame's score)
+        cl_stepped = False
+        loss = None
+        if (
+            self.enable_cont_learning
+            and (now - self._last_cl_t) * 1000.0 > self.continuous_learning_period_ms
+        ):
+            self._last_cl_t = now
+            loss = self._do_cl_step()
+            cl_stepped = True
+        t_cl = time.perf_counter()
+
+        result = self._finish(float(score), float(count), norm_u8, rec_u8, tag, now,
+                              cl_stepped=cl_stepped, loss=loss)
 
         t_end = time.perf_counter()
         self.timings = {
             "infer_s": t_infer - t_start,
-            "cl_s": 0.0,
-            "record_s": t_end - t_infer,
+            "cl_s": t_cl - t_infer,
+            "record_s": t_end - t_cl,
             "total_s": t_end - t_start,
         }
         self.process_rate = 0.9 * self.timings["total_s"] + 0.1 * self.process_rate
@@ -293,7 +351,8 @@ class StreamingEngine:
         score, count = score_count.cpu().numpy()
         return self._finish(float(score), float(count), norm_u8, rec_u8, tag, now)
 
-    def _finish(self, score_f, count_f, norm_u8, rec_u8, tag, now) -> FrameResult:
+    def _finish(self, score_f, count_f, norm_u8, rec_u8, tag, now, cl_stepped=False,
+                loss=None) -> FrameResult:
         self.anomaly_score = score_f
         self._record_score(score_f)
         self.check_anomalous_state(now)
@@ -307,8 +366,80 @@ class StreamingEngine:
             anomalous=self.anomalous_state,
             _norm_dev=norm_u8,
             _rec_dev=rec_u8,
+            cl_stepped=cl_stepped,
+            loss=loss,
             tag=tag,
         )
+
+    # ---------------------------------------------------- continual learning
+    def _cl_batch(self):
+        """(stacked frames, row weights) of one CL step: the ring, then the
+        capacity-padded replay buffer, whose padding rows weigh 0."""
+        if self.replay_buffer is None:
+            return self.ring, torch.ones(self.RING_SIZE, device=self.device)
+        stacked = torch.cat([self.ring, self.replay_buffer], dim=0)
+        weights = torch.zeros(stacked.shape[0], device=self.device)
+        weights[: self.RING_SIZE + self.replay_n] = 1.0
+        return stacked, weights
+
+    def _do_cl_step(self) -> dict:
+        """One gradient step on ring [+ replay]; returns the loss dict as
+        floats, with the engine's anomaly scores added."""
+        self._ensure_cl()
+        stacked, weights = self._cl_batch()
+        # parameters and moments update in place, tensor by tensor: defer
+        # signals so an interrupt never leaves a step half applied
+        with defer_signals():
+            loss, _x_hat = self.model.train_step_and_run(stacked, weights=weights)
+        self.cl_epochs += 1
+        # one fetch for the whole dict (a float() per key waits for the
+        # device each time)
+        values = torch.stack([v.to(torch.float32) for v in loss.values()]).cpu().tolist()
+        loss = dict(zip(loss, values))
+        loss["anomaly_score"] = self.anomaly_score
+        loss["anomaly_score_ma"] = self.anomaly_score_ma
+        self.last_epoch_loss = loss
+        self.model_changed_flag = True
+        if self.metrics is not None:
+            self.metrics.log(self.cl_epochs, loss, prefix="cl/")
+        return loss
+
+    def set_learning_rate(self, lr: float) -> None:
+        # the lr dial is a CL control: dialing it attaches the optimizer
+        # (allocating its moments) if that has not happened yet
+        self._ensure_cl()
+        self.model.set_learning_rate(lr)
+
+    def set_img_noise(self, beta: float) -> None:
+        """The img-noise dial -> model.beta. beta only fuzzes the encoder
+        input when encode() is called with training=True, and the training
+        loss never does, so this dial is stored but has no effect on CL
+        training, exactly as in the JAX engine."""
+        self.model.beta = beta
+
+    # ---------------------------------------------------------- replay buffer
+    def load_replay_buffer_from_file(self, input_filename: str) -> int:
+        """txt (one path per line) or csv (first column)."""
+        return self.load_replay_buffer_from_filelist(parse_replay_file(input_filename))
+
+    def load_replay_buffer_from_filelist(self, filelist: list) -> int:
+        imgs, ok_paths = decode_filelist_to_model_res(
+            filelist, self.height, self.width, self.channels, self.device)
+        n = len(ok_paths)
+        if n == 0:
+            return 0
+        if n > self.replay_capacity:
+            # grow in RING_SIZE buckets, so that repeated oversized loads
+            # converge to few distinct batch shapes
+            self.replay_capacity = -(-n // self.RING_SIZE) * self.RING_SIZE
+        buf = torch.zeros((self.replay_capacity, self.height, self.width, self.channels),
+                          dtype=torch.float32, device=self.device)
+        buf[:n] = imgs
+        self.replay_buffer = buf
+        self.replay_n = n
+        self.replay_buffer_paths = ok_paths
+        print(f"Replay Buffer Loaded: {n} images (capacity {self.replay_capacity})")
+        return n
 
     # ------------------------------------------------------- state machine
     def toggle_anomalous_state(self, state: bool, now: Optional[float] = None) -> None:
@@ -387,3 +518,44 @@ class StreamingEngine:
                     self.toggle_anomalous_state(False, now)
         else:
             self.toggle_anomalous_state(False, now)
+
+
+def parse_replay_file(input_filename: str) -> list:
+    """Replay-buffer file -> the image paths in it that exist. txt (one path
+    per line) or csv (first column)."""
+    if not os.path.isfile(input_filename):
+        raise FileNotFoundError(f"replay-buffer file not found: {input_filename}")
+    ext = os.path.splitext(input_filename)[-1].lower()
+    if ext == ".txt":
+        with open(input_filename) as f:
+            paths = [os.path.normpath(r.strip()) for r in f if r.strip()]
+    elif ext == ".csv":
+        with open(input_filename) as f:
+            paths = [row[0] for row in csv.reader(f) if row]
+    else:
+        raise ValueError(f"Unrecognized extension: {ext}")
+    return [p for p in paths if os.path.isfile(p)]
+
+
+def decode_filelist_to_model_res(filelist: list, height: int, width: int, channels: int,
+                                 device):
+    """Worker-pool decode of a replay filelist, then normalize and antialias
+    resize to model resolution on ``device``. Returns (float32 tensor
+    (n, height, width, channels) on the device, absolute paths of the n
+    readable files), in the list's order; unreadable files are skipped.
+    Images are preprocessed in groups of one native shape, at most 32 at a
+    time, so a large load never holds more than one chunk at camera size."""
+    decoded = [(img, os.path.abspath(p)) for img, p in ParallelDecodeIterable(filelist)]
+    out = torch.empty((len(decoded), height, width, channels), dtype=torch.float32,
+                      device=device)
+    by_shape: dict = {}
+    for i, (img, _p) in enumerate(decoded):
+        by_shape.setdefault(img.shape, []).append(i)
+    chunk = 32
+    for idxs in by_shape.values():
+        for c0 in range(0, len(idxs), chunk):
+            block = idxs[c0: c0 + chunk]
+            stack = np.stack([decoded[i][0] for i in block])
+            out[torch.as_tensor(block, device=device)] = preprocess_batch(
+                stack, [height, width, channels], device)
+    return out, [p for _img, p in decoded]

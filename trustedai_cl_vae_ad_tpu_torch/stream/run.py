@@ -9,6 +9,7 @@ lines, stop at a tick boundary on SIGTERM/SIGINT, and summarize latency.
 from __future__ import annotations
 
 import json
+import os
 import signal
 import time
 from typing import Callable, List, Optional
@@ -78,6 +79,32 @@ def build_engine(model, config: dict, anomaly_settings=None, realtime: bool = Fa
     return engine
 
 
+def configure_continual_learning(engine: StreamingEngine, continual_learning: bool = False,
+                                 learning_rate: Optional[float] = None,
+                                 img_noise: Optional[float] = None,
+                                 replay_buffer: Optional[str] = None,
+                                 model_dir: Optional[str] = None, log: Callable = print) -> None:
+    """The CLI's continual-learning controls, with ``camera_streamer.py``'s
+    rules: a learning rate without CL is ignored (dialing it would allocate
+    Adam's moments, which an inference-only stream never uses); a
+    ``replay_buffer_paths.csv`` in the model directory is picked up, and an
+    explicit replay file replaces it."""
+    engine.enable_cont_learning = bool(continual_learning)
+    if learning_rate is not None:
+        if continual_learning:
+            engine.set_learning_rate(learning_rate)
+        else:
+            log("--learning-rate ignored without --continual-learning")
+    if img_noise is not None:
+        engine.set_img_noise(img_noise)
+    if model_dir is not None:
+        recorded = os.path.join(model_dir, "replay_buffer_paths.csv")
+        if os.path.exists(recorded):
+            engine.load_replay_buffer_from_file(recorded)
+    if replay_buffer:
+        engine.load_replay_buffer_from_file(replay_buffer)
+
+
 def _stats_line(result, lat_ms: float) -> dict:
     return {
         "frame": result.tag,
@@ -93,9 +120,13 @@ def _stats_line(result, lat_ms: float) -> dict:
 def run_stream(engine: StreamingEngine, source, max_frames: Optional[int] = None,
                stats_jsonl: Optional[str] = None, realtime: bool = False,
                fps: float = 20.0, stop: Optional[StopRequest] = None,
-               on_result: Optional[Callable] = None, log: Callable = print) -> dict:
+               on_result: Optional[Callable] = None, log: Callable = print,
+               clock: Optional[Callable[[int], float]] = None) -> dict:
     """Feed ``source`` through ``engine`` until it ends, ``max_frames`` frames
-    were submitted, or ``stop`` is requested. Per-frame latency is host time
+    were submitted, or ``stop`` is requested. ``clock(n)`` gives frame n's
+    time in seconds where a recorded stream is replayed on its own timeline
+    (the hold-off, the CL cadence and the anomaly hold then follow it, not
+    the wall clock). Per-frame latency is host time
     around ``process_frame``, whose host fetch of the score waits for the
     device. Returns a summary: frames submitted, results, latencies (ms),
     p50/p95/mean over the latencies after the first two when there are more
@@ -109,7 +140,7 @@ def run_stream(engine: StreamingEngine, source, max_frames: Optional[int] = None
             if stop is not None and stop.count:
                 raise KeyboardInterrupt
             t0 = time.perf_counter()
-            result = engine.process_frame(frame, tag=n)
+            result = engine.process_frame(frame, now=None if clock is None else clock(n), tag=n)
             if result is not None:
                 lat_ms = (time.perf_counter() - t0) * 1000.0
                 latencies.append(lat_ms)
