@@ -2,13 +2,13 @@
 """Smoke check of the PyTorch port on one NVIDIA GPU.
 
 Runs the port's main paths (trustedai_cl_vae_ad_tpu_torch) on the card, in
-phases: live-stream scoring, training of the three model types, and
-continual learning in the live engine; any failure raises and the script
-exits non-zero without printing its final line.
+phases: live-stream scoring, training of the three model types, continual
+learning in the live engine, and int8 serving with the multi-camera tick; any
+failure raises and the script exits non-zero without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
-  (b) build: nvcc builds the stream-scorer and the moments kernels from
-      csrc/ into build/, both at once;
+  (b) build: nvcc builds the stream-scorer, the moments and the int8 GEMM
+      kernels from csrc/ into build/, all at once;
   (c) kernel vs its plain PyTorch version on the card, 8-frame sequences at
       224x300x3 and 37x53x3 (constant first frame, seeding, converged state),
       at the tolerances of trustedai_cl_vae_ad_tpu_torch/testing.py, and the
@@ -58,6 +58,30 @@ exits non-zero without printing its final line.
       run on 16 + 256 rows of which 24 weigh 1; the losses are finite, the
       parameters and the served reconstruction of a fixed frame change.
       Then one CL step each for the other two types at a tiny size.
+  (m) the int8 GEMM kernel vs its plain PyTorch version on the card, bit for
+      bit: the archived probe's (32, 268800, 4096); the encoder Dense's (1 and
+      16, 268800, 4000) chunk by chunk as ops/quant.py calls it, the decoder
+      Dense's (16, 2000, 134400); a ragged (3, 1003, 37); a saturated chunk of
+      131072; a range inside a larger matrix; a view that is not 16-byte
+      aligned; bad inputs raise. Times: CUDA-event median of 100 and the
+      back-to-back device time of the kernel, the plain version and
+      torch._int_mm at the probe's shape, and the kernel at the path's shapes;
+  (n) the batched scorer (one launch over a grid of K = 16 frames with a
+      validity mask) vs the plain batched version at 224x300x3, 8 ticks from
+      mixed start states with some streams dropping ticks, per stream at the
+      tolerances of (c);
+  (o) a tiny config: the multi-camera engine on cuda vs cpu, K = 3 with one
+      stream dropping ticks, float and w8a8; w8 and w8a8 fidelity against the
+      float forward; an int8 sidecar written, healed after a simulated kill
+      between its two renames, and reloaded;
+  (p) the flagship through run_all_cameras, as camera_streamer_torch.py
+      --all-cameras --n-streams 16 --quantize drives it: 16 synthetic 240x320
+      cameras, one dropping every 4th tick, 64 ticks in float and in w8a8 (the
+      int8 kernel launched 4 times a tick, the scorer once), 64 frames on the
+      single-stream engine in float and with quantize=True, the quantization
+      pass timed, the reconstruction of a fixed batch against the float
+      forward; then an int8-checkpoint boot of the same weights from a
+      temporary quantized/ sidecar, with no float Dense on the device.
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -83,6 +107,12 @@ STREAM_KERNEL = {
     "source": f"{PACKAGE}/csrc/stream_score.cu",
     "replaces": "trustedai_cl_vae_ad_tpu/ops/stream_score.py:98",
 }
+INT8_KERNEL = {
+    "name": "int8_gemm",
+    "route": "cuda",
+    "source": f"{PACKAGE}/csrc/int8_gemm.cu",
+    "replaces": "benchmarks/r4_int8_gemm.py:45",
+}
 MOMENTS_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/moments.cu"}
 JAX_MOMENTS = "trustedai_cl_vae_ad_tpu/ops/moments.py"
 MOMENTS_KERNELS = {
@@ -92,6 +122,11 @@ MOMENTS_KERNELS = {
 # NVIDIA's H100 SXM data sheet: device memory rate, float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+INT8_OP_PER_S = 1979e12  # dense int8 rate of the tensor cores
+PROBE_SHAPE = (32, 268800, 4096)  # benchmarks/r4_int8_gemm.py:81
+# (M, K, N) of the two quantized Dense layers on the multi-camera and the single-stream path
+PATH_SHAPES = [(16, 268800, 4000), (1, 268800, 4000), (16, 2000, 134400), (1, 2000, 134400)]
+FLEET_STREAMS, FLEET_TICKS, DROP_EVERY = 16, 64, 4
 MOMENT_SHAPES = [((256, 2000), "float32"), ((256, 2000), "bfloat16"), ((768, 2000), "float32"),
                  ((7, 13), "float32"), ((7, 13), "bfloat16")]
 GRAD_WEIGHTS = (0.3, -0.7, 1.1, 0.9)
@@ -133,6 +168,7 @@ def nvidia_smi_line():
 
 
 def median_ms(fn, runs=100, warmup=5):
+    """Median over ``runs`` calls, each between two CUDA events."""
     import torch
 
     for _ in range(warmup):
@@ -153,6 +189,14 @@ def bound(nbytes: float, flops: float):
     of the bytes over the memory rate and the operations over the float32
     rate."""
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def int8_bound(m, k, n):
+    """(bound_ms, bound_by) of an int8 product: x, w read and the int32 result
+    written once, against 2 m k n operations at the int8 tensor-core rate."""
+    by_bytes = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * m * k * n / INT8_OP_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -826,10 +870,484 @@ def phase_l():
     return launches
 
 
+def phase_m(dev):
+    """The int8 GEMM kernel vs its plain version on the card, bit for bit;
+    returns the kernel's record at the probe's shape with the path's shapes
+    beside it."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+    from trustedai_cl_vae_ad_tpu_torch.ops.quant import _I32_SAFE_K
+
+    def rnd(shape, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(-127, 128, shape, device=dev, generator=gen,
+                             dtype=torch.int32).to(torch.int8)
+
+    def check(x, w, k0=0, k1=None, label=""):
+        got = ig.int8_gemm(x, w, k0, k1)
+        torch.cuda.synchronize()
+        ref = ig.int8_gemm_reference(x, w, k0, k1)
+        assert got.dtype == torch.int32 and got.shape == ref.shape
+        assert torch.equal(got, ref), (label, int((got.long() - ref.long()).abs().max()))
+        return got
+
+    def chunks(k):
+        return [(s, min(s + _I32_SAFE_K, k)) for s in range(0, k, _I32_SAFE_K)]
+
+    before = ig.launches
+    path = []
+    for m, k, n in PATH_SHAPES:
+        x, w = rnd((m, k), m), rnd((n, k), n)
+        for s, e in chunks(k):  # as ops/quant.py::_int8_partials calls it
+            check(x, w, s, e, f"({m}, {k}, {n}) [{s}, {e})")
+        fn = lambda: [ig.int8_gemm(x, w, s, e) for s, e in chunks(k)]  # noqa: E731
+        bound_ms, bound_by = int8_bound(m, k, n)
+        path.append({"shape": [m, k, n], "launches_per_call": len(chunks(k)),
+                     "ms": median_ms(fn), "device_ms": queued_ms(fn),
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"  ({m}, {k}, {n}) in {len(chunks(k))} launches: equal bit for bit; kernel "
+            f"{path[-1]['ms']:.4f} ms ({path[-1]['device_ms']:.4f} ms back to back), bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+        del x, w
+    x, w = rnd((3, 1003), 1), rnd((37, 1003), 2)
+    check(x, w, label="ragged")
+    check(x, w, 5, 900, "ragged range")
+    check(rnd((5, 4096), 3), rnd((50, 4096), 4), 16, 4000, "a range inside a larger matrix")
+    check(rnd((40, 512), 5), rnd((33, 512), 6), label="M above one tile of 32")
+    sat = torch.full((2, _I32_SAFE_K), 127, dtype=torch.int8, device=dev)
+    got = check(sat, torch.full((17, _I32_SAFE_K), 127, dtype=torch.int8, device=dev),
+                label="saturated")
+    assert int(got[0, 0]) == 127 * 127 * _I32_SAFE_K < 2 ** 31
+    got = check(sat, -sat, label="saturated, negative")
+    assert int(got[1, 1]) == -127 * 127 * _I32_SAFE_K
+    # a contiguous view that starts one byte into an allocation: no 16-byte loads
+    view = rnd((16 * 2000 + 1,), 7)[1:].view(16, 2000)
+    assert view.data_ptr() % 16 != 0
+    check(view, rnd((100, 2000), 8), label="misaligned view")
+    log("  ragged (3, 1003, 37), ranges, M = 40, saturated chunks of 131072 (+ and -) and a "
+        "view at +1 byte: equal bit for bit")
+    x, w = rnd((4, 64), 9), rnd((6, 64), 10)
+    for bad_x, bad_w, error in ((x.int(), w, TypeError), (x, w.float(), TypeError),
+                                (x[:, ::2], w[:, ::2], ValueError), (x[0], w, ValueError),
+                                (x, w[:, :32].contiguous(), ValueError),
+                                (x, w.cpu(), ValueError)):
+        expect_raises(lambda: ig.int8_gemm(bad_x, bad_w), error,
+                      f"int8_gemm of {bad_x.dtype} {tuple(bad_x.shape)} x "
+                      f"{bad_w.dtype} {tuple(bad_w.shape)}")
+    expect_raises(lambda: ig.int8_gemm(x, w, 8, 8), ValueError, "an empty range")
+    expect_raises(lambda: ig.int8_gemm(x, w, 0, 65), ValueError, "a range past K")
+
+    m, k, n = PROBE_SHAPE
+    x, w = rnd((m, k), 11), rnd((n, k), 12)
+    got = check(x, w, label="probe")  # one launch over all of K: no sum of random data leaves int32
+    lib = torch._int_mm(x, w.t())
+    assert torch.equal(got, lib), "torch._int_mm disagrees"
+    assert ig.launches > before
+    bound_ms, bound_by = int8_bound(m, k, n)
+    record = dict(shape=list(PROBE_SHAPE), max_abs_err=0.0,
+                  ms=median_ms(lambda: ig.int8_gemm(x, w)),
+                  device_ms=queued_ms(lambda: ig.int8_gemm(x, w)),
+                  plain_ms=median_ms(lambda: ig.int8_gemm_reference(x, w), runs=10, warmup=2),
+                  library_ms=median_ms(lambda: torch._int_mm(x, w.t())),
+                  library_device_ms=queued_ms(lambda: torch._int_mm(x, w.t())),
+                  bound_ms=bound_ms, bound_by=bound_by, path=path)
+    log(f"  probe {PROBE_SHAPE}, one launch, median of 100: kernel {record['ms']:.4f} ms "
+        f"({record['device_ms']:.4f} ms back to back), plain (float64, median of 10) "
+        f"{record['plain_ms']:.3f} ms, torch._int_mm {record['library_ms']:.4f} ms "
+        f"({record['library_device_ms']:.4f} back to back), bound {bound_ms:.5f} ms ({bound_by})")
+    return record
+
+
+def phase_n(dev):
+    """The batched scorer kernel (grid = K frames, validity mask) vs the plain
+    batched version, stream by stream; returns its times."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+    from trustedai_cl_vae_ad_tpu_torch.testing import STARTS, compare_sequences, score_sequence
+
+    k, n_ticks = FLEET_STREAMS, 8
+    h, w, c = SEQ_SHAPES[0]
+    seqs = [score_sequence(h, w, c, n_ticks, seed=100 + i, start=STARTS[i % 3]) for i in range(k)]
+    imgs = np.stack([s[0] for s in seqs], axis=1)  # (ticks, K, H, W, C)
+    recs = np.stack([s[1] for s in seqs], axis=1)
+    valid = np.ones((n_ticks, k), bool)
+    valid[2, 3] = valid[4, 7] = valid[5, 7] = False
+    valid[:, 11] = False  # a camera that never delivers
+    valid[0, 5] = False   # a fresh state whose first frame is dropped
+
+    def run(fn):
+        maps = torch.from_numpy(np.stack([s[2] for s in seqs])).to(dev)
+        scalars = torch.from_numpy(np.stack([s[3] for s in seqs])).to(dev)
+        outs = []
+        for t in range(n_ticks):
+            maps, scalars, norm, sc = fn(maps, scalars, torch.from_numpy(imgs[t]).to(dev),
+                                         torch.from_numpy(recs[t]).to(dev), ALPHA,
+                                         torch.from_numpy(valid[t]).to(dev))
+            outs.append((maps.cpu().numpy(), scalars.cpu().numpy(), norm.cpu().numpy(),
+                         sc.cpu().numpy()))
+        return outs
+
+    before = ss.launches
+    got = run(ss.stream_score_step_batched)
+    assert ss.launches == before + n_ticks, "one launch per tick"
+    ref = run(ss.stream_score_step_batched_reference)
+    max_err = 0.0
+    for i in range(k):
+        def stream(outs):
+            return [(o[0][i], o[1][i], o[2][i], float(o[3][i, 0]), float(o[3][i, 1]))
+                    for o in outs]
+        max_err = max(max_err, compare_sequences(stream(got), stream(ref), f"stream {i}"))
+        for t in range(n_ticks):
+            if not valid[t, i]:
+                assert np.isnan(got[t][3][i, 0]) and got[t][3][i, 1] == 0.0, (t, i)
+                prev = got[t - 1] if t else (np.stack([s[2] for s in seqs]),
+                                             np.stack([s[3] for s in seqs]))
+                assert np.array_equal(got[t][0][i], prev[0][i]), "a dropped tick moved the maps"
+                assert np.array_equal(got[t][1][i], prev[1][i]), "a dropped tick moved the scalars"
+    maps = torch.from_numpy(got[3][0]).to(dev)
+    scalars = torch.from_numpy(got[3][1]).to(dev)
+    img, rec = torch.from_numpy(imgs[4]).to(dev), torch.from_numpy(recs[4]).to(dev)
+    ok = torch.from_numpy(valid[4]).to(dev)
+    record = dict(
+        streams=k, max_abs_err=max_err,
+        ms=median_ms(lambda: ss.stream_score_step_batched(maps, scalars, img, rec, ALPHA, ok)),
+        device_ms=queued_ms(lambda: ss.stream_score_step_batched(maps, scalars, img, rec,
+                                                                 ALPHA, ok)),
+        plain_ms=median_ms(lambda: ss.stream_score_step_batched_reference(
+            maps, scalars, img, rec, ALPHA, ok), runs=10, warmup=2))
+    expect_raises(lambda: ss.stream_score_step_batched(maps, scalars, img, rec, ALPHA, ok[:4]),
+                  ValueError, "a validity mask of another length")
+    expect_raises(lambda: ss.stream_score_step_batched(maps, scalars, img, rec, ALPHA,
+                                                       ok.float()), ValueError,
+                  "a float validity mask")
+    log(f"  K = {k} at {h}x{w}x{c}, {n_ticks} ticks, {int((~valid).sum())} dropped frames: "
+        f"max_abs_err {max_err:.3g} per stream, one launch per tick; kernel "
+        f"{record['ms']:.4f} ms ({record['device_ms']:.4f} ms back to back) for all {k}, plain "
+        f"batched version (median of 10) {record['plain_ms']:.3f} ms")
+    return record
+
+
+class DroppingReader:
+    """A camera that delivers no frame on every ``every``-th tick."""
+
+    def __init__(self, source, every):
+        self.source, self.every, self.ticks = source, every, 0
+
+    def read(self):
+        frame = self.source.read()
+        self.ticks += 1
+        return None if self.ticks % self.every == 0 else frame
+
+    def release(self):
+        self.source.release()
+
+
+def fleet_readers(n_streams, n_ticks, width=320, height=240, motion=1.0):
+    """Synthetic cameras, the last one dropping every DROP_EVERY-th tick."""
+    from trustedai_cl_vae_ad_tpu_torch.stream.capture import SyntheticSource
+    from trustedai_cl_vae_ad_tpu_torch.stream.run import PacedReader
+
+    sources = [SyntheticSource(width=width, height=height, n_frames=n_ticks, seed=i,
+                               motion=motion, anomaly_frames=range(n_ticks - 6, n_ticks - 3))
+               for i in range(n_streams)]
+    readers = [PacedReader(s, 20.0, 20.0) for s in sources[:-1]]
+    return readers + [DroppingReader(sources[-1], DROP_EVERY)]
+
+
+def run_fleet(engine, n_ticks, **reader_kwargs):
+    """run_all_cameras over fleet_readers; returns (summary, per-tick results)."""
+    from trustedai_cl_vae_ad_tpu_torch.stream.run import run_all_cameras
+
+    ticks = []
+    names = [f"synthetic{i}" for i in range(engine.n_streams)]
+    summary = run_all_cameras(engine, fleet_readers(engine.n_streams, n_ticks, **reader_kwargs),
+                              names, on_tick=lambda tick, results: ticks.append(results),
+                              log=lambda m: None)
+    assert summary["ticks"] == n_ticks == len(ticks), summary["ticks"]
+    for t, results in enumerate(ticks):
+        dropped = (t + 1) % DROP_EVERY == 0
+        assert (results[-1] is None) == dropped, t
+        assert all(r is not None for r in results[:-1]), t
+    return summary, ticks
+
+
+def phase_o():
+    """Tiny config: the multi-camera engine on cuda vs cpu, float and w8a8;
+    the modes' fidelity; the int8 sidecar written, healed and reloaded."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import quant
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+    from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
+    from trustedai_cl_vae_ad_tpu_torch.testing import warm_score_state
+
+    config = TINY_CONFIG
+    settings = {"anomaly_score_threshold": 2.0, "anomaly_score_method": "zz_count",
+                "buffer_record_period_s": 1.0, "anomalous_state_period_s": 0.05}
+    cpu_model = load_model_from_config(config, seed=0, device="cpu")
+    gpu_model = load_model_from_config(config, seed=0, device="cuda")
+    gpu_model.core.load_state_dict(cpu_model.core.state_dict())
+    k, n_ticks = 3, 16
+    default_min = quant.DEFAULT_MIN_ELEMS
+    quant.DEFAULT_MIN_ELEMS = 0  # the tiny model's Dense kernels are far below 2^25
+    try:
+        for quantize in (False, True):
+            runs = {}
+            for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+                engine = MultiCameraEngine(model, config, n_streams=k, anomaly_settings=settings,
+                                           quantize=quantize)
+                assert engine.quantized == quantize
+                # both devices start from one warm scorer state (testing.py says why)
+                maps, scalars = warm_score_state(engine.height, engine.width)
+                engine.maps = torch.from_numpy(np.stack([maps] * k)).to(engine.device)
+                engine.scalars = torch.from_numpy(np.stack([scalars] * k)).to(engine.device)
+                runs[name] = run_fleet(engine, n_ticks, width=64, height=40, motion=0.0)[1]
+            agreed = True
+            # w8a8: a convolution that differs by 1e-7 between the devices can
+            # move one activation across a rounding boundary of its quantization
+            rec_tol = 2 if quantize else 1
+            for ta, tb in zip(runs["cpu"], runs["cuda"]):
+                for ra, rb in zip(ta, tb):
+                    if ra is None:
+                        assert rb is None
+                        continue
+                    assert abs(ra.pixel_count - rb.pixel_count) <= 2
+                    agreed = agreed and ra.pixel_count == rb.pixel_count
+                    if agreed:
+                        assert abs(ra.score - rb.score) <= 1e-3, (ra.score, rb.score)
+                        assert ra.anomalous == rb.anomalous
+                    assert int(np.abs(ra.norm_err_u8.astype(int)
+                                      - rb.norm_err_u8.astype(int)).max()) <= rec_tol
+                    assert int(np.abs(ra.reconstruction_u8.astype(int)
+                                      - rb.reconstruction_u8.astype(int)).max()) <= rec_tol
+            assert agreed, "pixel counts differ between cuda and cpu"
+            flagged = [t for t, tick in enumerate(runs["cuda"]) if any(r.anomalous for r in tick
+                                                                       if r is not None)]
+            assert flagged, "the injected blob was not flagged on cuda"
+            log(f"  K = {k}, {n_ticks} ticks, {'w8a8' if quantize else 'float'}: cuda == cpu; "
+                f"ticks with an alarm {flagged}")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.rand((4, *config["data"]["image_size"]), device="cuda", generator=gen)
+        qp = quant.quantize_params(gpu_model.core, gpu_model.params)
+        with torch.inference_mode():
+            ref = gpu_model.core.call(x)
+            for mode in ("w8", "w8a8"):
+                got = quant.call_quantized(gpu_model.core, qp, x, mode=mode)
+                mse, worst = float(((got - ref) ** 2).mean()), float((got - ref).abs().max())
+                assert mse < 1e-4 and worst < 0.05, (mode, mse, worst)
+                log(f"  {mode} vs float on cuda: mse {mse:.3g}, max abs {worst:.3g}")
+        logdir = tempfile.mkdtemp(prefix="chip_smoke_quant_")
+        try:
+            path = quant.save_quantized_checkpoint(logdir, qp)
+            # a kill between the two renames of a second save: the old copy
+            # moved aside, the staged one complete but not yet in place
+            os.rename(path, path + ".old")
+            shutil.copytree(path + ".old", path + ".staging")
+            assert quant.has_quantized_checkpoint(logdir) and os.path.isdir(path)
+            back = quant.load_quantized_checkpoint(logdir, "cuda")
+            for part in qp:
+                for layer, entry in qp[part].items():
+                    for leaf, t in entry.items():
+                        r = back[part][layer][leaf]
+                        assert r.device.type == "cuda" and torch.equal(r, t), (part, layer, leaf)
+            quant.save_quantized_checkpoint(logdir, qp)
+            assert sorted(os.listdir(logdir)) == ["quantized"], os.listdir(logdir)
+        finally:
+            shutil.rmtree(logdir, ignore_errors=True)
+        log("  int8 sidecar written, healed after a simulated kill, reloaded equal")
+    finally:
+        quant.DEFAULT_MIN_ELEMS = default_min
+
+
+def assert_scores_finite(results, label):
+    """A stream's scores are finite once its count EMAs have a variance, that
+    is from the frame after its first non-zero count on (before that the
+    score is 0/0, as in the JAX package)."""
+    import numpy as np
+
+    seen = False
+    for r in results:
+        if r is None:
+            continue
+        assert np.isfinite(r.pixel_count), label
+        if seen:
+            assert np.isfinite(r.score), (label, [x and x.score for x in results])
+        seen = seen or r.pixel_count > 0
+    assert seen, f"{label}: no frame counted a pixel"
+
+
+def phase_p():
+    """The flagship's int8 serving and multi-camera tick on the card; returns
+    the launch counts of the w8a8 fleet run and the measured latencies."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.config import save_config
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, quant, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config_path
+    from trustedai_cl_vae_ad_tpu_torch.stream.capture import SyntheticSource
+    from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
+    from trustedai_cl_vae_ad_tpu_torch.stream.run import (
+        build_engine,
+        load_serving_model,
+        resolve_camera,
+        run_stream,
+    )
+
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    model, config = load_model_from_config_path(os.path.join(REPO, "configs", "config.yml"),
+                                                seed=0, device="cuda")
+    settings = resolve_camera(os.path.join(REPO, "configs", "cam_config.yml"))[0]
+    out = {}
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        int8_gemm.launches = stream_score.launches = 0
+
+    def single(quantize, qparams=None, serving_model=None):
+        engine = build_engine(serving_model or model, config, anomaly_settings=settings,
+                              quantize=quantize, qparams=qparams)
+        engine.warmup(frame_shape=(240, 320, 3))
+        reset_counts()
+        results = []
+        summary = run_stream(engine, SyntheticSource(n_frames=64, anomaly_frames=range(40, 44),
+                                                     seed=0),
+                             on_result=results.append, log=lambda m: None)
+        counts = (int8_gemm.launches, stream_score.launches)
+        assert len(results) == 64 and counts == (4 * 64 * bool(quantize or qparams), 64), counts
+        assert_scores_finite(results, "single stream")
+        return summary, torch.cuda.max_memory_allocated(), results
+
+    def fleet(quantize, qparams=None, serving_model=None, n_ticks=FLEET_TICKS):
+        engine = MultiCameraEngine(serving_model or model, config, n_streams=FLEET_STREAMS,
+                                   anomaly_settings=settings, quantize=quantize, qparams=qparams)
+        engine.warmup(frame_shape=(240, 320, 3))
+        reset_counts()
+        summary, ticks = run_fleet(engine, n_ticks)
+        counts = (int8_gemm.launches, stream_score.launches)
+        # the encoder Dense contracts over 268800 = 3 safe chunks, the decoder's over 2000 = 1
+        assert counts == (4 * n_ticks * engine.quantized, n_ticks), counts
+        for i in range(FLEET_STREAMS):
+            assert_scores_finite([tick[i] for tick in ticks], f"stream {i}")
+        assert torch.isfinite(engine.maps).all()
+        return summary, torch.cuda.max_memory_allocated(), ticks, counts, engine
+
+    s1, peak1, _ = single(False)
+    out["frame_float"] = s1
+    sf, peakf, _, _, engine = fleet(False)
+    out["tick_float"] = sf
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    fixed = torch.rand((FLEET_STREAMS, engine.height, engine.width, engine.channels),
+                       device="cuda", generator=gen)
+    with torch.inference_mode():
+        rec_float = engine._forward(engine._serve_params, fixed).clone()
+    del engine
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = quant.quantize_params(model.core, model.params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    quant_peak = torch.cuda.max_memory_allocated() - base
+    q_bytes = sum(t.numel() for part in qparams.values() for p in part.values()
+                  for name, t in p.items() if name == "kernel_i8")
+    # the two large Dense layers, and the small encoder head stays float
+    assert quant._is_qdense(qparams["decoder"]["Dense_0"]), "the decoder Dense stayed float"
+    assert sum(quant._is_qdense(p) for p in qparams["encoder"].values()) == 1
+    log(f"  quantize_params over the flagship: {quant_s * 1e3:.1f} ms, peak "
+        f"{quant_peak / gib:.3f} GiB above the resident {base / gib:.2f} GiB; int8 kernels "
+        f"{q_bytes / 1e9:.3f} GB, serving tree {quant.tree_nbytes(qparams) / 1e9:.3f} GB")
+
+    sq, peakq, ticks_q, counts, engine = fleet(True)
+    out["tick_w8a8"], out["launches"] = sq, counts
+    with torch.inference_mode():
+        rec_q = engine._forward(engine._serve_params, fixed)
+        mse = float(((rec_q - rec_float) ** 2).mean())
+        worst = float((rec_q - rec_float).abs().max())
+    assert mse < 1e-4 and worst < 0.05, (mse, worst)
+    del engine
+    s1q, peak1q, frames_q = single(True)
+    out["frame_w8a8"] = s1q
+    log(f"  K = {FLEET_STREAMS} cameras, {FLEET_TICKS} ticks (240x320 -> 224x300), camera "
+        f"{FLEET_STREAMS - 1} dropping every {DROP_EVERY}th tick: tick latency float p50 "
+        f"{sf['p50_ms']:.3f} ms p95 {sf['p95_ms']:.3f} ms, w8a8 p50 {sq['p50_ms']:.3f} ms p95 "
+        f"{sq['p95_ms']:.3f} ms; max_memory_allocated float {peakf / gib:.2f} GiB, w8a8 beside "
+        f"the float model {peakq / gib:.2f} GiB; launches in the w8a8 run: int8_gemm "
+        f"{counts[0]}, stream_score {counts[1]}")
+    log(f"  K = 1, 64 frames: frame latency float p50 {s1['p50_ms']:.3f} ms p95 "
+        f"{s1['p95_ms']:.3f} ms, w8a8 p50 {s1q['p50_ms']:.3f} ms p95 {s1q['p95_ms']:.3f} ms; "
+        f"max_memory_allocated float {peak1 / gib:.2f} GiB, w8a8 beside the float model "
+        f"{peak1q / gib:.2f} GiB")
+    log(f"  reconstruction of a fixed batch of {FLEET_STREAMS}, w8a8 vs float: mse {mse:.3g}, "
+        f"max abs {worst:.3g}")
+
+    # the int8-checkpoint boot: a log directory with config.yml and the sidecar
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    try:
+        save_config(config, os.path.join(logdir, "config.yml"))
+        t0 = time.perf_counter()
+        quant.save_quantized_checkpoint(logdir, qparams)
+        save_s = time.perf_counter() - t0
+        first_counts = [[None if r is None else r.pixel_count for r in tick]
+                        for tick in ticks_q[:16]]
+        rec_q = rec_q.cpu()
+        del model, qparams, rec_float, ticks_q, frames_q
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() < 0.1 * gib, torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        booted, _config, boot_q = load_serving_model(logdir, None, "cuda", quantize=True,
+                                                     log=lambda m: None)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        resident = torch.cuda.memory_allocated()
+        assert booted.params is None and boot_q is booted.qparams
+        # 1.344 GB of int8 kernels, the float32 scales, biases and convolutions: no float Dense
+        # (and cuBLAS's workspace and the fixed batch): far from the 5 GiB of a float boot
+        assert resident < 1.5 * gib, resident
+        sb, peakb, ticks_b, _, engine = fleet(False, qparams=boot_q, serving_model=booted,
+                                              n_ticks=16)
+        assert engine.quantized
+        again = [[None if r is None else r.pixel_count for r in tick] for tick in ticks_b]
+        # the same int8 weights and frames, but cuDNN may pick another
+        # algorithm now that less memory is taken, which can flip the rounding
+        # of an activation (as between cuda and cpu); and a fresh scorer's
+        # early counts, some hundreds, are rounding noise (ROADMAP queue 3)
+        with torch.inference_mode():
+            rec_boot = engine._forward(engine._serve_params, fixed).cpu()
+        boot_diff = float((rec_boot - rec_q).abs().max())
+        assert boot_diff <= 2e-4, boot_diff
+        for a_tick, b_tick in zip(again, first_counts):
+            assert all((a is None) == (b is None)
+                       and (a is None or abs(a - b) <= 2 + 0.05 * max(a, b))
+                       for a, b in zip(a_tick, b_tick)), (a_tick, b_tick)
+        s1b, peak1b, _ = single(False, qparams=boot_q, serving_model=booted)
+        expect_raises(lambda: build_engine(booted, config, qparams=boot_q).set_learning_rate(1e-4),
+                      RuntimeError, "a CL control on an int8 boot")
+        out["tick_int8_boot"], out["frame_int8_boot"] = sb, s1b
+        log(f"  int8 sidecar saved in {save_s:.1f} s and booted in {boot_s:.1f} s: "
+            f"{resident / gib:.3f} GiB resident (no float Dense on the device); the fixed batch "
+            f"reconstructs within {boot_diff:.3g} of the tree it was saved from, 16 ticks count "
+            f"as the first 16 above, tick p50 {sb['p50_ms']:.3f} ms, peak {peakb / gib:.2f} GiB; "
+            f"K = 1 frame p50 {s1b['p50_ms']:.3f} ms, peak {peak1b / gib:.2f} GiB")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..l to run after the build (for "
+                        help="comma-separated subset of c..p to run after the build (for "
                              "finding a fault); the final line is then not printed")
     args = parser.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
@@ -864,13 +1382,14 @@ def main(argv=None):
     log("[b] build")
     from concurrent.futures import ThreadPoolExecutor
 
-    from trustedai_cl_vae_ad_tpu_torch.ops import _build, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.ops import _build, int8_gemm, moments, stream_score
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc for each source, started together
-        list(pool.map(lambda module: module.build(), (stream_score, moments)))
-    log(f"  stream_score and moments built and loaded in {time.perf_counter() - t0:.1f} s")
-    for kernel in ("stream_score", "moments"):
+        list(pool.map(lambda module: module.build(), (stream_score, moments, int8_gemm)))
+    log(f"  stream_score, moments and int8_gemm built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for kernel in ("stream_score", "moments", "int8_gemm"):
         for line in _build.build_log.get(kernel, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
@@ -903,6 +1422,10 @@ def main(argv=None):
                  phase_h("KLGaussian", loss_update={"w_kl_divergence": 1e-4},
                          bf16_steps=False)])
     run("l", "continual learning in the live engine", phase_l)
+    run("m", "int8 GEMM kernel vs plain version on the card", lambda: phase_m(dev))
+    run("n", "batched stream-scorer kernel vs plain batched version", lambda: phase_n(dev))
+    run("o", "tiny multi-camera engine: cuda vs cpu, float and w8a8; the int8 sidecar", phase_o)
+    run("p", "flagship int8 serving and the multi-camera tick", phase_p)
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -910,10 +1433,14 @@ def main(argv=None):
 
     # launches of each kernel on the path that runs it, counted from zero
     # just before that path: (e) for the scorer, (h) for the global moments,
-    # (k) with KurtosisSingle for the per-dimension moments
+    # (k) with KurtosisSingle for the per-dimension moments, (p)'s w8a8
+    # multi-camera run for the int8 GEMM (and the scorer's batched launches)
     global_launches, perdim_launches = out["h"], out["k"][0]
+    int8_launches, fleet_scorer_launches = out["p"]["launches"]
     print(json.dumps({"kernels": [
-        dict(STREAM_KERNEL, launches=out["e"][0], launches_cl_stream=out["l"], **out["c"]),
+        dict(STREAM_KERNEL, launches=out["e"][0], launches_cl_stream=out["l"],
+             launches_fleet_ticks=fleet_scorer_launches, batched=out["n"], **out["c"]),
+        dict(INT8_KERNEL, launches=int8_launches, **out["m"]),
         *moments_entries("global", out["f"], global_launches[0], global_launches[1]),
         *moments_entries("perdim", out["i"], perdim_launches[2], perdim_launches[3]),
     ]}))

@@ -8,8 +8,9 @@ read once, each output written once) over the card's memory rate and the
 operations over the card's peak rate for their type. Nothing runs on a
 device: the numbers follow from the shapes and NVIDIA's data sheet (H100 SXM:
 3.35 TB/s, 989 TFLOP/s bf16 dense, 1,979 TOP/s int8 dense, 67 TFLOP/s float32
-outside the tensor cores). Row 3, which is ported, is included with the
-bounds that ``chip_smoke.py`` computes for it.
+outside the tensor cores). Rows 3 and 10, which are ported, are included with
+the bounds that ``chip_smoke.py`` computes for them; row 10 also at the shapes
+of the two quantized Dense layers of the serving path (1 and 16 frames).
 
 Usage: python3 kernel_bounds_torch.py [--json]
 """
@@ -34,6 +35,11 @@ def conv_dw(batch, h, w, ci, co):
     return nbytes, 2 * batch * oh * ow * 9 * ci * co
 
 
+def int8_gemm(m, k, n):
+    """benchmarks/r4_int8_gemm.py: x (m, k) and w (k, n) int8 read, (m, n) int32 written."""
+    return m * k + k * n + 4 * m * n, 2 * m * k * n
+
+
 def rows():
     mn = M * N
     cw1, cw2 = conv_dw(768, 224, 300, 3, 32), conv_dw(768, 112, 150, 32, 64)
@@ -56,7 +62,15 @@ def rows():
         (9, "r11_diag.py:238 epi_only", f"4x ({M}, {N}) bf16, f32 arithmetic",
          BF16 * 7 * mn, 12 * mn, "f32"),
         (10, "r4_int8_gemm.py:45 kernel", "M=32 K=268800 N=4096 int8 -> int32",
-         32 * 268800 + 268800 * 4096 + 4 * 32 * 4096, 2 * 32 * 268800 * 4096, "int8"),
+         *int8_gemm(32, 268800, 4096), "int8"),
+        (10, "the same on the serving path, encoder Dense", "M=16 K=268800 N=4000",
+         *int8_gemm(16, 268800, 4000), "int8"),
+        (10, "the same on the serving path, encoder Dense", "M=1 K=268800 N=4000",
+         *int8_gemm(1, 268800, 4000), "int8"),
+        (10, "the same on the serving path, decoder Dense", "M=16 K=2000 N=134400",
+         *int8_gemm(16, 2000, 134400), "int8"),
+        (10, "the same on the serving path, decoder Dense", "M=1 K=2000 N=134400",
+         *int8_gemm(1, 2000, 134400), "int8"),
         (11, "r18_conv_dw.py:53 _dw_kernel, conv1", "x (768, 224, 300, 3), dy (768, 112, 150, 32)",
          cw1[0], cw1[1], "bf16"),
         (11, "r18_conv_dw.py:53 _dw_kernel, conv2", "x (768, 112, 150, 32), dy (768, 56, 75, 64)",

@@ -4,14 +4,17 @@
 Builds the flagship (configs/config.yml, KurtosisGlobal 224x300x3, latent
 2000, seeded random weights) on the card through the same registry and
 stream/run.py code as camera_streamer_torch.py, feeds it synthetic 240x320
-frames (so the device resize runs), and measures:
+frames (so the device resize runs), and measures, for one stream or, with
+``--n-streams K``, for the multi-camera tick of K cameras, in float or, with
+``--quantize``, with the large Dense kernels in int8 (``w8a8``):
 
   * host frame latency p50/p95 over --frames untraced frames;
   * a torch.profiler trace of --traced further frames: device time per
     kernel per frame, the sum, and the device's busy and idle share of the
     traced frames' wall time (the union of kernel and copy intervals);
   * the encoder's and the decoder's dense layer alone (F.linear at batch 1,
-    CUDA events, median of 50) and the weight bandwidth each reaches;
+    CUDA events, median of 50) and the weight bandwidth each reaches (float
+    runs only);
   * the host's resident memory after the imports, after the model is
     built, after the first frame and at the end, and the peak device memory.
 
@@ -20,6 +23,7 @@ build/profile_stream.json, git-ignored); --trace also writes the Chrome
 trace beside it.
 
 Usage: python3 profile_stream_torch.py [--frames 64] [--traced 20] [--trace]
+           [--n-streams 16] [--quantize]
 """
 
 import argparse
@@ -136,6 +140,11 @@ def main(argv=None):
     parser.add_argument("--traced", type=int, default=20, help="frames under the profiler")
     parser.add_argument("--out", default=os.path.join(REPO, "build", "profile_stream.json"))
     parser.add_argument("--trace", action="store_true", help="also write the Chrome trace")
+    parser.add_argument("--n-streams", type=int, default=1,
+                        help="cameras per tick; above 1 the multi-camera engine is profiled "
+                             "and a 'frame' below is one tick of all of them")
+    parser.add_argument("--quantize", action="store_true",
+                        help="serve the large Dense kernels in int8 (w8a8)")
     args = parser.parse_args(argv)
 
     import torch
@@ -145,12 +154,14 @@ def main(argv=None):
         return 1
     from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config_path
     from trustedai_cl_vae_ad_tpu_torch.stream.capture import SyntheticSource
+    from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
     from trustedai_cl_vae_ad_tpu_torch.stream.run import build_engine, run_stream
     from trustedai_cl_vae_ad_tpu_torch.utils.profiling import rss_mb
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     summary = {"card": smi.splitlines()[0], "torch": torch.__version__,
+               "streams": args.n_streams, "mode": "w8a8" if args.quantize else "float32",
                "rss_mb": {"after_imports": rss_mb()}}
     t0 = time.perf_counter()
     model, config = load_model_from_config_path(args.config, seed=0, device="cuda")
@@ -159,21 +170,48 @@ def main(argv=None):
     summary["parameters"] = sum(p.numel() for p in model.core.parameters())
     summary["rss_mb"]["after_model"] = rss_mb()
 
-    engine = build_engine(model, config)
+    fleet = args.n_streams > 1
+    if fleet:
+        engine = MultiCameraEngine(model, config, n_streams=args.n_streams,
+                                   quantize=args.quantize)
+        step = engine.process_frames
+    else:
+        engine = build_engine(model, config, quantize=args.quantize)
+        step = engine.process_frame
     engine.warmup(frame_shape=(240, 320, 3))
     summary["rss_mb"]["after_first_frame"] = rss_mb()
     torch.cuda.reset_peak_memory_stats()
 
-    stream = run_stream(engine, SyntheticSource(n_frames=args.frames, seed=0), log=lambda m: None)
-    summary["latency_ms"] = {k: stream[k] for k in ("p50_ms", "p95_ms", "mean_ms")}
-    summary["latency_ms"]["frames"] = stream["frames"]
+    def ticks(n, seed):
+        """n frames of one camera, or n ticks of --n-streams cameras."""
+        if not fleet:
+            return list(SyntheticSource(n_frames=n, seed=seed))
+        cams = [list(SyntheticSource(n_frames=n, seed=seed + 100 * i))
+                for i in range(args.n_streams)]
+        return [list(tick) for tick in zip(*cams)]
 
-    frames = list(SyntheticSource(n_frames=args.traced, seed=1))
+    if fleet:
+        lat = []
+        for i, tick in enumerate(ticks(args.frames, 0)):
+            t0 = time.perf_counter()
+            step(tick, tag=i)  # the tick's score fetch waits for the device
+            lat.append((time.perf_counter() - t0) * 1e3)
+        kept = sorted(lat[2:] if len(lat) > 4 else lat)
+        summary["latency_ms"] = {"p50_ms": kept[len(kept) // 2],
+                                 "p95_ms": kept[min(len(kept) - 1, int(0.95 * len(kept)))],
+                                 "mean_ms": sum(kept) / len(kept), "frames": len(lat)}
+    else:
+        stream = run_stream(engine, SyntheticSource(n_frames=args.frames, seed=0),
+                            log=lambda m: None)
+        summary["latency_ms"] = {k: stream[k] for k in ("p50_ms", "p95_ms", "mean_ms")}
+        summary["latency_ms"]["frames"] = stream["frames"]
+
+    frames = ticks(args.traced, 1)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         for i, f in enumerate(frames):
             with torch.profiler.record_function("frame"):
-                engine.process_frame(f, tag=i)
+                step(f, tag=i)
     trace_path = os.path.splitext(args.out)[0] + "_trace.json"
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     prof.export_chrome_trace(trace_path)
@@ -182,11 +220,13 @@ def main(argv=None):
     if not args.trace:
         os.remove(trace_path)
     summary["traced"] = analyze_trace(events, len(frames))
-    summary["dense_alone"] = dense_alone(model)
+    summary["dense_alone"] = {} if args.quantize else dense_alone(model)
     summary["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
     summary["rss_mb"]["end"] = rss_mb()
 
     tr = summary["traced"]
+    print(f"{summary['streams']} stream(s), {summary['mode']}; a frame below is one "
+          f"{'tick of all streams' if fleet else 'frame'}")
     print(f"{summary['card']}; torch {summary['torch']}; "
           f"{summary['parameters']:,} parameters built in {summary['build_s']:.1f} s")
     lat = summary["latency_ms"]

@@ -156,16 +156,16 @@ def test_hold_off_and_state_machine(models):
 
 
 def test_unported_options_raise(models):
-    """What stays unported raises and names its ROADMAP item: int8 serving,
-    autosave, recording."""
+    """What stays unported raises and names its ROADMAP item: autosave and
+    recording. int8 serving, which used to raise, is an engine option now
+    (tests/test_torch_quant.py holds it to the JAX package)."""
     from trustedai_cl_vae_ad_tpu_torch.ops.quant import serving_forward
     from trustedai_cl_vae_ad_tpu_torch.stream.engine import StreamingEngine
 
     config, _, tmodel = models
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        StreamingEngine(tmodel, config, quantize=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        serving_forward(tmodel.core, tmodel.params, quantize=True)
+    assert StreamingEngine(tmodel, config, quantize=True).quantized
+    _, tree = serving_forward(tmodel.core, tmodel.params, quantize=True)
+    assert set(tree) == {"encoder", "decoder"}
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         StreamingEngine(tmodel, config, model_cache_dir="model_cache")
     t = StreamingEngine(tmodel, config)

@@ -12,7 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "trustedai_cl_vae_ad_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "trustedai_cl_vae_ad_tpu", "camera_streamer")
 ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "kernel_bounds_torch.py",
-                "profile_stream_torch.py", "profile_train_torch.py", "train_torch.py")
+                "profile_stream_torch.py", "profile_train_torch.py", "train_torch.py",
+                os.path.join("tools", "quantize_checkpoint_torch.py"))
 
 
 def _port_sources():
@@ -36,6 +37,8 @@ for m in pkgutil.walk_packages({PACKAGE}.__path__, "{PACKAGE}."):
 sys.path.insert(0, {REPO!r})
 import camera_streamer_torch, chip_smoke, kernel_bounds_torch, profile_stream_torch
 import profile_train_torch, train_torch
+sys.path.insert(0, {os.path.join(REPO, "tools")!r})
+import quantize_checkpoint_torch
 print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
 """
     env = dict(os.environ, PYTHONPATH=REPO, TCVAE_PLATFORM="cpu", TCVAE_CPU_DEVICES="1")
@@ -54,9 +57,10 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "utils/metrics.py", "train/__init__.py", "train/checkpoint.py",
                 "train/loop.py", "train/bench_step.py", "models/kurtosis_single.py",
                 "models/kl_gaussian.py", "data/pipeline.py", "stream/engine.py",
-                "stream/run.py"):
+                "stream/run.py", "ops/quant.py", "ops/int8_gemm.py", "stream/multicam.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
-    assert {"train_torch.py", "profile_train_torch.py"} <= sources
+    assert {"train_torch.py", "profile_train_torch.py",
+            os.path.join("tools", "quantize_checkpoint_torch.py")} <= sources
 
 
 def test_port_sources_have_no_jax_import():

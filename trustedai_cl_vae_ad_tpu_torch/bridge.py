@@ -16,6 +16,12 @@ Layouts:
   * biases are unchanged.
 bfloat16 leaves are widened to float32; ``load_state_dict`` casts them to
 the model's parameter dtype.
+
+The int8 serving tree (``ops/quant.py``) crosses as a tree: a quantized Dense
+``{kernel_i8 (in, out), scale, bias}`` of the JAX package becomes
+``{kernel_i8 (out, in), scale, bias}``, every other layer ``{weight, bias}``
+in the layouts above. The encoder's first Dense needs no reordering of its
+268800 inputs: both packages flatten the last feature map in HWC order.
 """
 
 from __future__ import annotations
@@ -93,3 +99,46 @@ def opt_state_to_optax(state: dict):
     """``ops.adam.Adam.state_dict()`` -> (count, mu tree, nu tree) of numpy
     arrays in the flax layout."""
     return int(state["count"]), params_to_flax(state["mu"]), params_to_flax(state["nu"])
+
+
+def qparams_from_flax(tree: dict) -> dict:
+    """The JAX package's quantized tree (``quantize_params`` output as numpy
+    arrays) -> the port's serving tree of CPU tensors."""
+    out: dict = {"encoder": {}, "decoder": {}}
+    for part in ("encoder", "decoder"):
+        for layer, leaves in tree[part].items():
+            entry = {}
+            for leaf, arr in leaves.items():
+                a = np.asarray(arr)
+                if a.dtype.name == "bfloat16":
+                    a = a.astype(np.float32)
+                if leaf in ("kernel", "kernel_i8"):
+                    a = a.transpose(_perm(layer))
+                    leaf = "weight" if leaf == "kernel" else leaf
+                elif leaf not in ("bias", "scale"):
+                    raise KeyError(f"unknown leaf {part}/{layer}/{leaf}")
+                entry[leaf] = torch.tensor(np.ascontiguousarray(a))
+            out[part][layer] = entry
+    return out
+
+
+def qparams_to_flax(tree: dict) -> dict:
+    """The port's serving tree -> the JAX package's quantized tree of numpy
+    arrays (float32 for bf16 leaves), as its ``call_quantized`` takes it."""
+    out: dict = {"encoder": {}, "decoder": {}}
+    for part in ("encoder", "decoder"):
+        for layer, leaves in tree[part].items():
+            entry = {}
+            for leaf, t in leaves.items():
+                a = t.detach().to("cpu")
+                if a.dtype == torch.bfloat16:
+                    a = a.to(torch.float32)
+                a = a.numpy()
+                if leaf in ("weight", "kernel_i8"):
+                    a = np.ascontiguousarray(a.transpose(_inverse(_perm(layer))))
+                    leaf = "kernel" if leaf == "weight" else leaf
+                else:
+                    a = a.copy()
+                entry[leaf] = a
+            out[part][layer] = entry
+    return out

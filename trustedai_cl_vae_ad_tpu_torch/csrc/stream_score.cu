@@ -26,6 +26,10 @@
 // Build with --fmad=false and without fast math: every elementwise step then
 // rounds as PyTorch's ops do, so only the reductions' order differs from the
 // plain version (ops/stream_score.py::stream_score_step_reference).
+// A multi-camera tick launches it once with grid = K frames and a validity
+// mask (one byte a frame, or null for "all valid"): a frame whose byte is 0
+// (a camera that dropped the tick) keeps its maps and scalars and reports
+// score NaN and count 0, decided where the results are written.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -78,7 +82,7 @@ stream_score_kernel(const float* __restrict__ img, const float* __restrict__ rec
                     float alpha, float* __restrict__ out_maps,
                     float* __restrict__ out_scalars, float* __restrict__ norm,
                     float* __restrict__ score_count, float* __restrict__ zbuf,
-                    int hw, int c) {
+                    const unsigned char* __restrict__ valid, int hw, int c) {
   __shared__ float red[33];
   const size_t k = blockIdx.x;
   img += k * hw * c;
@@ -91,6 +95,7 @@ stream_score_kernel(const float* __restrict__ img, const float* __restrict__ rec
   zbuf += k * hw;
   score_count += k * 2;
 
+  const bool keep = valid != nullptr && valid[k] == 0;  // a dropped frame: state kept
   const float oma = 1.0f - alpha;
   const bool initialized = scalars[4] > 0.0f;
 
@@ -128,8 +133,8 @@ stream_score_kernel(const float* __restrict__ img, const float* __restrict__ rec
     const float ema2 = alpha * prev2 + (oma * e) * e;
     const float var = fabsf(ema2 - ema * ema);
     const float z = (e - ema) * (1.0f / sqrtf(var + 1e-10f));
-    out_maps[p] = ema;
-    out_maps[hw + p] = ema2;
+    out_maps[p] = keep ? maps[p] : ema;
+    out_maps[hw + p] = keep ? maps[hw + p] : ema2;
     zbuf[p] = z;
     lsum += z;
   }
@@ -157,14 +162,14 @@ stream_score_kernel(const float* __restrict__ img, const float* __restrict__ rec
     const float as_sum = alpha * scalars[2] + oma * count;
     const float as_sum2 = alpha * scalars[3] + (oma * count) * count;
     const float a_var = as_sum2 - as_sum * as_sum;
-    out_scalars[0] = min_ema;
-    out_scalars[1] = max_ema;
-    out_scalars[2] = as_sum;
-    out_scalars[3] = as_sum2;
-    out_scalars[4] = 1.0f;
-    out_scalars[5] = 0.0f;
-    score_count[0] = (count - as_sum) / sqrtf(a_var);
-    score_count[1] = count;
+    out_scalars[0] = keep ? scalars[0] : min_ema;
+    out_scalars[1] = keep ? scalars[1] : max_ema;
+    out_scalars[2] = keep ? scalars[2] : as_sum;
+    out_scalars[3] = keep ? scalars[3] : as_sum2;
+    out_scalars[4] = keep ? scalars[4] : 1.0f;
+    out_scalars[5] = keep ? scalars[5] : 0.0f;
+    score_count[0] = keep ? CUDART_NAN_F : (count - as_sum) / sqrtf(a_var);
+    score_count[1] = keep ? 0.0f : count;
   }
 }
 
@@ -173,10 +178,12 @@ stream_score_kernel(const float* __restrict__ img, const float* __restrict__ rec
 extern "C" int stream_score_launch(const float* img, const float* rec, const float* maps,
                                    const float* scalars, float alpha, float* out_maps,
                                    float* out_scalars, float* norm, float* score_count,
-                                   float* zbuf, int k, int hw, int c, void* stream) {
+                                   float* zbuf, const unsigned char* valid, int k, int hw,
+                                   int c, void* stream) {
   if (k <= 0 || hw <= 0 || c <= 0) return static_cast<int>(cudaErrorInvalidValue);
   stream_score_kernel<<<k, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, rec, maps, scalars, alpha, out_maps, out_scalars, norm, score_count, zbuf, hw, c);
+      img, rec, maps, scalars, alpha, out_maps, out_scalars, norm, score_count, zbuf, valid,
+      hw, c);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,6 +22,12 @@ On a CUDA tensor ``stream_score_step`` launches the hand-written kernel
 the source's header says what bounds it and how its design answers). On a
 CPU tensor it runs ``stream_score_step_reference``, the plain PyTorch
 version, which is also what the kernel is checked against on the card.
+
+``stream_score_step_batched`` is the multi-camera tick's form: K frames with
+a state each (maps (K, 2, H, W), scalars (K, 6)) and a validity mask, ONE
+launch of the same kernel with a grid of K blocks on the card, a loop over
+the plain version on the CPU. A stream whose frame is not valid keeps its
+state and reports score NaN and count 0.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ def build():
 
         lib = load_library(_LIB_NAME)
         p = ctypes.c_void_p
-        lib.stream_score_launch.argtypes = [p, p, p, p, ctypes.c_float, p, p, p, p, p,
+        lib.stream_score_launch.argtypes = [p, p, p, p, ctypes.c_float, p, p, p, p, p, p,
                                             ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
         lib.stream_score_launch.restype = ctypes.c_int
         lib.stream_score_error_string.argtypes = [ctypes.c_int]
@@ -127,30 +133,39 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _stream_cuda(state: StreamScoreState, img: torch.Tensor, rec: torch.Tensor, alpha: float):
+def _launch(lead, img, rec, maps, scalars, alpha: float, valid):
+    """One launch of the kernel over ``lead`` = () (one frame) or (K,) frames;
+    the tensors are checked here. ``valid``: None, or a (K,) bool tensor."""
     global launches
     lib = build()
-    h, w, c = img.shape
+    h, w, c = img.shape[-3:]
     dev = img.device
-    _check("img", img, (h, w, c), dev)
-    _check("rec", rec, (h, w, c), dev)
-    _check("state.maps", state.maps, (2, h, w), dev)
-    _check("state.scalars", state.scalars, (6,), dev)
-    out_maps = torch.empty((2, h, w), dtype=torch.float32, device=dev)
-    out_scalars = torch.empty((6,), dtype=torch.float32, device=dev)
-    norm = torch.empty((h, w), dtype=torch.float32, device=dev)
-    score_count = torch.empty((2,), dtype=torch.float32, device=dev)
-    zbuf = torch.empty((h, w), dtype=torch.float32, device=dev)
+    _check("img", img, (*lead, h, w, c), dev)
+    _check("rec", rec, (*lead, h, w, c), dev)
+    _check("maps", maps, (*lead, 2, h, w), dev)
+    _check("scalars", scalars, (*lead, 6), dev)
+    out_maps = torch.empty((*lead, 2, h, w), dtype=torch.float32, device=dev)
+    out_scalars = torch.empty((*lead, 6), dtype=torch.float32, device=dev)
+    norm = torch.empty((*lead, h, w), dtype=torch.float32, device=dev)
+    score_count = torch.empty((*lead, 2), dtype=torch.float32, device=dev)
+    zbuf = torch.empty((*lead, h, w), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.stream_score_launch(
-            img.data_ptr(), rec.data_ptr(), state.maps.data_ptr(), state.scalars.data_ptr(),
+            img.data_ptr(), rec.data_ptr(), maps.data_ptr(), scalars.data_ptr(),
             float(alpha), out_maps.data_ptr(), out_scalars.data_ptr(), norm.data_ptr(),
-            score_count.data_ptr(), zbuf.data_ptr(), 1, h * w, c, stream)
+            score_count.data_ptr(), zbuf.data_ptr(),
+            None if valid is None else valid.data_ptr(), lead[0] if lead else 1, h * w, c, stream)
     if rc != 0:
         raise RuntimeError(
             f"stream_score kernel launch failed: {lib.stream_score_error_string(rc).decode()}")
     launches += 1
+    return out_maps, out_scalars, norm, score_count
+
+
+def _stream_cuda(state: StreamScoreState, img: torch.Tensor, rec: torch.Tensor, alpha: float):
+    out_maps, out_scalars, norm, score_count = _launch(
+        (), img, rec, state.maps, state.scalars, alpha, None)
     return StreamScoreState(out_maps, out_scalars), norm, score_count[0], score_count[1]
 
 
@@ -167,3 +182,47 @@ def stream_score_step(state: StreamScoreState, img: torch.Tensor, rec: torch.Ten
     if img.device.type != "cpu":
         raise ValueError(f"stream_score_step supports cuda and cpu tensors, got {img.device}")
     return stream_score_step_reference(state, img, rec, alpha)
+
+
+def stream_score_step_batched_reference(maps: torch.Tensor, scalars: torch.Tensor,
+                                        img: torch.Tensor, rec: torch.Tensor, alpha,
+                                        valid: torch.Tensor):
+    """The plain batched version: ``stream_score_step_reference`` stream by
+    stream, then the validity mask (the JAX engine's ``scorer_one``)."""
+    nan = torch.tensor(float("nan"), dtype=torch.float32, device=img.device)
+    zero = torch.zeros((), dtype=torch.float32, device=img.device)
+    out_maps, out_scalars, norms, score_counts = [], [], [], []
+    for k in range(img.shape[0]):
+        state, norm, score, count = stream_score_step_reference(
+            StreamScoreState(maps[k], scalars[k]), img[k], rec[k], alpha)
+        ok = valid[k]
+        out_maps.append(torch.where(ok, state.maps, maps[k]))
+        out_scalars.append(torch.where(ok, state.scalars, scalars[k]))
+        norms.append(norm)
+        score_counts.append(torch.stack([torch.where(ok, score, nan),
+                                         torch.where(ok, count, zero)]))
+    return (torch.stack(out_maps), torch.stack(out_scalars), torch.stack(norms),
+            torch.stack(score_counts))
+
+
+def stream_score_step_batched(maps: torch.Tensor, scalars: torch.Tensor, img: torch.Tensor,
+                              rec: torch.Tensor, alpha: float, valid: torch.Tensor):
+    """One scorer update of K streams. maps (K, 2, H, W), scalars (K, 6),
+    img / rec (K, H, W, C) f32 in [0, 1], valid (K,) bool; alpha a Python
+    float. Returns (new maps, new scalars, norm maps (K, H, W), [score,
+    count] (K, 2)).
+
+    CUDA tensors go through the kernel, one launch for all K (or raise); CPU
+    tensors through the plain version."""
+    if img.dim() != 4:
+        raise ValueError(f"img must be (K, H, W, C), got shape {tuple(img.shape)}")
+    if valid.dtype != torch.bool or valid.device != img.device \
+            or tuple(valid.shape) != (img.shape[0],) or not valid.is_contiguous():
+        raise ValueError(f"valid must be a contiguous bool tensor of shape ({img.shape[0]},) on "
+                         f"{img.device}, got {valid.dtype} {tuple(valid.shape)} on {valid.device}")
+    if img.device.type == "cuda":
+        return _launch((img.shape[0],), img, rec, maps, scalars, alpha, valid)
+    if img.device.type != "cpu":
+        raise ValueError(f"stream_score_step_batched supports cuda and cpu tensors, "
+                         f"got {img.device}")
+    return stream_score_step_batched_reference(maps, scalars, img, rec, alpha, valid)

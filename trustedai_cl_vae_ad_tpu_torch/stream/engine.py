@@ -23,10 +23,16 @@ without its recording and autosave:
   * the replay buffer, loaded from a txt or csv of image paths and held on
     the device padded to a fixed capacity; padded rows carry weight 0 and
     drop out of every loss statistic;
+  * int8 serving (``quantize=True``): the inference dispatch runs on a
+    quantized copy of the large Dense kernels (ops/quant.py); continual
+    learning keeps the float parameters and the serving copy is quantized
+    again after each step. ``qparams=`` serves a tree that is already
+    quantized (an int8-checkpoint boot, where the model holds no float
+    parameters and continual learning raises);
   * the per-phase ``timings`` dict.
 
-Recording, int8 serving and autosave are not ported yet: asking for them
-raises NotImplementedError naming the ROADMAP item that ports them.
+Recording and autosave are not ported yet: asking for them raises
+NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -135,10 +141,16 @@ class StreamingEngine:
         replay_capacity: int = 256,
         quantize: bool = False,
         model_cache_dir: Optional[str] = None,
+        qparams: Optional[dict] = None,
     ):
         if model_cache_dir is not None:
             raise NotImplementedError(_AUTOSAVE_ITEM)
         self.model = model
+        # int8 Dense kernels for the inference dispatch (ops/quant.py): the
+        # frame's forward streams its weights, so fewer weight bytes are less
+        # device time. ``qparams`` is a tree that is already quantized
+        # (load_quantized_checkpoint): model.params may then be None.
+        self.quantized = bool(quantize) or qparams is not None
         self.device = model.device
         self.cam_info = cam_info or {}
         self.anomaly_settings = (
@@ -205,7 +217,7 @@ class StreamingEngine:
         self.timings: dict = {}
 
         self._forward, self._serve_params = serving_forward(
-            model.core, model.params, quantize=quantize)
+            model.core, model.params, quantize=self.quantized, qparams=qparams)
 
     # ----------------------------------------------------- unported controls
     def begin_recording(self, record_dir: str) -> str:
@@ -271,7 +283,12 @@ class StreamingEngine:
     def _ensure_cl(self) -> None:
         """Attach the optimizer (allocating Adam's moments on the device) at
         the first use of a CL control: an inference-only stream never holds
-        them (the flagship's are twice its parameter bytes)."""
+        them (the flagship's are twice its parameter bytes). Raises on an
+        int8-checkpoint boot: there are no float parameters to train."""
+        if self.model.params is None:
+            raise RuntimeError(
+                "continual learning needs float params, but this engine was booted from an "
+                "int8 checkpoint (inference-only). Load the float checkpoint to train.")
         if self.model.optimizer is None:
             self.model.compile()
 
@@ -391,6 +408,11 @@ class StreamingEngine:
         # signals so an interrupt never leaves a step half applied
         with defer_signals():
             loss, _x_hat = self.model.train_step_and_run(stacked, weights=weights)
+            if self.quantized:
+                # the float layers of the serving tree are the model's own
+                # tensors; the int8 copies follow the trained weights here
+                _, self._serve_params = serving_forward(
+                    self.model.core, self.model.params, quantize=True)
         self.cl_epochs += 1
         # one fetch for the whole dict (a float() per key waits for the
         # device each time)

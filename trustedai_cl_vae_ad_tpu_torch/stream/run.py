@@ -1,9 +1,9 @@
-"""The single-stream loop shared by ``camera_streamer_torch.py`` and
-``chip_smoke.py``.
+"""The run loops shared by ``camera_streamer_torch.py`` and ``chip_smoke.py``.
 
-Counterpart of the single-stream path of ``camera_streamer.py``'s ``main``:
-build the engine, iterate a frame source, write per-frame stats as JSON
-lines, stop at a tick boundary on SIGTERM/SIGINT, and summarize latency.
+Counterpart of ``camera_streamer.py``'s ``main`` (one stream) and
+``run_all_cameras`` (every camera of a list batched into one tick): build
+the engine, iterate the frame sources, write per-frame or per-tick stats as
+JSON lines, stop at a tick boundary on SIGTERM/SIGINT, and summarize latency.
 """
 
 from __future__ import annotations
@@ -11,12 +11,15 @@ from __future__ import annotations
 import json
 import os
 import signal
+import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from trustedai_cl_vae_ad_tpu_torch.stream.capture import make_source
 from trustedai_cl_vae_ad_tpu_torch.stream.engine import StreamingEngine, load_cam_config
+from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
 from trustedai_cl_vae_ad_tpu_torch.utils.profiling import rss_mb
 
 
@@ -185,3 +188,232 @@ def run_stream(engine: StreamingEngine, source, max_frames: Optional[int] = None
             f"p95={summary['p95_ms']:.2f} ms mean={summary['mean_ms']:.2f} ms; "
             f"host RSS {summary['rss_mb']:.0f} MB")
     return summary
+
+
+# -- every camera of a list in one batched tick ---------------------------------------
+
+class _LiveDrainThread:
+    """Reads a live source continuously on a daemon thread and keeps only the
+    newest frame. A capture FIFO backs up when it is read slower than the
+    camera delivers, and a blocking read in the tick loop would throttle the
+    whole fleet to the slowest camera; the reader thread absorbs both."""
+
+    def __init__(self, source):
+        self.source = source
+        self._lock = threading.Lock()
+        self._latest = None
+        self._stop = False
+        self.dead = False  # set when the source is exhausted or the read raises
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        try:
+            while not self._stop and not self.source.exhausted:
+                f = self.source.read()  # blocks until the camera's next frame
+                if f is not None:
+                    with self._lock:
+                        self._latest = f
+        except Exception as e:  # noqa: BLE001: a boundary that must report and end
+            # a silently dead drain thread would hand out one frozen frame forever
+            print(f"camera drain thread died: {e}")
+        finally:
+            self.dead = True
+
+    def read(self):
+        if self.dead:
+            return None  # an exhausted or failed source ends the stream
+        with self._lock:
+            return self._latest  # the newest frame; never blocks the tick
+
+    def stop(self) -> bool:
+        """Signal the loop and join (bounded). Returns whether the thread has
+        exited: the caller must NOT release the capture while a read may
+        still be in flight on this thread."""
+        self._stop = True
+        self._thread.join(timeout=2.0)
+        return not self._thread.is_alive()
+
+
+class PacedReader:
+    """Reads a source at its own fps relative to the batched tick rate.
+
+    The multi-camera tick runs at the fastest camera's fps. A slower
+    REPLAYABLE source (file, directory, synthetic) is read only on the ticks
+    where a new frame is due (a fractional accumulator, deterministic) and
+    repeats its latest frame in between, so mixed-fps camera lists do not
+    drain the slower sources early. LIVE sources (``source.is_live``) are
+    read on a drain thread instead, so the tick always gets the newest frame
+    without waiting for any camera.
+    """
+
+    def __init__(self, source, fps: float, tick_fps: float):
+        self.source = source
+        self._ratio = min(max(fps, 1e-6) / max(tick_fps, 1e-6), 1.0)
+        self._acc = 0.0
+        self._last = None
+        self._drain = _LiveDrainThread(source) if getattr(source, "is_live", False) else None
+
+    def read(self):
+        if self._drain is not None:
+            f = self._drain.read()
+            if f is not None:
+                self._last = f
+            elif self._drain.dead or self.source.exhausted:
+                return None  # ended: do not repeat the last frame forever
+            return self._last
+        if self.source.exhausted:
+            return None
+        self._acc += self._ratio
+        if self._last is None or self._acc >= 1.0:
+            if self._acc >= 1.0:
+                self._acc -= 1.0
+            f = self.source.read()
+            if f is not None:
+                self._last = f
+            elif self.source.exhausted:
+                return None
+        return self._last
+
+    def release(self):
+        if self._drain is not None and not self._drain.stop():
+            # the drain thread is still inside a blocking read (a stalled
+            # RTSP stream): releasing the capture under it is a use after
+            # release; leak it instead (the daemon thread dies with the process)
+            print("drain thread still in a blocking read; leaking capture")
+            return
+        self.source.release()
+
+
+def resolve_cameras(cam_config_path: Optional[str], n_streams: Optional[int] = None):
+    """(anomaly_settings, source specs, names, fps per camera): every entry of
+    the cam_config's camera_list, or ``n_streams`` (default 2) synthetic
+    cameras when there is no cam_config."""
+    if cam_config_path:
+        cam_config = load_cam_config(cam_config_path)
+        cams = cam_config["camera_list"]
+        return (cam_config.get("anomaly_settings"), [c.get("url") for c in cams],
+                [c.get("name", f"cam{i}") for i, c in enumerate(cams)],
+                [float(c.get("fps", 20)) for c in cams])
+    n = n_streams or 2
+    return None, ["synthetic"] * n, [f"synthetic{i}" for i in range(n)], [20.0] * n
+
+
+def load_serving_model(model_dir: Optional[str], config_path: Optional[str], device,
+                       quantize: bool = False, continual_learning: bool = False,
+                       init_seed: int = 0, log: Callable = print):
+    """(model, config, qparams) for a serving surface. With ``quantize`` and
+    without continual learning, a ``<model_dir>/quantized`` sidecar
+    (tools/quantize_checkpoint_torch.py) boots the model from the int8 tree:
+    the float parameters are neither read nor put on the device, and
+    ``qparams`` is that tree. Otherwise the float model is loaded (with its
+    Adam moments for a continual-learning resume) or, from ``config_path``,
+    built with seeded random weights, and ``qparams`` is None."""
+    from trustedai_cl_vae_ad_tpu_torch.ops.quant import (
+        has_quantized_checkpoint,
+        load_int8_serving_model,
+    )
+    from trustedai_cl_vae_ad_tpu_torch.registry import (
+        load_model_from_config_path,
+        load_model_from_directory,
+    )
+
+    if model_dir is None:
+        model, config = load_model_from_config_path(config_path, seed=init_seed, device=device)
+        return model, config, None
+    if quantize and not continual_learning:
+        if has_quantized_checkpoint(model_dir):
+            model, config = load_int8_serving_model(model_dir, device=device, log=log)
+            return model, config, model.qparams
+        log(f"no quantized checkpoint under {model_dir}: float boot "
+            "(tools/quantize_checkpoint_torch.py writes one)")
+    model, config = load_model_from_directory(model_dir, device=device,
+                                              restore_optimizer=continual_learning)
+    return model, config, None
+
+
+def run_all_cameras(engine: MultiCameraEngine, readers: Sequence, names: Sequence[str],
+                    max_frames: Optional[int] = None, stats_jsonl: Optional[str] = None,
+                    realtime: bool = False, fps: float = 20.0,
+                    stop: Optional[StopRequest] = None, on_tick: Optional[Callable] = None,
+                    log: Callable = print) -> dict:
+    """Batched multi-stream scoring: every tick reads one frame (or None) from
+    each of ``readers`` (objects with ``read()`` and ``release()``, e.g.
+    ``PacedReader``) and scores them in one dispatch of ``engine``, until a tick
+    on which no reader has a frame, ``max_frames`` ticks ran, or ``stop`` is requested.
+    Per-tick latency is host time around ``process_frames`` alone (reading the
+    cameras is outside it, as in ``run_stream``), whose score fetch waits for
+    the device (in pipelined mode, for the previous tick).
+    ``on_tick(tick, results)`` sees every tick's results. Returns a summary:
+    ticks, latencies (ms), p50/p95/mean over the latencies after the first
+    two when there are more than four, the host's resident memory (MB)."""
+    stats_file = open(stats_jsonl, "w") if stats_jsonl else None
+    n = 0
+    latencies: List[float] = []
+    try:
+        while max_frames is None or n < max_frames:
+            if stop is not None and stop.count:
+                raise KeyboardInterrupt
+            t_tick = time.perf_counter()
+            frames = [r.read() for r in readers]
+            if all(f is None for f in frames):
+                break
+            t0 = time.perf_counter()
+            results = engine.process_frames(frames, tag=n)
+            lat_ms = (time.perf_counter() - t0) * 1000.0
+            latencies.append(lat_ms)
+            # pipelined mode emits tick N-1's results at tick N: the engine
+            # says which tick the returned scores belong to
+            scored_tick = engine.last_emitted_tag
+            if on_tick is not None:
+                on_tick(scored_tick, results)
+            if n % 20 == 0:
+                line = " | ".join(
+                    f"{names[i]}: AS={r.score: .3f}{' **' if r.anomalous else ''}"
+                    for i, r in enumerate(results) if r is not None)
+                log(f"tick {n} ({lat_ms:.1f} ms): {line}")
+            if stats_file and scored_tick is not None:
+                stats_file.write(json.dumps({
+                    "tick": scored_tick, "latency_ms": round(lat_ms, 3),
+                    "scores": [None if r is None else r.score for r in results],
+                    "anomalous": [None if r is None else r.anomalous for r in results],
+                }) + "\n")
+            n += 1
+            if realtime:
+                time.sleep(max(0.0, 1.0 / fps - (time.perf_counter() - t_tick)))
+    except KeyboardInterrupt:
+        log("Keyboard Interrupt")
+    finally:
+        for r in readers:
+            r.release()
+        try:
+            last = engine.flush() if engine.pipelined else None
+            if last is not None:
+                if on_tick is not None:
+                    on_tick(engine.last_emitted_tag, last)
+                if stats_file:
+                    stats_file.write(json.dumps({
+                        "tick": engine.last_emitted_tag, "flushed": True,
+                        "scores": [None if r is None else r.score for r in last],
+                    }) + "\n")
+        finally:
+            if stats_file:
+                stats_file.close()
+    summary = {"ticks": n, "streams": len(readers), "latencies_ms": latencies,
+               "rss_mb": rss_mb()}
+    if latencies:
+        lat = np.array(latencies[2:] if len(latencies) > 4 else latencies)
+        summary.update(p50_ms=float(np.percentile(lat, 50)),
+                       p95_ms=float(np.percentile(lat, 95)), mean_ms=float(lat.mean()))
+        log(f"processed {n} ticks x {len(readers)} streams; tick latency "
+            f"p50={summary['p50_ms']:.2f} ms p95={summary['p95_ms']:.2f} ms "
+            f"mean={summary['mean_ms']:.2f} ms; host RSS {summary['rss_mb']:.0f} MB")
+    else:
+        log(f"processed {n} ticks x {len(readers)} streams")
+    return summary
+
+
+def make_paced_readers(specs: Sequence, fps_list: Sequence[float]) -> List[PacedReader]:
+    """One ``PacedReader`` per source spec, paced against the fastest camera."""
+    tick_fps = max(fps_list)
+    return [PacedReader(make_source(s, fps=f), f, tick_fps) for s, f in zip(specs, fps_list)]
