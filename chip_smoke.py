@@ -3,12 +3,13 @@
 
 Runs the port's main paths (trustedai_cl_vae_ad_tpu_torch) on the card, in
 phases: live-stream scoring, training of the three model types, continual
-learning in the live engine, and int8 serving with the multi-camera tick; any
-failure raises and the script exits non-zero without printing its final line.
+learning in the live engine, int8 serving with the multi-camera tick, and the
+dense-kernel update probes; any failure raises and the script exits non-zero
+without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
-  (b) build: nvcc builds the stream-scorer, the moments and the int8 GEMM
-      kernels from csrc/ into build/, all at once;
+  (b) build: nvcc builds the stream-scorer, the moments, the int8 GEMM and
+      the dense-update kernels from csrc/ into build/, all at once;
   (c) kernel vs its plain PyTorch version on the card, 8-frame sequences at
       224x300x3 and 37x53x3 (constant first frame, seeding, converged state),
       at the tolerances of trustedai_cl_vae_ad_tpu_torch/testing.py, and the
@@ -82,6 +83,32 @@ failure raises and the script exits non-zero without printing its final line.
       pass timed, the reconstruction of a fixed batch against the float
       forward; then an int8-checkpoint boot of the same weights from a
       temporary quantized/ sidecar, with no float Dense on the device.
+  (q) the six dense-update kernels (csrc/dense_grad_adam.cu) vs their plain
+      PyTorch versions on the card: ragged (5, 37, 53) and (3, 1003, 250) and
+      (64, 384, 256) in bfloat16 and float32, the probes' (768, 12800, 4000),
+      (768, 12800, 4096) and (768, 2000, 13440) in bfloat16, views that do not
+      start on a 16-byte boundary, step counts 1 and 5, both tiles. The
+      streaming copy and both streaming epilogues equal their plain versions
+      bit for bit (the same operations in the same order, each rounded once);
+      the product is within one step of its dtype of a float64 product
+      rounded once; w, mu, nu of the fused kernels are within one step of the
+      plain version on a small share of elements (the K sums are taken in
+      another order) and within 1/64 of the tensor's scale, as the archived
+      harness asks; two runs give equal bits; bad inputs raise. Times at
+      (768, 12800, 4000): CUDA-event median of 100 and back-to-back time of
+      each kernel, its bound, its plain version and the PyTorch calls that
+      compute the same function;
+  (r) the probes at full width through probes/r11.py::run, as
+      probe_r11_torch.py drives them: harness fused at enc (768, 268800,
+      4000) and dec (768, 2000, 134400), variants torch and fused, with the
+      check; harness diag, every variant; the encoder shape in the port's own
+      (out, in) layout (768, 4000, 268800). Each kernel's launch count equals
+      the steps taken; a kernel variant allocates nothing in a step, the
+      torch variant at least one (M, N) gradient; at enc the whole state
+      after one step agrees with the plain version taken over row blocks of
+      M. Then the float32 epilogue on the flagship's two dense kernels beside
+      ops/adam.py's adam_lean step on a tensor of the same shape (logged, not
+      compared: they round mu differently).
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -113,6 +140,16 @@ INT8_KERNEL = {
     "source": f"{PACKAGE}/csrc/int8_gemm.cu",
     "replaces": "benchmarks/r4_int8_gemm.py:45",
 }
+DGA_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/dense_grad_adam.cu"}
+# name in the kernels' line -> (its counter in ops.dense_grad_adam.launches, the TPU kernel)
+DGA_KERNELS = {
+    "dense_grad_adam_fused": ("fused", "benchmarks/r11_kernel.py:84"),
+    "dense_grad_adam_fused_xt": ("fused_xt", "benchmarks/r11_diag.py:132"),
+    "dense_grad": ("dense_grad", "benchmarks/r11_diag.py:163"),
+    "stream_copy": ("stream_copy", "benchmarks/r11_diag.py:183"),
+    "adam_epilogue_bf16": ("epilogue_bf16", "benchmarks/r11_diag.py:207"),
+    "adam_epilogue_f32": ("epilogue_f32", "benchmarks/r11_diag.py:238"),
+}
 MOMENTS_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/moments.cu"}
 JAX_MOMENTS = "trustedai_cl_vae_ad_tpu/ops/moments.py"
 MOMENTS_KERNELS = {
@@ -123,6 +160,13 @@ MOMENTS_KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12  # dense int8 rate of the tensor cores
+BF16_FLOP_PER_S = 989e12  # dense bfloat16 rate of the tensor cores
+# the dense-update probes: small shapes in both dtypes, the archived harnesses' in bfloat16
+DGA_SMALL_SHAPES = [(5, 37, 53), (3, 1003, 250), (64, 384, 256)]
+DGA_DIAG_SHAPE = (768, 12800, 4000)
+DGA_LARGE_SHAPES = [DGA_DIAG_SHAPE, (768, 12800, 4096), (768, 2000, 13440)]
+DGA_PORT_LAYOUT = (768, 4000, 268800)  # the encoder Dense as the port stores it, (out, in)
+DGA_STEPS = 10
 PROBE_SHAPE = (32, 268800, 4096)  # benchmarks/r4_int8_gemm.py:81
 # (M, K, N) of the two quantized Dense layers on the multi-camera and the single-stream path
 PATH_SHAPES = [(16, 268800, 4000), (1, 268800, 4000), (16, 2000, 134400), (1, 2000, 134400)]
@@ -197,6 +241,13 @@ def int8_bound(m, k, n):
     written once, against 2 m k n operations at the int8 tensor-core rate."""
     by_bytes = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
     by_ops = 2 * m * k * n / INT8_OP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def product_bound(nbytes, flops):
+    """(bound_ms, bound_by) of a kernel whose operations are a bfloat16 matrix
+    product: against the tensor cores' dense bfloat16 rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -1344,10 +1395,390 @@ def phase_p():
     return out
 
 
+def library_adam(g, w, mu, nu, step, lr=1e-4, b1=0.9, b2=0.999, eps=1e-8):
+    """One Adam step on w, mu, nu in place in a single pass by the library's own
+    kernel (the one behind ``torch.optim.Adam(fused=True)``): float32 arithmetic
+    on bfloat16 state, the same bias corrections, eps outside the root, another
+    order of roundings. ``step``: the post-step count, a float32 0-dim tensor on
+    the card. A yardstick that this script times; the port never calls it."""
+    import torch
+
+    torch._fused_adam_([w], [g], [mu], [nu], [], [step], lr=lr, beta1=b1, beta2=b2,
+                       weight_decay=0.0, eps=eps, amsgrad=False, maximize=False)
+
+
+DGA_BLOCK_ELEMENTS = 12800 * 4000  # a row block of the whole-state comparisons
+
+
+def phase_q(dev):
+    """The six dense-update kernels vs their plain versions on the card;
+    returns, per launch counter, the kernel's record at (768, 12800, 4000)."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+    from trustedai_cl_vae_ad_tpu_torch.probes import r11
+    from trustedai_cl_vae_ad_tpu_torch.testing import shifted, steps_apart
+
+    adam, names = r11.ADAM, ("w", "mu", "nu")
+
+    def case(shape, dtype, offset=0):
+        K, M, N = shape
+        gen = torch.Generator(device=dev).manual_seed(K + M + N)
+        ops = r11.make_operands(K, M, N, dev, gen, dtype=dtype)
+        ops["g"] = r11.make_gradient(M, N, dev, gen, dtype)
+        ops["xt"] = ops["x"].t().contiguous()
+        if offset:
+            ops = {k: shifted(v, offset) for k, v in ops.items()}
+            assert all(v.data_ptr() % 16 for v in ops.values())
+        return ops
+
+    def check(shape, dtype, offset=0):
+        """Every kernel at one shape; returns the largest absolute errors."""
+        K, M, N = shape
+        ops = case(shape, dtype, offset)
+        x, xt, dz, g = ops["x"], ops["xt"], ops["dz"], ops["g"]
+        errs = {}
+
+        def state():
+            return [shifted(ops[k], offset) for k in names]
+
+        def record(key, got, ref):
+            errs[key] = max(errs.get(key, 0.0), *(
+                float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)))
+
+        # the copy: into new tensors, into given ones, and onto itself
+        sources = [ops[k] for k in names]
+        for out in (None, state()):
+            copies = dga.stream_copy(*state(), out=out)
+            record("stream_copy", copies, sources)
+            assert all(torch.equal(c, t) for c, t in zip(copies, sources)), "copy differs"
+        own = state()
+        assert all(a is b for a, b in zip(dga.stream_copy(*own, out=own), own))
+        record("stream_copy", own, sources)
+        assert all(torch.equal(c, t) for c, t in zip(own, sources)), "copy onto itself"
+
+        # the epilogues on a given gradient: the plain version's operations in its order,
+        # each rounded once (--fmad=false, IEEE division and root): equal bit for bit
+        for arithmetic in ("float32", "bfloat16")[:1 + (dtype == torch.bfloat16)]:
+            reference = (dga.adam_epilogue_bf16_reference if arithmetic == "bfloat16"
+                         else dga.adam_epilogue_reference)
+            for count in (1, 5):
+                got, ref = state(), state()
+                dga.adam_epilogue_step(g, *got, count=count, arithmetic=arithmetic, **adam)
+                reference(g, *ref, count=count, **adam)
+                torch.cuda.synchronize()
+                record("epilogue_bf16" if arithmetic == "bfloat16" else "epilogue_f32", got, ref)
+                for name, a, b in zip(names, got, ref):
+                    assert torch.equal(a, b), (shape, dtype, arithmetic, count, name,
+                                               steps_apart(a, b))
+                assert not torch.equal(got[0], ops["w"]), "w did not move"
+                again = state()
+                dga.adam_epilogue_step(g, *again, count=count, arithmetic=arithmetic, **adam)
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ"
+
+        # the product alone against a float64 product rounded once: the order of the sums
+        g64 = x.double().t() @ dz.double()
+        got = dga.dense_grad(x, dz)
+        plain = dga.dense_grad_reference(x, dz)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dga.dense_grad(x, dz, out=torch.empty_like(got))), "two runs"
+        bf16 = dtype == torch.bfloat16
+        # bfloat16: one step, on few elements (the float32 sum is far finer than its
+        # rounding). float32: each of the K additions rounds once, so up to K steps, anywhere.
+        max_steps, max_share = (1.0, 0.01) if bf16 else (float(K), 1.0)
+        # where the K products cancel, the float32 sum carries up to K roundings at the
+        # size of its partial sums, which a small result's own step does not cover
+        share, worst = steps_apart(got, g64.float().to(dtype),
+                                   floor=K * 2.0 ** -24 * float(g64.abs().max()))
+        assert worst <= max_steps, (shape, dtype, "dense_grad", share, worst)
+        errs["dense_grad"] = float((got.double() - plain.double()).abs().max())
+        product_share, shares = share, [0.0]
+        del g64
+
+        # the fused kernels against the plain version: the K sums are taken in another
+        # order, which now and then flips the rounding of g and moves w, mu, nu by a step
+        for count in (1, 5):
+            ref = state()
+            dga.fused_dense_grad_adam_reference(x, dz, *ref, count=count, **adam)
+            # where its terms cancel, a sum is held to a step at the size of the terms
+            w_old = ops["w"].float()
+            terms = [torch.maximum(w_old.abs(), (w_old - ref[0].float()).abs()),
+                     torch.maximum(ops["mu"].float().abs(), plain.float().abs()), None]
+            for tile in dga.TILES:
+                for transposed in (False, True):
+                    got = state()
+                    dga.fused_dense_grad_adam(xt if transposed else x, dz, *got, count=count,
+                                              x_transposed=transposed, tile=tile, **adam)
+                    torch.cuda.synchronize()
+                    key = "fused_xt" if transposed else "fused"
+                    for i, name in enumerate(names):
+                        share, worst = steps_apart(got[i], ref[i], terms[i])
+                        scale = float((got[i].float() - ref[i].float()).abs().max()
+                                      / ref[i].float().abs().max())
+                        assert worst <= max_steps and share <= max_share and scale < 1 / 64, \
+                            (shape, dtype, tile, transposed, count, name, share, worst, scale)
+                        shares.append(share)
+                        if i == 0:
+                            errs[key] = max(errs.get(key, 0.0), float(
+                                (got[i].float() - ref[i].float()).abs().max()))
+                    assert not torch.equal(got[0], ops["w"]), "w did not move"
+            again = state()
+            dga.fused_dense_grad_adam(xt, dz, *again, count=count, x_transposed=True,
+                                      tile=dga.TILES[-1], **adam)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ"
+        log(f"  {shape} {str(dtype)[6:]}{' at +1 element' if offset else ''}: copy and "
+            f"epilogues equal bit for bit; within {max_steps:g} step(s): the product of a "
+            f"float64 product rounded once, on {product_share:.2e} of the elements, the fused "
+            f"kernels of the plain version, on at most {max(shares):.2e}")
+        return errs
+
+    before = dict(dga.launches)
+    for shape in DGA_SMALL_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            check(shape, dtype)
+    check(DGA_SMALL_SHAPES[1], torch.bfloat16, offset=1)
+    check(DGA_SMALL_SHAPES[2], torch.float32, offset=1)
+    for shape in DGA_LARGE_SHAPES[1:]:
+        check(shape, torch.bfloat16)
+    errs = check(DGA_DIAG_SHAPE, torch.bfloat16)
+    assert all(dga.launches[k] > before[k] for k in before), dga.launches
+
+    ops = case((4, 8, 6), torch.bfloat16)
+    x, dz, w, mu, nu, g = (ops[k] for k in ("x", "dz", "w", "mu", "nu", "g"))
+    for what, call, error in (
+            ("float64 operands", lambda: dga.dense_grad(x.double(), dz.double()), TypeError),
+            ("a float32 moment", lambda: dga.fused_dense_grad_adam(
+                x, dz, w, mu.float(), nu, count=1, **adam), TypeError),
+            ("a non-contiguous x", lambda: dga.fused_dense_grad_adam(
+                ops["xt"].t(), dz, w, mu, nu, count=1, **adam), ValueError),
+            ("w and mu overlapping", lambda: dga.adam_epilogue_step(
+                g, w, w, nu, count=1, **adam), ValueError),
+            ("dz on the cpu", lambda: dga.fused_dense_grad_adam(
+                x, dz.cpu(), w, mu, nu, count=1, **adam), ValueError),
+            ("w of another shape", lambda: dga.fused_dense_grad_adam(
+                x, dz, w.t().contiguous(), mu, nu, count=1, **adam), ValueError),
+            ("bfloat16 arithmetic on float32", lambda: dga.adam_epilogue_step(
+                g.float(), w.float(), mu.float(), nu.float(), count=1, arithmetic="bfloat16",
+                **adam), TypeError),
+            ("a copy onto another source", lambda: dga.stream_copy(w, mu, nu, out=(mu, w, nu)),
+             ValueError)):
+        expect_raises(call, error, what)
+
+    # times at the archived harness's shape, beside bounds, plain versions and library calls
+    K, M, N = DGA_DIAG_SHAPE
+    ops = case(DGA_DIAG_SHAPE, torch.bfloat16)
+    x, xt, dz, w, mu, nu, g = (ops[k] for k in ("x", "xt", "dz", "w", "mu", "nu", "g"))
+    gbuf, outs, kw = torch.empty_like(w), tuple(torch.empty_like(t) for t in (w, mu, nu)), \
+        dict(count=5, **adam)
+    size, mn = w.element_size(), M * N
+
+    def library_step(lhs):
+        dga.adam_epilogue_reference(torch.matmul(lhs, dz), w, mu, nu, **kw)
+
+    step = torch.tensor(float(kw["count"]), device=dev)
+    # how far the library's one-pass Adam lands from kernel 9 after one step from one state
+    # (another order of the same float32 operations: logged, not asserted)
+    ours, theirs = ([ops[k].clone() for k in names] for _ in range(2))
+    dga.adam_epilogue_step(g, *ours, **kw)
+    library_adam(g, *theirs, step, **adam)
+    apart = [steps_apart(a, b) for a, b in zip(theirs, ours)]
+    log("  torch._fused_adam_ against adam_epilogue_step, one step at "
+        f"{DGA_DIAG_SHAPE[1:]}: " + ", ".join(
+            f"{k} differs on {share:.2e} of the elements by at most {worst:.2f} steps"
+            for k, (share, worst) in zip(names, apart)))
+    del ours, theirs
+
+    full = (size * (6 * mn + K * M + K * N), 2 * K * mn)
+    plans = {
+        "fused": (lambda: dga.fused_dense_grad_adam(x, dz, w, mu, nu, **kw),
+                  lambda: dga.fused_dense_grad_adam_reference(x, dz, w, mu, nu, **kw),
+                  lambda: library_step(x.t()), product_bound(*full)),
+        "fused_xt": (lambda: dga.fused_dense_grad_adam(xt, dz, w, mu, nu, x_transposed=True,
+                                                       **kw),
+                     lambda: dga.fused_dense_grad_adam_reference(xt, dz, w, mu, nu,
+                                                                 x_transposed=True, **kw),
+                     lambda: library_step(xt), product_bound(*full)),
+        "dense_grad": (lambda: dga.dense_grad(x, dz, out=gbuf),
+                       lambda: dga.dense_grad_reference(x, dz, out=gbuf),
+                       lambda: torch.matmul(x.t(), dz),
+                       product_bound(size * (mn + K * M + K * N), 2 * K * mn)),
+        "stream_copy": (lambda: dga.stream_copy(w, mu, nu, out=outs),
+                        lambda: dga.stream_copy_reference(w, mu, nu, out=outs),
+                        lambda: [o.copy_(t) for o, t in zip(outs, (w, mu, nu))],
+                        bound(size * 6 * mn, 0)),
+        "epilogue_bf16": (lambda: dga.adam_epilogue_step(g, w, mu, nu, arithmetic="bfloat16",
+                                                         **kw),
+                          lambda: dga.adam_epilogue_bf16_reference(g, w, mu, nu, **kw), None,
+                          bound(size * 7 * mn, 12 * mn)),
+        "epilogue_f32": (lambda: dga.adam_epilogue_step(g, w, mu, nu, **kw),
+                         lambda: dga.adam_epilogue_reference(g, w, mu, nu, **kw),
+                         lambda: library_adam(g, w, mu, nu, step, **adam),
+                         bound(size * 7 * mn, 12 * mn)),
+    }
+    records = {}
+    for key, (kernel, plain, library, (bound_ms, bound_by)) in plans.items():
+        records[key] = dict(
+            shape=list(DGA_DIAG_SHAPE), max_abs_err=errs[key], ms=median_ms(kernel),
+            device_ms=queued_ms(kernel), plain_ms=median_ms(plain, runs=10, warmup=2),
+            library_ms=median_ms(library, runs=20, warmup=2) if library else None,
+            bound_ms=bound_ms, bound_by=bound_by)
+    big = lambda: dga.fused_dense_grad_adam(x, dz, w, mu, nu, tile="big", **kw)  # noqa: E731
+    records["fused"]["big_tile_ms"] = median_ms(big)
+    records["fused"]["big_tile_device_ms"] = queued_ms(big)
+    assert all(torch.isfinite(t).all() for t in (w, mu, nu))
+    for key, r in records.items():
+        library = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"  {key} at {DGA_DIAG_SHAPE} bfloat16, median of 100: kernel {r['ms']:.4f} ms "
+            f"({r['device_ms']:.4f} ms back to back), plain (median of 10) "
+            f"{r['plain_ms']:.4f} ms, library calls (median of 20) {library}, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    log(f"  fused with 128 x 128 tiles: {records['fused']['big_tile_ms']:.4f} ms "
+        f"({records['fused']['big_tile_device_ms']:.4f} ms back to back)")
+    return records
+
+
+def phase_r(dev):
+    """The probes at full width through probes/r11.py::run; returns the launch
+    counts of that path, the harnesses' records and the epilogue's times at
+    the flagship's dense shapes."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam import make_optimizer
+    from trustedai_cl_vae_ad_tpu_torch.probes import r11
+    from trustedai_cl_vae_ad_tpu_torch.testing import steps_apart
+
+    gib, adam, names = 2.0 ** 30, r11.ADAM, ("w", "mu", "nu")
+    for key in dga.launches:
+        dga.launches[key] = 0
+    expected = dict.fromkeys(dga.launches, 0)
+    records = []
+
+    def drive(harness, variant, **job):
+        torch.cuda.empty_cache()
+        rec, state = r11.run(harness, variant, steps=DGA_STEPS, device=dev, seed=0, **job)
+        K, M, N = rec["K"], rec["M"], rec["N"]
+        if rec["kernel"]:
+            expected[rec["kernel"]] += r11.WARMUP + DGA_STEPS + ("check_shape" in rec)
+            # in place, no scratch: a step allocates nothing
+            assert rec["temp_gb"] == 0.0, (variant, rec["temp_gb"])
+        else:  # torch.matmul writes the (M, N) gradient
+            assert rec["temp_gb"] >= M * N * 2 / gib, rec["temp_gb"]
+        assert all(bool(torch.isfinite(t).all()) for t in state), (variant, "not finite")
+        first = r11.make_operands(K, M, N, dev, torch.Generator(device=dev).manual_seed(0))
+        if variant == "dot_only":
+            assert bool((state[0] != 0).any())
+        elif variant == "copy_only":
+            assert all(torch.equal(t, first[k]) for t, k in zip(state, names))
+        else:  # in bfloat16 arithmetic b2 rounds to 1 and nu stays, as in the TPU probe
+            stays = ("nu",) if variant == "epi_bf16" else ()
+            for t, k in zip(state, names):
+                assert torch.equal(t, first[k]) == (k in stays), (variant, k, "changed or not")
+        records.append(rec)
+        check = (f", check at {tuple(rec['check_shape'])} "
+                 f"{ {k: round(v, 5) for k, v in rec['max_err_vs_scale'].items()} }"
+                 if "check_shape" in rec else "")
+        log(f"  {harness} {rec.get('shape', '')} {variant} ({K}, {M}, {N}): "
+            f"{rec['event_ms']:.4f} ms a step by CUDA events, {rec['ms']:.4f} by the host clock, "
+            f"floor {rec['floor_ms']:.4f} ms, a step allocates {rec['temp_gb']:.3f} GiB{check}")
+
+    for shape_name in ("enc", "dec"):
+        for variant in ("torch", "fused"):
+            drive("fused", variant, shape_name=shape_name)
+    for variant in r11.DIAG_VARIANTS:
+        drive("diag", variant)
+    drive("fused", "fused", shape=DGA_PORT_LAYOUT, check=False)
+
+    # the whole state after one step at every full-width shape that was driven, against the
+    # plain version over row blocks of M (whole, enc's float32 temporaries would be 4.3 GB each)
+    def whole_state(label, shape):
+        torch.cuda.empty_cache()
+        K, M, N = shape
+        ops = r11.make_operands(K, M, N, dev, torch.Generator(device=dev).manual_seed(1))
+        got = [ops[k].clone() for k in names]
+        dga.fused_dense_grad_adam(ops["x"], ops["dz"], *got, count=1, **adam)
+        expected["fused"] += 1
+        rows = max(1, DGA_BLOCK_ELEMENTS // N)
+        worst, differing, diff_max, ref_max = 0.0, 0, [0.0] * 3, [0.0] * 3
+        for r0 in range(0, M, rows):
+            r1 = min(r0 + rows, M)
+            xb = ops["x"][:, r0:r1].contiguous()
+            ref = [ops[k][r0:r1] for k in names]  # row blocks of a contiguous matrix: contiguous
+            w_old = ref[0].float()
+            terms = [None, torch.maximum(ref[1].float().abs(), dga.dense_grad_reference(
+                xb, ops["dz"]).float().abs()), None]
+            dga.fused_dense_grad_adam_reference(xb, ops["dz"], *ref, count=1, **adam)
+            terms[0] = torch.maximum(w_old.abs(), (w_old - ref[0].float()).abs())
+            for i in range(3):
+                block = got[i][r0:r1]
+                share, steps = steps_apart(block, ref[i], terms[i])
+                worst, differing = max(worst, steps), differing + round(share * block.numel())
+                diff_max[i] = max(diff_max[i],
+                                  float((block.float() - ref[i].float()).abs().max()))
+                ref_max[i] = max(ref_max[i], float(ref[i].float().abs().max()))
+        scale = {k: d / r for k, d, r in zip(names, diff_max, ref_max)}
+        assert worst <= 1.0 and differing <= 0.01 * 3 * M * N and all(
+            v < 1 / 64 for v in scale.values()), (label, worst, differing, scale)
+        log(f"  {label} ({K}, {M}, {N}), one step, all of w, mu, nu against the plain version "
+            f"over blocks of {rows} rows: {differing} of {3 * M * N} elements differ, by at "
+            f"most {worst:.2f} steps; max error over scale "
+            f"{ {k: round(v, 5) for k, v in scale.items()} }")
+
+    for label in ("enc", "dec"):
+        whole_state(label, r11.SHAPES[label])
+    whole_state("port layout", DGA_PORT_LAYOUT)
+    launches = dict(dga.launches)
+    assert launches == expected, (launches, expected)
+    log(f"  launches on this path: {launches}")
+
+    # what one pass over the bytes costs: the float32 epilogue on the flagship's two dense
+    # kernels, first held bit for bit against its plain version over row blocks (same
+    # operations in the same order; at (268800, 4000) its byte offsets pass 2^31), then timed
+    # beside the eager adam_lean step and the library's one-pass Adam on tensors of the same
+    # shape (other roundings of mu: times side by side, no comparison of values)
+    flagship = []
+    step = torch.tensor(5.0, device=dev)
+    for M, N in ((268800, 4000), (2000, 134400)):
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(2)
+        ops = r11.make_operands(1, M, N, dev, gen)
+        g = r11.make_gradient(M, N, dev, gen)
+        state = [ops[k] for k in names]
+        got = [t.clone() for t in state]
+        dga.adam_epilogue_step(g, *got, count=5, **adam)
+        assert not torch.equal(got[0], state[0]), "w did not move"
+        rows = max(1, DGA_BLOCK_ELEMENTS // N)
+        for r0 in range(0, M, rows):
+            ref = [t[r0:r0 + rows] for t in state]  # the plain version steps the block in place
+            dga.adam_epilogue_reference(g[r0:r0 + rows], *ref, count=5, **adam)
+            for name, a, b in zip(names, got, ref):
+                assert torch.equal(a[r0:r0 + rows], b), ((M, N), name, r0, steps_apart(
+                    a[r0:r0 + rows], b))
+        epilogue = lambda: dga.adam_epilogue_step(g, *state, count=5, **adam)  # noqa: E731
+        rec = {"shape": [M, N], "epilogue_ms": median_ms(epilogue, runs=20),
+               "epilogue_device_ms": queued_ms(epilogue, runs=20),
+               "fused_adam_ms": median_ms(lambda: library_adam(g, *got, step, **adam), runs=20),
+               "bound_ms": bound(2 * 7 * M * N, 12 * M * N)[0]}
+        param = ops["w"].clone()
+        opt = make_optimizer({"w": param}, adam["lr"], torch.bfloat16, "adam_lean")
+        rec["adam_lean_step_ms"] = median_ms(lambda: opt.step([g]), runs=10, warmup=2)
+        assert all(bool(torch.isfinite(t).all()) for t in (param, *state, *got))
+        flagship.append(rec)
+        log(f"  one Adam step on a ({M}, {N}) bfloat16 kernel: the streaming epilogue equals "
+            f"its plain version bit for bit; {rec['epilogue_ms']:.4f} ms "
+            f"({rec['epilogue_device_ms']:.4f} ms back to back; median of 20), "
+            f"torch._fused_adam_ (median of 20) {rec['fused_adam_ms']:.4f} ms, ops/adam.py's "
+            f"adam_lean step (median of 10) {rec['adam_lean_step_ms']:.4f} ms, bound of one "
+            f"pass {rec['bound_ms']:.4f} ms")
+        del ops, g, state, got, param, opt
+    torch.cuda.empty_cache()
+    return {"launches": launches, "records": records, "flagship_epilogue": flagship}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..p to run after the build (for "
+                        help="comma-separated subset of c..r to run after the build (for "
                              "finding a fault); the final line is then not printed")
     args = parser.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
@@ -1382,14 +1813,21 @@ def main(argv=None):
     log("[b] build")
     from concurrent.futures import ThreadPoolExecutor
 
-    from trustedai_cl_vae_ad_tpu_torch.ops import _build, int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.ops import (
+        _build,
+        dense_grad_adam,
+        int8_gemm,
+        moments,
+        stream_score,
+    )
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc for each source, started together
-        list(pool.map(lambda module: module.build(), (stream_score, moments, int8_gemm)))
-    log(f"  stream_score, moments and int8_gemm built and loaded in "
+        list(pool.map(lambda module: module.build(),
+                      (stream_score, moments, int8_gemm, dense_grad_adam)))
+    log(f"  stream_score, moments, int8_gemm and dense_grad_adam built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-    for kernel in ("stream_score", "moments", "int8_gemm"):
+    for kernel in ("stream_score", "moments", "int8_gemm", "dense_grad_adam"):
         for line in _build.build_log.get(kernel, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
@@ -1426,6 +1864,8 @@ def main(argv=None):
     run("n", "batched stream-scorer kernel vs plain batched version", lambda: phase_n(dev))
     run("o", "tiny multi-camera engine: cuda vs cpu, float and w8a8; the int8 sidecar", phase_o)
     run("p", "flagship int8 serving and the multi-camera tick", phase_p)
+    run("q", "dense-update kernels vs plain versions on the card", lambda: phase_q(dev))
+    run("r", "the dense-update probes at full width", lambda: phase_r(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -1434,7 +1874,8 @@ def main(argv=None):
     # launches of each kernel on the path that runs it, counted from zero
     # just before that path: (e) for the scorer, (h) for the global moments,
     # (k) with KurtosisSingle for the per-dimension moments, (p)'s w8a8
-    # multi-camera run for the int8 GEMM (and the scorer's batched launches)
+    # multi-camera run for the int8 GEMM (and the scorer's batched launches),
+    # (r) for the six dense-update kernels
     global_launches, perdim_launches = out["h"], out["k"][0]
     int8_launches, fleet_scorer_launches = out["p"]["launches"]
     print(json.dumps({"kernels": [
@@ -1443,6 +1884,8 @@ def main(argv=None):
         dict(INT8_KERNEL, launches=int8_launches, **out["m"]),
         *moments_entries("global", out["f"], global_launches[0], global_launches[1]),
         *moments_entries("perdim", out["i"], perdim_launches[2], perdim_launches[3]),
+        *(dict(DGA_SOURCE, name=name, replaces=replaces, launches=out["r"]["launches"][counter],
+               **out["q"][counter]) for name, (counter, replaces) in DGA_KERNELS.items()),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
 """The CUDA kernels (stream scorer, single and batched; global and per-dimension
-moments; the int8 GEMM) vs their plain PyTorch versions on the card.
+moments; the int8 GEMM; the six dense-update kernels) vs their plain PyTorch
+versions on the card.
 
 Marked ``cuda``: without a CUDA device these tests skip. On the card run
 ``python -m pytest tests/test_torch_kernels_gpu.py -q``.
@@ -14,6 +15,8 @@ from trustedai_cl_vae_ad_tpu_torch.testing import (
     compare_sequences,
     run_sequence,
     score_sequence,
+    shifted,
+    steps_apart,
 )
 
 pytestmark = pytest.mark.cuda
@@ -489,3 +492,169 @@ def test_multicam_tick_on_the_card_launches_each_kernel_once_per_dense_and_tick(
         assert (out[2] is None) == (t == 1)
         assert all(np.isfinite(r.pixel_count) for r in out if r is not None)
     assert (ig.launches - before[0], ss.launches - before[1]) == (3 * 2, 3)
+
+
+# -- the dense-update kernels (csrc/dense_grad_adam.cu) ---------------------------------
+
+DGA_SHAPES = [((5, 37, 53), "bfloat16"), ((5, 37, 53), "float32"), ((3, 1003, 250), "bfloat16"),
+              ((3, 1003, 250), "float32"), ((64, 384, 256), "bfloat16"),
+              ((64, 384, 256), "float32"), ((768, 12800, 4000), "bfloat16"),
+              ((768, 12800, 4096), "bfloat16"), ((768, 2000, 13440), "bfloat16")]
+DGA_IDS = [f"{'x'.join(map(str, s))}-{d}" for s, d in DGA_SHAPES]
+DGA_NAMES = ("w", "mu", "nu")
+
+
+def _dga_case(dev, shape, dtype, offset=0):
+    """Operands with the probes' scales; with ``offset`` every tensor starts
+    that many elements into its allocation (off a 16-byte boundary)."""
+    from trustedai_cl_vae_ad_tpu_torch.probes import r11
+
+    K, M, N = shape
+    gen = torch.Generator(device=dev).manual_seed(K + M + N)
+    ops = r11.make_operands(K, M, N, dev, gen, dtype=getattr(torch, dtype))
+    ops["g"] = r11.make_gradient(M, N, dev, gen, getattr(torch, dtype))
+    ops["xt"] = ops["x"].t().contiguous()
+    if offset:
+        ops = {k: shifted(v, offset) for k, v in ops.items()}
+    return ops
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "plus_one_element"])
+@pytest.mark.parametrize("shape, dtype", DGA_SHAPES[:6], ids=DGA_IDS[:6])
+def test_stream_copy_kernel_copies_bit_for_bit(cuda_device, shape, dtype, offset):
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+
+    ops = _dga_case(cuda_device, shape, dtype, offset)
+    src = [ops[k] for k in DGA_NAMES]
+    before = dga.launches["stream_copy"]
+    new = dga.stream_copy(*src)
+    given = dga.stream_copy(*src, out=[shifted(torch.zeros_like(t), offset) for t in src])
+    own = [t.clone() for t in src]
+    dga.stream_copy(*own, out=own)
+    torch.cuda.synchronize()
+    assert dga.launches["stream_copy"] == before + 3
+    for outs in (new, given, own):
+        assert all(torch.equal(a, b) for a, b in zip(outs, src))
+
+
+DGA_EPILOGUES = [(s, d, a) for s, d in DGA_SHAPES
+                 for a in ("float32", "bfloat16")[:1 + (d == "bfloat16")]]
+
+
+@pytest.mark.parametrize("count", [1, 5])
+@pytest.mark.parametrize("shape, dtype, arithmetic", DGA_EPILOGUES,
+                         ids=[f"{'x'.join(map(str, s))}-{d}-{a}_arithmetic"
+                              for s, d, a in DGA_EPILOGUES])
+def test_streaming_epilogue_kernels_equal_their_plain_versions(cuda_device, shape, dtype,
+                                                               arithmetic, count):
+    """Bit for bit: the same operations in the same order, each rounded once
+    (``--fmad=false``, IEEE division and root)."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+    from trustedai_cl_vae_ad_tpu_torch.probes.r11 import ADAM
+
+    for offset in (0, 1):
+        ops = _dga_case(cuda_device, shape, dtype, offset)
+        got = [shifted(ops[k], offset) for k in DGA_NAMES]
+        ref = [ops[k].clone() for k in DGA_NAMES]
+        key = "epilogue_bf16" if arithmetic == "bfloat16" else "epilogue_f32"
+        before = dga.launches[key]
+        dga.adam_epilogue_step(ops["g"], *got, count=count, arithmetic=arithmetic, **ADAM)
+        assert dga.launches[key] == before + 1
+        reference = (dga.adam_epilogue_bf16_reference if arithmetic == "bfloat16"
+                     else dga.adam_epilogue_reference)
+        reference(ops["g"], *ref, count=count, **ADAM)
+        torch.cuda.synchronize()
+        for name, a, b in zip(DGA_NAMES, got, ref):
+            assert torch.equal(a, b), (name, offset, steps_apart(a, b))
+        assert not torch.equal(got[0], ops["w"])
+
+
+@pytest.mark.parametrize("shape, dtype", DGA_SHAPES, ids=DGA_IDS)
+def test_dense_grad_kernel_matches_a_float64_product(cuda_device, shape, dtype):
+    """bfloat16: within one step of the float64 product rounded once (the
+    float32 sum is far finer than its rounding); float32: within K steps
+    (each of the K additions rounds once)."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+
+    ops = _dga_case(cuda_device, shape, dtype)
+    before = dga.launches["dense_grad"]
+    got = dga.dense_grad(ops["x"], ops["dz"])
+    again = dga.dense_grad(ops["x"], ops["dz"], out=torch.empty_like(got))
+    torch.cuda.synchronize()
+    assert dga.launches["dense_grad"] == before + 2 and torch.equal(got, again)
+    g64 = ops["x"].double().t() @ ops["dz"].double()
+    # where the K products cancel, the float32 sum carries up to K roundings at the size
+    # of its partial sums, which a small result's own step does not cover
+    _share, worst = steps_apart(got, g64.float().to(got.dtype),
+                                     floor=shape[0] * 2.0 ** -24 * float(g64.abs().max()))
+    assert worst <= (1.0 if dtype == "bfloat16" else shape[0])
+
+
+@pytest.mark.parametrize("count", [1, 5])
+@pytest.mark.parametrize("tile", ["default", "big"])
+@pytest.mark.parametrize("x_transposed", [False, True], ids=["x_km", "x_mk"])
+@pytest.mark.parametrize("shape, dtype", DGA_SHAPES, ids=DGA_IDS)
+def test_fused_kernels_match_their_plain_version(cuda_device, shape, dtype, x_transposed, tile,
+                                                 count):
+    """The K sums are taken in another order than the plain product's, which
+    now and then flips the rounding of g: w, mu, nu within one bfloat16 step
+    on at most 1% of the elements (float32: K steps, anywhere), and within
+    1/64 of the tensor's scale, as the archived harness asks. In place, and
+    two runs give equal bits."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+    from trustedai_cl_vae_ad_tpu_torch.probes.r11 import ADAM
+
+    offset = int(shape == (3, 1003, 250))
+    ops = _dga_case(cuda_device, shape, dtype, offset)
+    x = ops["xt"] if x_transposed else ops["x"]
+    got = [shifted(ops[k], offset) for k in DGA_NAMES]
+    again = [ops[k].clone() for k in DGA_NAMES]
+    ref = [ops[k].clone() for k in DGA_NAMES]
+    key = "fused_xt" if x_transposed else "fused"
+    before = dga.launches[key]
+    out = dga.fused_dense_grad_adam(x, ops["dz"], *got, count=count, x_transposed=x_transposed,
+                                    tile=tile, **ADAM)
+    dga.fused_dense_grad_adam(x, ops["dz"], *again, count=count, x_transposed=x_transposed,
+                              tile=tile, **ADAM)
+    assert dga.launches[key] == before + 2 and all(a is b for a, b in zip(out, got))
+    dga.fused_dense_grad_adam_reference(ops["x"], ops["dz"], *ref, count=count, **ADAM)
+    torch.cuda.synchronize()
+    # where its terms cancel, a sum is held to a step at the size of the terms
+    terms = [torch.maximum(ops["w"].float().abs(), (ops["w"].float() - ref[0].float()).abs()),
+             torch.maximum(ops["mu"].float().abs(),
+                           dga.dense_grad_reference(ops["x"], ops["dz"]).float().abs()), None]
+    max_steps, max_share = (1.0, 0.01) if dtype == "bfloat16" else (float(shape[0]), 1.0)
+    for i, name in enumerate(DGA_NAMES):
+        assert torch.equal(got[i], again[i]), f"two runs differ in {name}"
+        share, worst = steps_apart(got[i], ref[i], terms[i])
+        scale = float((got[i].float() - ref[i].float()).abs().max() / ref[i].float().abs().max())
+        assert worst <= max_steps and share <= max_share and scale < 1 / 64, \
+            (name, share, worst, scale)
+    assert not torch.equal(got[0], ops["w"])
+
+
+def test_dense_update_kernels_reject_bad_inputs(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+    from trustedai_cl_vae_ad_tpu_torch.probes.r11 import ADAM
+
+    ops = _dga_case(cuda_device, (4, 8, 6), "bfloat16")
+    x, dz, w, mu, nu, g = (ops[k] for k in ("x", "dz", "w", "mu", "nu", "g"))
+    before = dict(dga.launches)
+    with pytest.raises(TypeError):
+        dga.dense_grad(x.double(), dz.double())
+    with pytest.raises(TypeError):
+        dga.fused_dense_grad_adam(x, dz, w, mu.float(), nu, count=1, **ADAM)
+    with pytest.raises(TypeError):
+        dga.adam_epilogue_step(g.float(), w.float(), mu.float(), nu.float(), count=1,
+                               arithmetic="bfloat16", **ADAM)
+    with pytest.raises(ValueError):
+        dga.fused_dense_grad_adam(ops["xt"].t(), dz, w, mu, nu, count=1, **ADAM)
+    with pytest.raises(ValueError):
+        dga.adam_epilogue_step(g, w, w, nu, count=1, **ADAM)
+    with pytest.raises(ValueError):
+        dga.fused_dense_grad_adam(x, dz.cpu(), w, mu, nu, count=1, **ADAM)
+    with pytest.raises(ValueError):
+        dga.fused_dense_grad_adam(x, dz, w.t().contiguous(), mu, nu, count=1, **ADAM)
+    with pytest.raises(ValueError):
+        dga.stream_copy(w, mu, nu, out=(mu, w, nu))
+    assert dga.launches == before

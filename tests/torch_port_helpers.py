@@ -97,3 +97,79 @@ def next_jax_eps(jmodel, batch):
 def loss_to_np(loss):
     """A loss dict of either package -> {key: float}, in its own key order."""
     return {k: float(np.asarray(to_np(v))) for k, v in loss.items()}
+
+
+def np_to_torch_exact(a):
+    """A numpy array as JAX gives it -> a CPU tensor that owns its memory, bit
+    for bit; bfloat16 (``ml_dtypes``) stays bfloat16."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def torch_to_np_exact(t):
+    """The inverse of ``np_to_torch_exact``: bfloat16 comes back as
+    ``ml_dtypes.bfloat16``."""
+    import ml_dtypes
+
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def load_r11_probes(monkeypatch, tmp_path):
+    """The archived JAX probes ``benchmarks/r11_kernel.py`` and ``r11_diag.py``
+    (and the harness ``r11_fused_dense_adam.py``) as fresh modules whose Pallas
+    kernels run in interpret mode on the CPU; returns (r11_kernel, r11_diag,
+    calls, r11_fused_dense_adam), ``calls`` growing by one per ``pallas_call``. Nothing of it outlives the test: the modules leave
+    ``sys.modules``, ``sys.path`` and the environment are restored, and the
+    compile-cache variable that importing ``r11_diag`` would set (a
+    ``TCVAE_*`` override, which other tests read) points into ``tmp_path``."""
+    import importlib.util
+    import os
+    import sys
+
+    from jax.experimental import pallas as pl
+
+    benchmarks = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "benchmarks")
+    monkeypatch.setenv("TCVAE_COMPILE_CACHE", str(tmp_path / "xla_cache"))
+    monkeypatch.syspath_prepend(benchmarks)  # restores all of sys.path afterwards
+    mods = []
+    for name in ("r11_kernel", "r11_diag", "r11_fused_dense_adam"):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(benchmarks, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        monkeypatch.setitem(sys.modules, name, mod)  # r11_diag imports r11_kernel by name
+        spec.loader.exec_module(mod)
+        mods.append(mod)
+    kernel, diag, fused = mods
+    monkeypatch.setattr(kernel, "_INTERPRET", True)
+    calls = []
+    pallas_call = pl.pallas_call
+
+    def interpreted(*args, **kwargs):
+        calls.append(1)
+        kwargs["interpret"] = True
+        return pallas_call(*args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", interpreted)
+    return kernel, diag, calls, fused
+
+
+def assert_one_step_apart(got, ref, label, share=0.01, terms=None, updates=1):
+    """``got`` and ``ref`` (numpy, one dtype, bfloat16 or float32) are equal
+    except on at most ``share`` of their elements, which differ by at most
+    ``updates`` steps of that dtype as ``testing.steps_apart`` counts them
+    (``terms`` as there). ``updates`` is how many updates the values went
+    through, each of which may add one such step."""
+    from trustedai_cl_vae_ad_tpu_torch.testing import steps_apart
+
+    assert got.dtype == ref.dtype, (label, got.dtype, ref.dtype)
+    differing, worst = steps_apart(
+        np_to_torch_exact(got), np_to_torch_exact(ref),
+        None if terms is None else torch.from_numpy(np.asarray(terms, np.float64)))
+    assert worst <= updates, (label, worst)
+    assert differing <= share, (label, differing)
+    return differing

@@ -1,5 +1,6 @@
 """Parity fixtures and checks shared by the tests and ``chip_smoke.py``: the
-stream scorer's, then the training step's (at the end of the file).
+stream scorer's, then the training step's, then the dense-update kernels'
+(at the end of the file).
 
 One place states the inputs and the tolerances with which an implementation
 of the stream-scorer update (the CUDA kernel, the plain PyTorch version, the
@@ -175,3 +176,46 @@ def compare_train_runs(got: Sequence[dict], ref: Sequence[dict], rtol: float, at
                                        err_msg=f"{label} step {i} {k}")
         worst = max(worst, abs(g["loss"] - r["loss"]))
     return worst
+
+
+# -- the dense-update kernels (ops/dense_grad_adam.py) ------------------------------
+
+
+def steps_apart(got, ref, terms=None, floor: float = 0.0) -> Tuple[float, float]:
+    """How far apart two tensors of one dtype (bfloat16 or float32) are: (the
+    share of elements that differ, their largest difference in steps of the
+    dtype at the larger of the two values). Where two terms cancelled to a
+    value far below the tensor's scale, what is left is the float32 rounding
+    of the terms: the step is never taken below one float32 step at that
+    scale. ``terms`` (magnitudes, same shape): the terms the values are a sum
+    of, where an input of the sum already differed by a step; the step is
+    then taken at them. ``floor``: a difference that small counts as one step
+    whatever the value (the error that a sum of many terms carries when it
+    cancels to a value far below its terms)."""
+    import torch
+
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise ValueError(f"{got.dtype} {tuple(got.shape)} against {ref.dtype} {tuple(ref.shape)}")
+    bits = 7 if got.dtype == torch.bfloat16 else 23
+    a, b = got.double(), ref.double()
+    differ = a != b
+    n = int(differ.sum())
+    if n == 0:
+        return 0.0, 0.0
+    big = torch.maximum(a.abs(), b.abs())
+    if terms is not None:
+        big = torch.maximum(big, terms.double())
+    step = torch.exp2(torch.floor(torch.log2(big[differ])) - bits)
+    step = step.clamp_min(max(floor, 2.0 ** -23 * float(b.abs().max())))
+    return n / got.numel(), float(((a - b).abs()[differ] / step).max())
+
+
+def shifted(t, offset: int):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    allocation (so not on a 16-byte boundary when offset is 1)."""
+    import torch
+
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
