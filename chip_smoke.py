@@ -4,12 +4,14 @@
 Runs the port's main paths (trustedai_cl_vae_ad_tpu_torch) on the card, in
 phases: live-stream scoring, training of the three model types, continual
 learning in the live engine, int8 serving with the multi-camera tick, and the
-dense-kernel update probes; any failure raises and the script exits non-zero
+dense-kernel update probes, the convolution weight-gradient kernel with its probe,
+and crash-atomic checkpoints; any failure raises and the script exits non-zero
 without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
-  (b) build: nvcc builds the stream-scorer, the moments, the int8 GEMM and
-      the dense-update kernels from csrc/ into build/, all at once;
+  (b) build: nvcc builds the stream-scorer, the moments, the int8 GEMM, the
+      dense-update and the convolution weight-gradient kernels from csrc/ into
+      build/, all at once;
   (c) kernel vs its plain PyTorch version on the card, 8-frame sequences at
       224x300x3 and 37x53x3 (constant first frame, seeding, converged state),
       at the tolerances of trustedai_cl_vae_ad_tpu_torch/testing.py, and the
@@ -109,6 +111,34 @@ without printing its final line.
       M. Then the float32 epilogue on the flagship's two dense kernels beside
       ops/adam.py's adam_lean step on a tensor of the same shape (logged, not
       compared: they round mu differently).
+  (s) the convolution weight-gradient kernel (csrc/conv_dw.cu) vs its plain
+      PyTorch version and a float64 reference on the card: the archived
+      check's two shapes, a ragged batch of 5 and a shape with more channels
+      than one tile (40 -> 70), in float32 and bfloat16; the flagship
+      encoder's conv1 (768, 224, 300, 3 -> 32) and conv2 (768, 112, 150,
+      32 -> 64) in bfloat16 at the full batch, the float64 reference taken
+      over blocks of 32 images. Tolerance: 1e-4 of the largest |dW| plus 1e-4
+      relative (12.9 M float32 additions in another order than the reference's;
+      the products of bfloat16 values are exact). Views that do not start on a
+      16-byte boundary give the same bits as aligned ones; odd H raises; two
+      runs give equal bits; both gradients through the autograd Function
+      against autograd of conv2d_same, float32 and bfloat16. Times at conv1 and
+      conv2, batch 768, bfloat16: CUDA-event median of 100 and back-to-back
+      time of the kernel, its bound, the plain version, cuDNN's weight
+      gradient (a yardstick only this script calls), and an NHWC copy of dy;
+  (t) probes/r18.py's bench at full width, as probe_r18_torch.py --bench
+      --batch 256 drives it: the flagship KurtosisGlobal train + score step in
+      bfloat16 with adam_lean, with 0, 1 and 2 encoder convolutions' weight
+      gradients routed through the kernel; the variants' losses after one
+      update agree; then 3 warm-up + 10 timed steps a variant. The kernel's
+      launches equal steps x routed convolutions, the global moments kernels
+      launch once a step;
+  (u) checkpoints of the flagship (float32, adam, 16 GB of state) from the
+      card: two synchronous saves, the first of the weights alone (rounds 1
+      and 2, ``current`` and the three stable symlinks present), a reload through load_model_from_directory to
+      the same validation loss, then one AsyncSaver round with a training
+      step taken between save and wait: the reloaded weights equal the state
+      at save, not after the step. Seconds of each are logged.
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -150,6 +180,16 @@ DGA_KERNELS = {
     "adam_epilogue_bf16": ("epilogue_bf16", "benchmarks/r11_diag.py:207"),
     "adam_epilogue_f32": ("epilogue_f32", "benchmarks/r11_diag.py:238"),
 }
+CONV_DW_KERNEL = {
+    "name": "conv_dw",
+    "route": "cuda",
+    "source": f"{PACKAGE}/csrc/conv_dw.cu",
+    "replaces": "benchmarks/r18_conv_dw.py:53",
+}
+# (B, H, W, CI, CO): the archived check's two shapes, a ragged batch, more channels than a tile
+CONV_DW_SMALL = [(2, 8, 12, 3, 8), (3, 16, 16, 5, 4), (5, 6, 10, 3, 32), (3, 4, 70, 40, 70)]
+CONV_DW_BATCH, CONV_DW_BLOCK = 768, 32
+R18_BATCH, R18_WARMUP, R18_STEPS = 256, 3, 10
 MOMENTS_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/moments.cu"}
 JAX_MOMENTS = "trustedai_cl_vae_ad_tpu/ops/moments.py"
 MOMENTS_KERNELS = {
@@ -1775,10 +1815,297 @@ def phase_r(dev):
     return {"launches": launches, "records": records, "flagship_epilogue": flagship}
 
 
+def cudnn_weight_gradient(x, dy):
+    """The call that takes the library's weight gradient of the 3x3, stride-2, SAME
+    convolution, (CO, CI, 3, 3), from NHWC x and dy: the yardstick of phase (s); the port
+    never calls it. The padding is done here, once, outside what is timed: in the model the
+    forward has already made the padded input."""
+    import torch
+
+    xpad = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1))
+    dy_nchw = dy.permute(0, 3, 1, 2)
+    weight = torch.empty((dy.shape[3], x.shape[3], 3, 3), dtype=x.dtype, device=x.device)
+    return lambda: torch.ops.aten.convolution_backward(
+        dy_nchw, xpad, weight, None, [2, 2], [0, 0], [1, 1], False, [0, 0], 1,
+        [False, True, False])[1]
+
+
+def conv_dw_float64(x, dy, block=CONV_DW_BLOCK):
+    """dW (3, 3, CI, CO) in float64: the plain version with float64 sums, taken over blocks
+    of ``block`` images."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops.conv_dw import conv_dw_reference
+
+    return sum(conv_dw_reference(x[b0:b0 + block], dy[b0:b0 + block], accumulate=torch.float64)
+               for b0 in range(0, x.shape[0], block))
+
+
+def phase_s(dev):
+    """The convolution weight-gradient kernel vs its plain version and a float64 reference
+    on the card; returns the kernel's records at the flagship's conv1 and conv2."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.models.cvae import conv2d_same
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+    from trustedai_cl_vae_ad_tpu_torch.probes import r18
+    from trustedai_cl_vae_ad_tpu_torch.testing import shifted
+
+    def operands(shape, dtype, seed=0):
+        b, h, w, ci, co = shape
+        gen = torch.Generator(device=dev).manual_seed(seed + b + h + w + ci + co)
+        x = torch.randn((b, h, w, ci), device=dev, generator=gen).to(dtype)
+        dy = torch.randn((b, h // 2, w // 2, co), device=dev, generator=gen).to(dtype)
+        return x, dy
+
+    def close(got, ref64, label):
+        """Within 1e-4 of the largest |dW| plus 1e-4 relative; returns the largest error."""
+        err = (got.double() - ref64).abs()
+        scale = float(ref64.abs().max())
+        assert bool((err <= 1e-4 * scale + 1e-4 * ref64.abs()).all()), (label, float(err.max()),
+                                                                        scale)
+        return float(err.max()), scale
+
+    launches = cdw.launches
+    for shape in CONV_DW_SMALL:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = operands(shape, dtype)
+            got = cdw.conv_dw(x, dy)
+            torch.cuda.synchronize()
+            assert got.shape == (3, 3, shape[3], shape[4]) and got.dtype == torch.float32
+            err, scale = close(got, conv_dw_float64(x, dy), (shape, dtype))
+            plain_err, _ = close(cdw.conv_dw_reference(x, dy), conv_dw_float64(x, dy),
+                                 (shape, dtype, "plain"))
+            assert torch.equal(got, cdw.conv_dw(x, dy)), "two runs differ"
+            # the same values one element into an allocation: the staging reads element by
+            # element, the sums are taken in the same order
+            assert x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+            xs, dys = shifted(x, 1), shifted(dy, 1)
+            assert xs.data_ptr() % 16 and dys.data_ptr() % 16
+            assert torch.equal(got, cdw.conv_dw(xs, dys)), "a misaligned view gives other bits"
+            log(f"  {shape} {str(dtype)[6:]}: max_abs_err {err:.3g} of {scale:.3g} against "
+                f"float64 (plain version {plain_err:.3g}); two runs and a view at +1 element "
+                f"give equal bits")
+    assert cdw.launches == launches + 3 * 2 * len(CONV_DW_SMALL)
+
+    x, dy = operands(CONV_DW_SMALL[0], torch.float32)
+    for what, call, error in (
+            ("odd H", lambda: cdw.conv_dw(x[:, :7], dy), ValueError),
+            ("odd W", lambda: cdw.conv_dw(x[:, :, :11].contiguous(), dy), ValueError),
+            ("mixed dtypes", lambda: cdw.conv_dw(x.bfloat16(), dy), TypeError),
+            ("a non-contiguous dy", lambda: cdw.conv_dw(
+                x, dy.transpose(1, 2).contiguous().transpose(1, 2)), ValueError),
+            ("dy on the cpu", lambda: cdw.conv_dw(x, dy.cpu()), ValueError),
+            ("a dy of another size", lambda: cdw.conv_dw(x, dy[:, :3].contiguous()), ValueError),
+            ("an odd input to the Function", lambda: cdw.conv2d_s2_kernel_dw(
+                x[:, :7], torch.zeros(3, 3, 3, 8, device=dev)), ValueError)):
+        expect_raises(call, error, what)
+
+    # both gradients through the Function against autograd of conv2d_same: float32 (TF32 is
+    # off) at the check's tolerance, bfloat16 within bfloat16's 8 bits of the float32 result
+    for shape in CONV_DW_SMALL[:2] + [(8, 32, 48, 32, 64)]:
+        b, h, w, ci, co = shape
+        x, dy = operands(shape, torch.float32, seed=1)
+        gen = torch.Generator(device=dev).manual_seed(ci)
+        weight = torch.randn((3, 3, ci, co), device=dev, generator=gen) * 0.1
+        ref_dx, ref_dw = r18.autograd_gradients(x, weight, dy)
+        ref_y = conv2d_same(x.permute(0, 3, 1, 2), weight.permute(3, 2, 0, 1), None, 2)
+        for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)):
+            xx = x.to(dtype).clone().requires_grad_(True)
+            ww = weight.to(dtype).clone().requires_grad_(True)
+            before = cdw.launches
+            y = cdw.conv2d_s2_kernel_dw(xx, ww)
+            (y * dy.to(dtype)).sum().backward()
+            torch.cuda.synchronize()
+            assert cdw.launches == before + 1 and ww.grad.dtype == dtype
+            for name, got, ref in (("y", y.detach(), ref_y.permute(0, 2, 3, 1)),
+                                   ("dx", xx.grad, ref_dx),
+                                   ("dW", ww.grad, ref_dw)):
+                scale = float(ref.abs().max())
+                torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=rtol * scale,
+                                           msg=lambda m: f"{shape} {dtype} {name}: {m}")
+        log(f"  {shape}: forward, dx and dW through the Function agree with autograd of "
+            f"conv2d_same in float32 (rtol 1e-4) and bfloat16 (rtol 2^-6)")
+
+    records = {}
+    for label, (h, w, ci, co) in r18.FLAGSHIP_SHAPES.items():
+        torch.cuda.empty_cache()
+        shape = (CONV_DW_BATCH, h, w, ci, co)
+        x, dy = operands(shape, torch.bfloat16)
+        got = cdw.conv_dw(x, dy)
+        torch.cuda.synchronize()
+        err, scale = close(got, conv_dw_float64(x, dy), shape)
+        assert torch.equal(got, cdw.conv_dw(x, dy)), "two runs differ"
+        library_call = cudnn_weight_gradient(x, dy)
+        library = library_call().float().permute(2, 3, 1, 0)
+        library_err = float((library.double() - got.double()).abs().max())
+        nbytes = x.element_size() * (x.numel() + dy.numel()) + 4 * got.numel()
+        positions = CONV_DW_BATCH * (h // 2) * (w // 2)
+        bound_ms, bound_by = product_bound(nbytes, 2 * 9 * ci * co * positions)
+        assert abs(bound_ms - r18.kernel_bound(*shape, x.element_size())[0]) < 1e-12
+        # dy as the library may hand it over: NCHW memory behind an NHWC view
+        dy_nchw = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        records[label] = dict(
+            shape=list(shape), max_abs_err=err, ms=median_ms(lambda: cdw.conv_dw(x, dy)),
+            device_ms=queued_ms(lambda: cdw.conv_dw(x, dy)),
+            plain_ms=median_ms(lambda: cdw.conv_dw_reference(x, dy), runs=5, warmup=1),
+            library_ms=median_ms(library_call, runs=20, warmup=2),
+            nhwc_copy_ms=median_ms(lambda: dy_nchw.contiguous(), runs=20, warmup=2),
+            bound_ms=bound_ms, bound_by=bound_by)
+        r = records[label]
+        flops = 2 * 9 * ci * co * positions
+        log(f"  {label} {shape} bfloat16: max_abs_err {err:.3g} of {scale:.3g} against float64 "
+            f"over blocks of {CONV_DW_BLOCK} images (cuDNN's bfloat16 result is "
+            f"{library_err:.3g} from the kernel's), two runs equal bit for bit")
+        log(f"  {label} median of 100: kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} ms back to "
+            f"back, {flops / r['device_ms'] / 1e9:.1f} TFLOP/s), plain (median of 5) "
+            f"{r['plain_ms']:.4f} ms, cuDNN's weight gradient (median of 20) "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); an NHWC "
+            f"copy of dy ({dy.numel() * 2 / 1e6:.0f} MB) {r['nhwc_copy_ms']:.4f} ms")
+        del x, dy, dy_nchw, got, library, library_call
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_t(dev):
+    """probes/r18.py's bench at full width; returns the kernel's launches on that path and
+    the three variants' records."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments
+    from trustedai_cl_vae_ad_tpu_torch.probes import r18
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cdw.launches = 0
+    moments.launches = moments.bwd_launches = 0
+    rows = r18.bench(batch=R18_BATCH, steps=R18_STEPS, warmup=R18_WARMUP, device=dev, seed=0)
+    launches = cdw.launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = R18_WARMUP + R18_STEPS
+    assert [r["variant"] for r in rows] == [label for label, _ in r18.VARIANTS]
+    for row, (label, patch) in zip(rows, r18.VARIANTS):
+        assert row["routed"] == list(range(patch)), row
+        assert row["launches"] == steps * patch, (label, row["launches"])
+        assert row["moments_launches"] == [steps, steps], (label, row["moments_launches"])
+        assert row["last_loss"] == row["last_loss"] and abs(row["last_loss"]) != float("inf")
+        log(f"  {label}: {row['ms_per_step']:.2f} ms a step by the host clock, "
+            f"{row['event_ms']:.2f} by CUDA events, {row['fps']:.1f} frames/s ({R18_STEPS} steps "
+            f"after {R18_WARMUP} warm-up, batch {R18_BATCH}); loss after one update "
+            f"{row['loss_after_one_step']:.6f}, last {row['last_loss']:.6f}; kernel launches "
+            f"{row['launches']}; the Function copied {row['copied_bytes_per_step'] / 1e6:.1f} MB "
+            f"a step into NHWC order")
+    # two checking steps and the timed run for each variant: 0 + 1 + 2 routed convolutions
+    assert launches == (2 + steps) * 3, launches
+    assert moments.launches == moments.bwd_launches == (2 + steps) * 3
+    log(f"  kernel launches on this path {launches}; max_memory_allocated {peak / 2**30:.2f} GiB")
+    return {"launches": launches, "rows": rows}
+
+
+def phase_u(dev):
+    """Crash-atomic checkpoints of the flagship from the card; returns the seconds of the
+    synchronous save, of the blocking part of the asynchronous one, and of the reload."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.config import load_config, save_config, validate_config
+    from trustedai_cl_vae_ad_tpu_torch.registry import (
+        load_model_from_config,
+        load_model_from_directory,
+    )
+    from trustedai_cl_vae_ad_tpu_torch.train import checkpoint
+
+    torch.cuda.empty_cache()
+    config = validate_config(load_config(os.path.join(REPO, "configs", "config.yml")))
+    config["training"]["precision"] = "float32"
+    model = load_model_from_config(config, seed=0)
+    model.compile()
+    assert model.optimizer.name == "adam" and model.device.type == "cuda"
+    w, h, c = config["data"]["image_size"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = torch.randint(0, 256, (32, w, h, c), dtype=torch.uint8, device="cuda", generator=gen)
+    state_bytes = sum(t.numel() * t.element_size() for t in model.params.values()) * 3
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_rounds_")
+    try:
+        save_config(config, os.path.join(logdir, "config.yml"))
+        log(f"  state {state_bytes / 1e9:.1f} GB; {shutil.disk_usage(logdir).free / 1e9:.0f} GB "
+            f"free under the temporary directory")
+        sync_s = []
+        for with_moments in (False, True):  # round 1: the weights alone (5.4 GB)
+            model.train_step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.save_model(logdir, include_optimizer=with_moments)
+            sync_s.append(time.perf_counter() - t0)
+            assert checkpoint.has_optimizer(logdir) == with_moments
+        rounds = os.path.join(logdir, checkpoint.ROUNDS_SUBDIR)
+        assert sorted(os.listdir(rounds)) == ["00000001", "00000002"], os.listdir(rounds)
+        assert os.readlink(os.path.join(logdir, "current")) == os.path.join("rounds", "00000002")
+        for sub in ("encoder", "decoder", "optimizer"):
+            path = os.path.join(logdir, sub)
+            assert os.path.islink(path) and os.path.isdir(path), sub
+        assert checkpoint.has_optimizer(logdir)
+        want = float(model.test_step(batch)["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reloaded, _ = load_model_from_directory(logdir)
+        again = float(reloaded.test_step(batch)["loss"])
+        reload_s = time.perf_counter() - t0
+        assert abs(again - want) <= 1e-5 * abs(want), (again, want)
+        del reloaded
+        torch.cuda.empty_cache()
+
+        # one round through the background writer, a training step taken while it writes
+        shutil.rmtree(os.path.join(rounds, "00000001"))  # room for the third round's staging
+        at_save = {k: v.detach().clone() for k, v in model.params.items()}
+        count_at_save = model.optimizer.count
+        saver = checkpoint.AsyncSaver()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.save_model(logdir, saver=saver)
+        blocking_s = time.perf_counter() - t0
+        model.train_step(batch)
+        torch.cuda.synchronize()
+        step_done_s = time.perf_counter() - t0
+        assert checkpoint.resolve_round_dir(logdir).endswith("00000002")  # not committed yet
+        saver.wait()
+        async_total_s = time.perf_counter() - t0
+        saver.close()
+        assert sorted(os.listdir(rounds)) == ["00000002", "00000003"], os.listdir(rounds)
+        assert checkpoint.resolve_round_dir(logdir).endswith("00000003")
+        restored = checkpoint.restore_params(logdir, map_location="cuda")
+        moved = 0
+        for key, saved in at_save.items():
+            assert torch.equal(restored[key], saved), f"{key} is not the state at save"
+            moved += int(not torch.equal(model.params[key], saved))
+        assert moved > 0 and not torch.equal(
+            model.params["encoder.layers.Dense_0.weight"],
+            at_save["encoder.layers.Dense_0.weight"]), "the step after the save moved nothing"
+        n_tensors = len(at_save)
+        del restored, at_save
+        # the round's optimizer state is the one at save as well
+        flat = torch.load(os.path.join(logdir, "optimizer", "state.pt"), map_location="cpu",
+                          weights_only=True, mmap=True)
+        assert int(flat["count"]) == count_at_save == model.optimizer.count - 1
+        del flat
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    log(f"  two synchronous saves, the weights alone {sync_s[0]:.2f} s and with the moments "
+        f"{sync_s[1]:.2f} s (rounds 1 and 2, current and three stable symlinks); reloaded through load_model_from_directory to the same "
+        f"validation loss {again:.6f} in {reload_s:.2f} s")
+    log(f"  AsyncSaver: save blocked {blocking_s:.2f} s, the training step after it ended at "
+        f"{step_done_s:.2f} s, the round was committed at {async_total_s:.2f} s; the reloaded "
+        f"weights equal the state at save, and {moved} of {n_tensors} tensors have moved since")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"sync_save_s": sync_s, "reload_s": reload_s, "async_blocking_s": blocking_s,
+            "async_total_s": async_total_s, "state_gb": state_bytes / 1e9}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..r to run after the build (for "
+                        help="comma-separated subset of c..u to run after the build (for "
                              "finding a fault); the final line is then not printed")
     args = parser.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
@@ -1815,6 +2142,7 @@ def main(argv=None):
 
     from trustedai_cl_vae_ad_tpu_torch.ops import (
         _build,
+        conv_dw,
         dense_grad_adam,
         int8_gemm,
         moments,
@@ -1824,10 +2152,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc for each source, started together
         list(pool.map(lambda module: module.build(),
-                      (stream_score, moments, int8_gemm, dense_grad_adam)))
-    log(f"  stream_score, moments, int8_gemm and dense_grad_adam built and loaded in "
+                      (stream_score, moments, int8_gemm, dense_grad_adam, conv_dw)))
+    log(f"  stream_score, moments, int8_gemm, dense_grad_adam and conv_dw built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-    for kernel in ("stream_score", "moments", "int8_gemm", "dense_grad_adam"):
+    for kernel in ("stream_score", "moments", "int8_gemm", "dense_grad_adam", "conv_dw"):
         for line in _build.build_log.get(kernel, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
@@ -1866,6 +2194,11 @@ def main(argv=None):
     run("p", "flagship int8 serving and the multi-camera tick", phase_p)
     run("q", "dense-update kernels vs plain versions on the card", lambda: phase_q(dev))
     run("r", "the dense-update probes at full width", lambda: phase_r(dev))
+    run("s", "convolution weight-gradient kernel vs plain version on the card",
+        lambda: phase_s(dev))
+    run("t", "the convolution weight-gradient probe through the flagship train step",
+        lambda: phase_t(dev))
+    run("u", "crash-atomic checkpoint rounds and the background saver", lambda: phase_u(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -1875,7 +2208,8 @@ def main(argv=None):
     # just before that path: (e) for the scorer, (h) for the global moments,
     # (k) with KurtosisSingle for the per-dimension moments, (p)'s w8a8
     # multi-camera run for the int8 GEMM (and the scorer's batched launches),
-    # (r) for the six dense-update kernels
+    # (r) for the six dense-update kernels, (t) for the convolution weight gradient (its
+    # times are conv2's, the heavier layer; conv1's are beside them)
     global_launches, perdim_launches = out["h"], out["k"][0]
     int8_launches, fleet_scorer_launches = out["p"]["launches"]
     print(json.dumps({"kernels": [
@@ -1886,6 +2220,8 @@ def main(argv=None):
         *moments_entries("perdim", out["i"], perdim_launches[2], perdim_launches[3]),
         *(dict(DGA_SOURCE, name=name, replaces=replaces, launches=out["r"]["launches"][counter],
                **out["q"][counter]) for name, (counter, replaces) in DGA_KERNELS.items()),
+        dict(CONV_DW_KERNEL, launches=out["t"]["launches"], conv1=out["s"]["conv1"],
+             **out["s"]["conv2"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,7 +2,7 @@
 """Bounds of the archived TPU probes' kernels on one H100.
 
 For each archived Pallas probe under ``benchmarks/`` (PERF.md's kernel table,
-rows 4-11; rows 4-10 are ported, row 11 is still to be ported) this prints
+rows 4-11, all ported) this prints
 the least time an H100 could take for the same work at the shapes the probe
 and ``chip_smoke.py`` use: the larger of the bytes moved once (each input
 read once, each output written once) over the card's memory rate and the
@@ -30,7 +30,7 @@ K, M, N = 768, 12800, 4000
 M_FULL = 268800
 DEC = (768, 2000, 134400)  # the flagship's decoder Dense at batch 768
 BF16 = 2
-PORTED = {3, 4, 5, 6, 7, 8, 9, 10}
+PORTED = {3, 4, 5, 6, 7, 8, 9, 10, 11}
 
 
 def fused(k, m, n):

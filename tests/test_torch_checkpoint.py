@@ -85,13 +85,17 @@ def test_files_are_plain_tensor_dicts_written_atomically(tmp_path):
     model.save_model(str(tmp_path))
     for sub, name in (("encoder", "params.pt"), ("decoder", "params.pt"),
                       ("optimizer", "state.pt")):
+        assert os.path.islink(tmp_path / sub)  # a stable name into the committed round
         assert os.listdir(tmp_path / sub) == [name]  # no temporary file left behind
         blob = torch.load(tmp_path / sub / name, weights_only=True)
         assert all(isinstance(v, torch.Tensor) and v.device.type == "cpu" for v in blob.values())
     enc = torch.load(tmp_path / "encoder" / "params.pt", weights_only=True)
     assert set(enc) == {k for k in model.params if k.startswith("encoder.")}
+    assert os.listdir(tmp_path / "rounds") == ["00000001"]  # no staging directory left behind
+    assert os.readlink(tmp_path / "current") == os.path.join("rounds", "00000001")
     with pytest.raises(KeyError):
         checkpoint.save_checkpoint(str(tmp_path / "x"), {"decoder.layers.a.weight": torch.zeros(1)})
+    assert not os.path.exists(tmp_path / "x")  # refused before anything was staged
 
 
 def test_config_round_trip_and_model_from_directory(tmp_path):

@@ -15,7 +15,8 @@ FORBIDDEN = ("jax", "flax", "optax", "orbax", "trustedai_cl_vae_ad_tpu", "camera
              "benchmarks", "r11_kernel", "r11_diag", "r11_fused_dense_adam", "r4_int8_gemm",
              "r18_conv_dw")
 ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "kernel_bounds_torch.py",
-                "probe_r11_torch.py", "profile_stream_torch.py", "profile_train_torch.py",
+                "probe_r11_torch.py", "probe_r18_torch.py", "profile_stream_torch.py",
+                "profile_train_torch.py",
                 "train_torch.py",
                 os.path.join("tools", "quantize_checkpoint_torch.py"))
 
@@ -40,7 +41,7 @@ for m in pkgutil.walk_packages({PACKAGE}.__path__, "{PACKAGE}."):
     importlib.import_module(m.name)
 sys.path.insert(0, {REPO!r})
 import camera_streamer_torch, chip_smoke, kernel_bounds_torch, profile_stream_torch
-import probe_r11_torch, profile_train_torch, train_torch
+import probe_r11_torch, probe_r18_torch, profile_train_torch, train_torch
 sys.path.insert(0, {os.path.join(REPO, "tools")!r})
 import quantize_checkpoint_torch
 print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
@@ -62,9 +63,10 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "train/loop.py", "train/bench_step.py", "models/kurtosis_single.py",
                 "models/kl_gaussian.py", "data/pipeline.py", "stream/engine.py",
                 "stream/run.py", "ops/quant.py", "ops/int8_gemm.py", "stream/multicam.py",
-                "ops/dense_grad_adam.py", "probes/__init__.py", "probes/r11.py"):
+                "ops/dense_grad_adam.py", "probes/__init__.py", "probes/r11.py",
+                "ops/conv_dw.py", "probes/r18.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
-    assert {"train_torch.py", "profile_train_torch.py", "probe_r11_torch.py",
+    assert {"train_torch.py", "profile_train_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
             os.path.join("tools", "quantize_checkpoint_torch.py")} <= sources
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (stream scorer, single and batched; global and per-dimension
-moments; the int8 GEMM; the six dense-update kernels) vs their plain PyTorch
-versions on the card.
+moments; the int8 GEMM; the six dense-update kernels; the convolution weight
+gradient) vs their plain PyTorch versions on the card, and the background
+checkpoint saver's copy through pinned memory.
 
 Marked ``cuda``: without a CUDA device these tests skip. On the card run
 ``python -m pytest tests/test_torch_kernels_gpu.py -q``.
@@ -658,3 +659,119 @@ def test_dense_update_kernels_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         dga.stream_copy(w, mu, nu, out=(mu, w, nu))
     assert dga.launches == before
+
+
+# -- the convolution weight gradient (csrc/conv_dw.cu) ------------------------------------------
+
+# (B, H, W, CI, CO): the archived check's shapes, a ragged batch, CI = 1, one run of a line
+# longer than a staging step, more channels than one tile, the flagship's two layers at batch 2
+CONV_DW_CASES = [(2, 8, 12, 3, 8), (3, 16, 16, 5, 4), (5, 6, 10, 3, 32), (2, 6, 8, 1, 4),
+                 (1, 4, 150, 32, 64), (3, 4, 70, 40, 70), (2, 224, 300, 3, 32),
+                 (2, 112, 150, 32, 64)]
+
+
+def _conv_dw_operands(shape, dtype, dev, offset=0):
+    b, h, w, ci, co = shape
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn((b, h, w, ci), device=dev, generator=gen).to(dtype)
+    dy = torch.randn((b, h // 2, w // 2, co), device=dev, generator=gen).to(dtype)
+    return (shifted(x, offset), shifted(dy, offset)) if offset else (x, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CONV_DW_CASES, ids=[str(s) for s in CONV_DW_CASES])
+def test_conv_dw_kernel_matches_plain_version(cuda_device, shape, dtype):
+    """Against the plain version (float32 products by the library): the sums are taken
+    in another order, so 1e-4 of the largest |dW| plus 1e-4 relative."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+
+    x, dy = _conv_dw_operands(shape, dtype, cuda_device)
+    before = cdw.launches
+    got = cdw.conv_dw(x, dy)
+    torch.cuda.synchronize()
+    assert cdw.launches == before + 1
+    ref = cdw.conv_dw_reference(x, dy)
+    assert got.shape == ref.shape == (3, 3, shape[3], shape[4]) and got.dtype == torch.float32
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * scale)
+    assert torch.equal(got, cdw.conv_dw(x, dy)), "two runs differ"
+    xs, dys = _conv_dw_operands(shape, dtype, cuda_device, offset=1)
+    assert xs.data_ptr() % 16 and torch.equal(got, cdw.conv_dw(xs, dys))
+
+
+def test_conv_dw_kernel_rejects_bad_inputs(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+
+    x, dy = _conv_dw_operands((2, 8, 12, 3, 8), torch.float32, cuda_device)
+    before = cdw.launches
+    for bad, error in (((x[:, :7], dy), ValueError), ((x.bfloat16(), dy), TypeError),
+                       ((x.double(), dy.double()), TypeError), ((x, dy.cpu()), ValueError),
+                       ((x, dy[:, :3].contiguous()), ValueError),
+                       ((x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), dy), ValueError)):
+        with pytest.raises(error):
+            cdw.conv_dw(*bad)
+    assert cdw.launches == before
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)],
+                         ids=["float32", "bfloat16"])
+def test_conv_dw_function_matches_autograd_on_the_card(cuda_device, dtype, rtol):
+    """Forward, dx and dW of ``conv2d_s2_kernel_dw`` against autograd of the
+    port's ``conv2d_same`` in float32 (TF32 off)."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+    from trustedai_cl_vae_ad_tpu_torch.probes import r18
+    from trustedai_cl_vae_ad_tpu_torch.registry import use_full_float32
+
+    use_full_float32()
+    shape = (4, 32, 48, 32, 64)
+    x, dy = _conv_dw_operands(shape, torch.float32, cuda_device)
+    weight = torch.randn((3, 3, 32, 64), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1)) * 0.1
+    ref_dx, ref_dw = r18.autograd_gradients(x, weight, dy)
+    xx = x.to(dtype).clone().requires_grad_(True)
+    ww = weight.to(dtype).clone().requires_grad_(True)
+    before = cdw.launches
+    (cdw.conv2d_s2_kernel_dw(xx, ww) * dy.to(dtype)).sum().backward()
+    assert cdw.launches == before + 1 and ww.grad.dtype == dtype
+    for got, ref in ((xx.grad, ref_dx), (ww.grad, ref_dw)):
+        torch.testing.assert_close(got.float(), ref, rtol=rtol,
+                                   atol=rtol * float(ref.abs().max()))
+
+
+def test_r18_check_mode_runs_the_kernel_on_the_card(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.probes import r18
+    from trustedai_cl_vae_ad_tpu_torch.registry import use_full_float32
+
+    use_full_float32()
+    rows = r18.check(device=cuda_device)
+    assert [r["launches"] for r in rows] == [2, 2]  # the kernel alone, then through the Function
+
+
+# -- the background checkpoint saver's copy off the card ------------------------------------------
+
+def test_async_saver_copies_through_pinned_memory_before_it_returns(cuda_device, tmp_path):
+    """Tensors larger than the pinned buffers, of a size that is no multiple
+    of them, mutated in place right after ``save`` returns: the round holds
+    the values at ``save``."""
+    from trustedai_cl_vae_ad_tpu_torch.train import checkpoint
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = {"encoder.w": torch.randn((1031, 1021), device=cuda_device, generator=gen),
+              "encoder.b": torch.randn((7,), device=cuda_device, generator=gen),
+              "decoder.w": torch.randn((513, 2050), device=cuda_device,
+                                       generator=gen).to(torch.bfloat16)}
+    opt = {"count": 3, "mu": {k: v * 2 for k, v in params.items()},
+           "nu": {k: v * 3 for k, v in params.items()}}
+    want = {k: v.clone() for k, v in params.items()}
+    saver = checkpoint.AsyncSaver(pinned_bytes=1 << 20)
+    d = str(tmp_path / "log")
+    saver.save(d, params, opt_state=opt)
+    for t in (*params.values(), *opt["mu"].values(), *opt["nu"].values()):
+        t.mul_(-1.0)  # the training step that follows, in place
+    saver.close()
+    restored = checkpoint.restore_params(d, map_location=cuda_device)
+    state = checkpoint.restore_optimizer_state(d, map_location=cuda_device)
+    for k, v in want.items():
+        assert torch.equal(restored[k], v) and restored[k].dtype == v.dtype, k
+        assert torch.equal(state["mu"][k], v * 2) and torch.equal(state["nu"][k], v * 3), k
+    assert state["count"] == 3

@@ -214,12 +214,14 @@ def test_cli_defaults_to_the_card_and_says_so_without_one(capsys, tmp_path):
 
 def test_bounds_of_the_probes_shapes():
     """kernel_bounds_torch.py has a row for every shape the card run times:
-    rows 4-9 are marked ported, and all but the product alone are bound by
-    the bytes of w, mu, nu."""
+    rows 4-9 are marked ported (as every row is, now that row 11 has its
+    kernel), and all but the product alone are bound by the bytes of w, mu,
+    nu."""
     import kernel_bounds_torch as kb
 
     table = kb.bounds()
-    assert {r["row"] for r in table if not r["ported"]} == {11}
+    assert {r["row"] for r in table if not r["ported"]} == set()
+    assert {4, 5, 6, 7, 8, 9, 11} <= {r["row"] for r in table if r["ported"]}
     by_shape = {(r["row"], r["shapes"]): r for r in table}
     enc = by_shape[(4, "K=768 M=268800 N=4000 bf16")]
     assert enc["bytes"] == 2 * (768 * 268800 + 768 * 4000 + 6 * 268800 * 4000)

@@ -15,6 +15,8 @@ from torch_port_helpers import LOSS_KEYS, LOSS_KEYS_BY_TYPE, tiny_config
 from trustedai_cl_vae_ad_tpu.train.loop import lr_schedule_fn as jax_lr_schedule_fn
 from trustedai_cl_vae_ad_tpu_torch.data.loader import load_data
 from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+from trustedai_cl_vae_ad_tpu_torch.train import checkpoint
+from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import AsyncSaver
 from trustedai_cl_vae_ad_tpu_torch.train.loop import (
     BetaAnnealing,
     load_train_state,
@@ -141,14 +143,117 @@ def test_periodic_checkpoints_and_ignored_keys(tmp_path, capsys):
     cfg = _config(tmp_path, epochs=2, checkpoint_every_epochs=1, async_checkpoint=True,
                   loss_chunks=4, zero1=True, compiler_options="a=b")
     model = load_model_from_config(cfg, seed=0, device="cpu")
-    saves = []
+    saves, savers = [], []
     save_model = model.save_model
-    model.save_model = lambda logdir: (saves.append(load_train_state(logdir)), save_model(logdir))
+
+    def recording_save(logdir, saver=None):
+        saves.append(load_train_state(logdir))
+        savers.append(saver)
+        save_model(logdir, saver=saver)
+
+    model.save_model = recording_save
     train_model(cfg, model, load_data(cfg, device="cpu"), beta_annealing=BetaAnnealing(0.5))
-    assert "async_checkpoint is accepted and ignored" in capsys.readouterr().out
-    # one periodic save after epoch 1 (no sidecar yet), then the final one
+    assert "async_checkpoint" not in capsys.readouterr().out  # honoured, no warning
+    # one periodic save after epoch 1 (no sidecar yet), through the background
+    # saver; then the final one, synchronous, after the periodic round committed
+    # and its callback wrote the sidecar
     assert saves == [None, {"epochs_completed": 1, "step": 3, "beta": BETA0 * 0.5}]
+    assert isinstance(savers[0], AsyncSaver) and savers[1] is None
     assert model.beta == BETA0 * 0.25
+    rounds = sorted(os.listdir(os.path.join(cfg["logdir"], "rounds")))
+    assert rounds == ["00000001", "00000002"]
+
+
+def _train(tmp_path, name, **training):
+    cfg = _config(tmp_path / name, epochs=3, checkpoint_every_epochs=1, **training)
+    model = load_model_from_config(cfg, seed=0, device="cpu")
+    train_model(cfg, model, load_data(cfg, device="cpu"))
+    return cfg, model
+
+
+def test_async_checkpoint_gives_the_synchronous_runs_weights_and_sidecar(tmp_path):
+    """``async_checkpoint: true`` with ``checkpoint_every_epochs: 1``: the same
+    final weights, moments and sidecar as the synchronous run, on disk too."""
+    sync_cfg, sync_model = _train(tmp_path, "sync")
+    async_cfg, async_model = _train(tmp_path, "async", async_checkpoint=True)
+    assert load_train_state(async_cfg["logdir"]) == load_train_state(sync_cfg["logdir"]) == {
+        "epochs_completed": 3, "step": 9, "beta": pytest.approx(BETA0 * 0.98 ** 3)}
+    for k, v in sync_model.params.items():
+        assert torch.equal(async_model.params[k], v), k
+    on_disk = {name: checkpoint.restore_params(cfg["logdir"])
+               for name, cfg in (("sync", sync_cfg), ("async", async_cfg))}
+    for k, v in sync_model.params.items():
+        assert torch.equal(on_disk["sync"][k], v) and torch.equal(on_disk["async"][k], v), k
+    a, b = (checkpoint.restore_optimizer_state(c["logdir"]) for c in (sync_cfg, async_cfg))
+    assert a["count"] == b["count"] == 9
+    assert all(torch.equal(a["nu"][k], b["nu"][k]) for k in a["nu"])
+    # two periodic rounds and the final one; the last two are kept
+    for cfg in (sync_cfg, async_cfg):
+        assert sorted(os.listdir(os.path.join(cfg["logdir"], "rounds"))) == ["00000002",
+                                                                             "00000003"]
+
+
+def test_a_failed_background_write_warns_and_does_not_skip_the_final_save(tmp_path, monkeypatch,
+                                                                          capsys):
+    cfg = _config(tmp_path, epochs=2, checkpoint_every_epochs=1, async_checkpoint=True)
+    model = load_model_from_config(cfg, seed=0, device="cpu")
+    write = checkpoint._write_payload
+    calls = []
+
+    def failing_once(obj, staging, sub):
+        calls.append(sub)
+        if len(calls) == 2:  # the periodic round's decoder
+            raise OSError("disk full")
+        write(obj, staging, sub)
+
+    monkeypatch.setattr(checkpoint, "_write_payload", failing_once)
+    train_model(cfg, model, load_data(cfg, device="cpu"))
+    assert "async periodic checkpoint failed (disk full)" in capsys.readouterr().out
+    # the failed round never committed and its sidecar was dropped; the final
+    # synchronous save wrote round 1 and the final sidecar
+    assert os.listdir(os.path.join(cfg["logdir"], "rounds")) == ["00000001"]
+    assert load_train_state(cfg["logdir"])["epochs_completed"] == 2
+    restored = checkpoint.restore_params(cfg["logdir"])
+    assert all(torch.equal(restored[k], v) for k, v in model.params.items())
+
+
+def test_resume_from_a_logdir_whose_last_periodic_round_never_committed(tmp_path, monkeypatch,
+                                                                       capsys):
+    """A run killed while its second periodic round was being written leaves
+    that round in staging: ``--resume`` continues from the first round and
+    its sidecar, and the next save sweeps the staging directory."""
+    import yaml
+
+    import train_torch
+
+    cfg = _config(tmp_path, epochs=1)
+    cfg.pop("logdir")
+    cfg["data"]["shuffle"] = False
+    path = tmp_path / "cfg.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    monkeypatch.chdir(tmp_path)
+    train_torch.main([str(path), "--device", "cpu", "--seed", "3"])
+    (first,) = os.listdir(tmp_path / "logs")
+    os.rename(tmp_path / "logs" / first, tmp_path / "first")
+    first = str(tmp_path / "first")
+    committed = checkpoint.restore_params(first)
+    # what the kill left: a half-written round 2 that was never renamed
+    staging = os.path.join(first, "rounds", ".tmp-00000002", "encoder")
+    os.makedirs(staging)
+    with open(os.path.join(staging, "params.pt"), "wb") as f:
+        f.write(b"half a file")
+    assert checkpoint.resolve_round_dir(first).endswith("00000001")
+    assert all(torch.equal(checkpoint.restore_params(first)[k], v) for k, v in committed.items())
+
+    cfg["training"].update(max_epochs=2, checkpoint_every_epochs=1, async_checkpoint=True)
+    path.write_text(yaml.safe_dump(cfg))
+    train_torch.main([str(path), "--device", "cpu", "--resume", first])
+    assert "1 epochs done, step 3" in capsys.readouterr().out
+    (second,) = os.listdir(tmp_path / "logs")
+    second = str(tmp_path / "logs" / second)
+    assert load_train_state(second) == {"epochs_completed": 2, "step": 6,
+                                        "beta": pytest.approx(BETA0 * 0.98 ** 2)}
+    assert checkpoint.restore_optimizer_state(second)["count"] == 6
 
 
 def test_train_torch_cli_dry_run_and_resume(tmp_path, monkeypatch, capsys):

@@ -158,6 +158,30 @@ def load_r11_probes(monkeypatch, tmp_path):
     return kernel, diag, calls, fused
 
 
+def load_r18_probe(monkeypatch, tmp_path):
+    """The archived JAX probe ``benchmarks/r18_conv_dw.py`` as a fresh module
+    whose Pallas kernel runs in interpret mode on the CPU. The file sets
+    ``TCVAE_COMPILE_CACHE`` and ``TCVAE_COMPILER_OPTIONS`` (TPU compiler
+    options, which the JAX package's jits would then pass on) where they are
+    unset: both are set beforehand, the cache into ``tmp_path`` and the
+    options to nothing, and restored after the test, as is ``sys.path``; the
+    module never enters ``sys.modules``."""
+    import importlib.util
+    import os
+
+    benchmarks = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "benchmarks")
+    monkeypatch.setenv("TCVAE_COMPILE_CACHE", str(tmp_path / "xla_cache"))
+    monkeypatch.setenv("TCVAE_COMPILER_OPTIONS", "")
+    monkeypatch.syspath_prepend(benchmarks)  # restores all of sys.path afterwards
+    spec = importlib.util.spec_from_file_location(
+        "r18_conv_dw_archived", os.path.join(benchmarks, "r18_conv_dw.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(mod, "_INTERPRET", True)
+    return mod
+
+
 def assert_one_step_apart(got, ref, label, share=0.01, terms=None, updates=1):
     """``got`` and ``ref`` (numpy, one dtype, bfloat16 or float32) are equal
     except on at most ``share`` of their elements, which differ by at most

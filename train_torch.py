@@ -6,11 +6,14 @@ The counterpart of ``train.py`` on ``trustedai_cl_vae_ad_tpu_torch``: the
 same 4-section YAML config, a stamped ``logs/fit_<timestamp>`` log directory
 with a copy of the config, epoch training with per-epoch beta annealing
 (x0.98), and a checkpoint of the weights and the Adam moments under
-``<logdir>/encoder``, ``decoder`` and ``optimizer``. It trains on one CUDA
-device unless ``--device cpu`` is given. The post-training figures of
-``train.py`` (``evaluate``) are not ported yet. Accepted and ignored config
-keys: ``training.loss_chunks``, ``training.compiler_options``,
-``training.zero1``, ``training.async_checkpoint``.
+``<logdir>/encoder``, ``decoder`` and ``optimizer`` (stable symlinks into
+crash-atomic rounds under ``<logdir>/rounds``; ``train/checkpoint.py``).
+``training.checkpoint_every_epochs`` saves during the run, and with
+``training.async_checkpoint`` those saves are written by a background thread.
+It trains on one CUDA device unless ``--device cpu`` is given. The
+post-training figures of ``train.py`` (``evaluate``) are not ported yet.
+Accepted and ignored config keys: ``training.loss_chunks``,
+``training.compiler_options``, ``training.zero1``.
 """
 
 import argparse

@@ -132,13 +132,20 @@ class VAEModel:
         return {k: v.detach() for k, v in loss_dict.items()}, x_hat.detach()
 
     # -- checkpointing (logdir ABI: encoder/ decoder/ optimizer/) -------------------
-    def save_model(self, log_dir: str, include_optimizer: bool = True) -> None:
+    def save_model(self, log_dir: str, include_optimizer: bool = True, saver=None) -> None:
+        """Write one checkpoint round. With ``saver`` (a
+        ``train.checkpoint.AsyncSaver``) the call returns once the state is
+        copied off the live tensors, and the files are written in the
+        background; the round commits at the saver's next ``wait``."""
         from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import save_checkpoint
 
         opt_state = None
         if include_optimizer and self.optimizer is not None:
             opt_state = self.optimizer.state_dict()
-        save_checkpoint(log_dir, self.params, opt_state=opt_state)
+        if saver is not None:
+            saver.save(log_dir, self.params, opt_state=opt_state)
+        else:
+            save_checkpoint(log_dir, self.params, opt_state=opt_state)
 
     def load_model(self, model_path: str, restore_optimizer: Optional[bool] = None) -> None:
         """Restore the weights, and the optimizer state if present, in place.

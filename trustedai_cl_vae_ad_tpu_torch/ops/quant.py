@@ -234,10 +234,16 @@ def float_checkpoint_stamp(log_dir: str) -> dict:
     directory at the end carries a CRC-32 of every tensor record, so the
     stamp follows the content of all of them without reading 5.4 GB, and,
     unlike filesystem mtimes, it survives copies that preserve mtimes (cp -p,
-    rsync -a, tar). A missing file maps to None."""
+    rsync -a, tar). The files are those of the round that restoring would
+    read (``train.checkpoint.resolve_round_dir``), so the stamp holds across
+    a commit of the same weights into a new round and after a kill between a
+    round's rename and the swap of ``current``. A missing file maps to None."""
+    from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import resolve_round_dir
+
+    base = resolve_round_dir(log_dir)
     stamp = {}
     for part in ("encoder", "decoder"):
-        path = os.path.join(log_dir, part, "params.pt")
+        path = os.path.join(base, part, "params.pt")
         try:
             size = os.path.getsize(path)
             digest = hashlib.sha256(str(size).encode())

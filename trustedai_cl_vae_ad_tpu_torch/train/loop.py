@@ -3,7 +3,8 @@
 Counterpart of ``trustedai_cl_vae_ad_tpu/train/loop.py``: the epoch loop with
 per-epoch validation, per-epoch beta annealing (x0.98), the opt-in learning
 rate schedules, metric logging, a stop request (SIGTERM / SIGINT) honoured at
-a batch boundary, periodic and final checkpoints, and the training-progress
+a batch boundary, periodic checkpoints (written in the background with
+``training.async_checkpoint``) and the final one, and the training-progress
 sidecar that ``--resume`` reads. The post-training figures (``evaluate``)
 are not ported yet.
 """
@@ -138,9 +139,15 @@ def train_model(
         writer = MetricsWriter(logdir)
     if model.optimizer is None:
         model.compile()
+    # training.async_checkpoint (opt-in): a periodic save returns once the
+    # state is copied off the live tensors and the files are written by a
+    # background thread, so the loop goes on training. The sidecar becomes a
+    # commit callback: it still lands only after the weights do.
+    async_saver = None
     if training.get("async_checkpoint"):
-        print("WARNING: training.async_checkpoint is accepted and ignored: checkpoints are "
-              "written synchronously (ROADMAP.md queue 1 item 8)")
+        from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import AsyncSaver
+
+        async_saver = AsyncSaver()
 
     step = int(initial_step)
     # SIGTERM (eviction, `timeout`) ends Python without running finally
@@ -201,8 +208,15 @@ def train_model(
             writer.log(step, epoch_log, prefix="train/")
             if ckpt_every and (epoch + 1) % ckpt_every == 0 and (epoch + 1) < epochs:
                 # the sidecar only after the weights land, as in the final save
-                model.save_model(logdir)
-                save_train_state(logdir, progress[0], step, progress[1])
+                if async_saver is not None:
+                    model.save_model(logdir, saver=async_saver)
+                    # bound to THIS round's values; runs when the round commits
+                    async_saver.add_commit_callback(
+                        lambda e=progress[0], s=step, b=progress[1]:
+                        save_train_state(logdir, e, s, b))
+                else:
+                    model.save_model(logdir)
+                    save_train_state(logdir, progress[0], step, progress[1])
             if stop["n"]:  # the signal landed during validation or a save
                 raise KeyboardInterrupt
     except KeyboardInterrupt:
@@ -215,9 +229,24 @@ def train_model(
         # progress the saved weights never trained would make --resume skip
         # epochs); the writer closes regardless.
         try:
+            if async_saver is not None:
+                # drain the periodic write in flight (and its sidecar) before the
+                # final synchronous save stages the next round. A FAILED
+                # background write must not skip that save: its round never
+                # committed, so a fresh synchronous save leaves a consistent logdir
+                try:
+                    async_saver.wait()
+                except Exception as e:  # noqa: BLE001 - any writer failure ends up here
+                    print(f"WARNING: async periodic checkpoint failed ({e}); "
+                          "writing a final synchronous save")
             model.save_model(logdir)
             save_train_state(logdir, progress[0], step, progress[1])
         finally:
+            if async_saver is not None:
+                try:
+                    async_saver.close()
+                except Exception as e:  # noqa: BLE001 - never mask the primary failure
+                    print(f"WARNING: async checkpoint saver close failed: {e}")
             for s, h in prev_handlers:
                 signal.signal(s, h if h is not None else signal.SIG_DFL)
             if owns_writer:
