@@ -99,14 +99,25 @@ without printing its final line.
       harness asks; two runs give equal bits; bad inputs raise. Times at
       (768, 12800, 4000): CUDA-event median of 100 and back-to-back time of
       each kernel, its bound, its plain version and the PyTorch calls that
-      compute the same function;
+      compute the same function. The product alone takes the tensor cores
+      (csrc/dense_grad_wgmma.cu) for bfloat16 at multiples of 8 on 16-byte
+      boundaries and the CUDA-core tile kernel otherwise, counted per
+      arrangement at every shape above; then the tensor-core kernel alone:
+      HGMMA in its SASS (cuobjdump), its ptxas report, one-hot products in
+      their place, small integers exact, (3, 64, 128), (200, 1000, 4000) and
+      the flagship's (768, 268800, 4000), (768, 2000, 134400), (768, 4000,
+      268800) within one bfloat16 step of a float64 product over row blocks
+      of M on at most 1% of the elements, two runs equal; the flagship
+      shapes timed beside the bound, the CUDA-core arrangement and
+      torch.matmul(x.T, dz) (a yardstick only this script calls);
   (r) the probes at full width through probes/r11.py::run, as
       probe_r11_torch.py drives them: harness fused at enc (768, 268800,
       4000) and dec (768, 2000, 134400), variants torch and fused, with the
       check; harness diag, every variant; the encoder shape in the port's own
       (out, in) layout (768, 4000, 268800). Each kernel's launch count equals
-      the steps taken; a kernel variant allocates nothing in a step, the
-      torch variant at least one (M, N) gradient; at enc the whole state
+      the steps taken, and dot_only's launches are all on the tensor cores; a
+      kernel variant allocates nothing in a step, the torch variant at least
+      one (M, N) gradient; at enc the whole state
       after one step agrees with the plain version taken over row blocks of
       M. Then the float32 epilogue on the flagship's two dense kernels beside
       ops/adam.py's adam_lean step on a tensor of the same shape (logged, not
@@ -171,14 +182,18 @@ INT8_KERNEL = {
     "replaces": "benchmarks/r4_int8_gemm.py:45",
 }
 DGA_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/dense_grad_adam.cu"}
-# name in the kernels' line -> (its counter in ops.dense_grad_adam.launches, the TPU kernel)
+# the bf16 product alone runs on the tensor cores (ops.dense_grad_adam.dense_grad_arrangement)
+DGW_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/dense_grad_wgmma.cu",
+              "arrangement": "wgmma"}
+# name in the kernels' line -> (its counter in ops.dense_grad_adam.launches, the TPU kernel,
+# the source of the kernel that the main path launches)
 DGA_KERNELS = {
-    "dense_grad_adam_fused": ("fused", "benchmarks/r11_kernel.py:84"),
-    "dense_grad_adam_fused_xt": ("fused_xt", "benchmarks/r11_diag.py:132"),
-    "dense_grad": ("dense_grad", "benchmarks/r11_diag.py:163"),
-    "stream_copy": ("stream_copy", "benchmarks/r11_diag.py:183"),
-    "adam_epilogue_bf16": ("epilogue_bf16", "benchmarks/r11_diag.py:207"),
-    "adam_epilogue_f32": ("epilogue_f32", "benchmarks/r11_diag.py:238"),
+    "dense_grad_adam_fused": ("fused", "benchmarks/r11_kernel.py:84", DGA_SOURCE),
+    "dense_grad_adam_fused_xt": ("fused_xt", "benchmarks/r11_diag.py:132", DGA_SOURCE),
+    "dense_grad": ("dense_grad", "benchmarks/r11_diag.py:163", DGW_SOURCE),
+    "stream_copy": ("stream_copy", "benchmarks/r11_diag.py:183", DGA_SOURCE),
+    "adam_epilogue_bf16": ("epilogue_bf16", "benchmarks/r11_diag.py:207", DGA_SOURCE),
+    "adam_epilogue_f32": ("epilogue_f32", "benchmarks/r11_diag.py:238", DGA_SOURCE),
 }
 CONV_DW_KERNEL = {
     "name": "conv_dw",
@@ -206,6 +221,15 @@ DGA_SMALL_SHAPES = [(5, 37, 53), (3, 1003, 250), (64, 384, 256)]
 DGA_DIAG_SHAPE = (768, 12800, 4000)
 DGA_LARGE_SHAPES = [DGA_DIAG_SHAPE, (768, 12800, 4096), (768, 2000, 13440)]
 DGA_PORT_LAYOUT = (768, 4000, 268800)  # the encoder Dense as the port stores it, (out, in)
+# kernel 6's tensor-core arrangement: a K tail, a masked N edge, and the flagship's dense
+# shapes (the encoder Dense both ways round, the decoder Dense)
+DGW_SMALL_SHAPES = [(3, 64, 128), (200, 1000, 4000)]
+DGW_FLAGSHIP_SHAPES = [(768, 268800, 4000), (768, 2000, 134400), (768, 4000, 268800)]
+# (K, M, N, k, i, j): a 1 at x[k, i] and dz[k, j] puts g's only nonzero at (i, j): tile
+# corners, the second warpgroup, the last stage of K, the masked N edge, a second tile
+DGW_ONE_HOT = [(200, 256, 200, 0, 0, 0), (200, 256, 200, 199, 127, 199),
+               (200, 256, 200, 130, 200, 131), (200, 256, 200, 71, 71, 9),
+               (3, 64, 128, 2, 63, 127)]
 DGA_STEPS = 10
 PROBE_SHAPE = (32, 268800, 4096)  # benchmarks/r4_int8_gemm.py:81
 # (M, K, N) of the two quantized Dense layers on the multi-camera and the single-stream path
@@ -1516,13 +1540,19 @@ def phase_q(dev):
                 dga.adam_epilogue_step(g, *again, count=count, arithmetic=arithmetic, **adam)
                 assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ"
 
-        # the product alone against a float64 product rounded once: the order of the sums
+        # the product alone against a float64 product rounded once: the order of the sums;
+        # bfloat16 at multiples of 8 on 16-byte boundaries runs on the tensor cores
         g64 = x.double().t() @ dz.double()
+        bf16 = dtype == torch.bfloat16
+        arrangement = "wgmma" if bf16 and not offset and M % 8 == 0 and N % 8 == 0 \
+            else "cuda_core"
+        taken = dict(dga.dense_grad_arrangements)
         got = dga.dense_grad(x, dz)
         plain = dga.dense_grad_reference(x, dz)
         torch.cuda.synchronize()
         assert torch.equal(got, dga.dense_grad(x, dz, out=torch.empty_like(got))), "two runs"
-        bf16 = dtype == torch.bfloat16
+        taken[arrangement] += 2
+        assert dga.dense_grad_arrangements == taken, (shape, dtype, offset, taken)
         # bfloat16: one step, on few elements (the float32 sum is far finer than its
         # rounding). float32: each of the K additions rounds once, so up to K steps, anywhere.
         max_steps, max_share = (1.0, 0.01) if bf16 else (float(K), 1.0)
@@ -1530,7 +1560,8 @@ def phase_q(dev):
         # size of its partial sums, which a small result's own step does not cover
         share, worst = steps_apart(got, g64.float().to(dtype),
                                    floor=K * 2.0 ** -24 * float(g64.abs().max()))
-        assert worst <= max_steps, (shape, dtype, "dense_grad", share, worst)
+        assert worst <= max_steps and share <= max_share, (shape, dtype, "dense_grad", share,
+                                                           worst)
         errs["dense_grad"] = float((got.double() - plain.double()).abs().max())
         product_share, shares = share, [0.0]
         del g64
@@ -1567,7 +1598,8 @@ def phase_q(dev):
                                       tile=dga.TILES[-1], **adam)
             assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ"
         log(f"  {shape} {str(dtype)[6:]}{' at +1 element' if offset else ''}: copy and "
-            f"epilogues equal bit for bit; within {max_steps:g} step(s): the product of a "
+            f"epilogues equal bit for bit; within {max_steps:g} step(s): the product "
+            f"({arrangement}) of a "
             f"float64 product rounded once, on {product_share:.2e} of the elements, the fused "
             f"kernels of the plain version, on at most {max(shares):.2e}")
         return errs
@@ -1662,6 +1694,10 @@ def phase_q(dev):
             device_ms=queued_ms(kernel), plain_ms=median_ms(plain, runs=10, warmup=2),
             library_ms=median_ms(library, runs=20, warmup=2) if library else None,
             bound_ms=bound_ms, bound_by=bound_by)
+    cuda_core = lambda: dga._launch_dense_grad("cuda_core", x, dz, gbuf)  # noqa: E731
+    records["dense_grad"].update(arrangement="wgmma", cuda_core_ms=median_ms(cuda_core, runs=20),
+                                 cuda_core_device_ms=queued_ms(cuda_core, runs=20),
+                                 **phase_q_tensor_cores(dev))
     big = lambda: dga.fused_dense_grad_adam(x, dz, w, mu, nu, tile="big", **kw)  # noqa: E731
     records["fused"]["big_tile_ms"] = median_ms(big)
     records["fused"]["big_tile_device_ms"] = queued_ms(big)
@@ -1674,7 +1710,107 @@ def phase_q(dev):
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     log(f"  fused with 128 x 128 tiles: {records['fused']['big_tile_ms']:.4f} ms "
         f"({records['fused']['big_tile_device_ms']:.4f} ms back to back)")
+    r = records["dense_grad"]
+    log(f"  dense_grad at {DGA_DIAG_SHAPE}: wgmma {r['ms']:.4f} ms ({r['device_ms']:.4f} back to "
+        f"back; {2 * K * M * N / r['ms'] / 1e9:.1f} TFLOP/s), CUDA-core arrangement (median of "
+        f"20) {r['cuda_core_ms']:.4f} ms ({r['cuda_core_device_ms']:.4f}): "
+        f"{r['cuda_core_ms'] / r['ms']:.1f}x; torch.matmul {r['library_ms']:.4f} ms; bound "
+        f"{r['bound_ms']:.5f} ms")
     return records
+
+
+def phase_q_tensor_cores(dev):
+    """Kernel 6's tensor-core arrangement: HGMMA in its SASS, one-hot products
+    and small integers exact, the small and the flagship's dense shapes against
+    a float64 product over row blocks of M, and the flagship's times beside the
+    bound, the CUDA-core arrangement and torch.matmul (a yardstick only this
+    script calls). Returns the additions to kernel 6's record."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import _build
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+    from trustedai_cl_vae_ad_tpu_torch.probes import r11
+    from trustedai_cl_vae_ad_tpu_torch.testing import steps_apart
+
+    bf16 = torch.bfloat16
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_paths["dense_grad_wgmma"])],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hgmma = [line.split(";")[0].strip() for line in sass.splitlines() if "HGMMA" in line]
+    assert hgmma, "no HGMMA instruction in the SASS of dense_grad_wgmma"
+    log(f"  SASS of dense_grad_wgmma: {len(hgmma)} HGMMA instructions, e.g. {hgmma[0]}")
+
+    def counted(fn):  # one launch, under "wgmma"
+        want = dict(dga.dense_grad_arrangements, wgmma=dga.dense_grad_arrangements["wgmma"] + 1)
+        out = fn()
+        torch.cuda.synchronize()
+        assert dga.dense_grad_arrangements == want, (dga.dense_grad_arrangements, want)
+        return out
+
+    for K, M, N, k, i, j in DGW_ONE_HOT:
+        x = torch.zeros((K, M), dtype=bf16, device=dev)
+        dz = torch.zeros((K, N), dtype=bf16, device=dev)
+        x[k, i], dz[k, j] = 1.0, 1.0
+        g = counted(lambda: dga.dense_grad(x, dz))
+        assert g.nonzero().tolist() == [[i, j]] and float(g[i, j]) == 1.0, (
+            (K, M, N, k, i, j), g.nonzero()[:4].tolist())
+    for K, M, N in DGW_SMALL_SHAPES:  # partial sums of integers below 2^11: exact in any order
+        gen = torch.Generator(device=dev).manual_seed(K + M + N)
+        x = torch.randint(-3, 4, (K, M), generator=gen, device=dev).to(bf16)
+        dz = torch.randint(-3, 4, (K, N), generator=gen, device=dev).to(bf16)
+        got = counted(lambda: dga.dense_grad(x, dz))
+        assert torch.equal(got, (x.double().t() @ dz.double()).to(bf16)), (K, M, N)
+    log(f"  one-hot products at {len(DGW_ONE_HOT)} places land where they belong; small "
+        f"integer operands exact at {DGW_SMALL_SHAPES}")
+
+    def against_float64(x, dz, got):
+        """(share, worst steps) of got against the float64 product rounded once, taken over
+        row blocks of M, with the floor K 2^-24 max|g| for sums whose terms cancel."""
+        (K, M), N = x.shape, dz.shape[1]
+        rows = max(1, DGA_BLOCK_ELEMENTS // N)
+        dz64, blocks = dz.double(), [(a, min(a + rows, M)) for a in range(0, M, rows)]
+        floor = K * 2.0 ** -24 * max(float((x[:, a:b].double().t() @ dz64).abs().max())
+                                     for a, b in blocks)
+        differing, worst = 0, 0.0
+        for a, b in blocks:
+            ref = (x[:, a:b].double().t() @ dz64).float().to(bf16)
+            share, steps = steps_apart(got[a:b], ref, floor=floor)
+            differing, worst = differing + round(share * ref.numel()), max(worst, steps)
+        return differing / (M * N), worst
+
+    flagship = []
+    for shape in [*DGW_SMALL_SHAPES, *DGW_FLAGSHIP_SHAPES]:
+        torch.cuda.empty_cache()
+        K, M, N = shape
+        ops = r11.make_operands(K, M, N, dev, torch.Generator(device=dev).manual_seed(K + M + N))
+        x, dz = ops["x"], ops["dz"]
+        del ops
+        got = counted(lambda: dga.dense_grad(x, dz))
+        assert torch.equal(got, counted(lambda: dga.dense_grad(x, dz, out=torch.empty_like(got))))
+        share, worst = against_float64(x, dz, got)
+        assert worst <= 1.0 and share <= 0.01, (shape, share, worst)
+        log(f"  {shape} bfloat16 (wgmma): two runs equal; within one step of a float64 product "
+            f"rounded once, on {share:.2e} of the elements (worst {worst:.2f} steps)")
+        if shape not in DGW_FLAGSHIP_SHAPES:
+            continue
+        kernel = lambda: dga.dense_grad(x, dz, out=got)  # noqa: E731
+        cuda_core = lambda: dga._launch_dense_grad("cuda_core", x, dz, got)  # noqa: E731
+        bound_ms, bound_by = product_bound(2 * (M * N + K * M + K * N), 2 * K * M * N)
+        rec = dict(shape=list(shape), share_off_float64=share, worst_steps=worst,
+                   ms=median_ms(kernel, runs=20), device_ms=queued_ms(kernel, runs=20),
+                   cuda_core_ms=median_ms(cuda_core, runs=5, warmup=1),
+                   library_ms=median_ms(lambda: torch.matmul(x.t(), dz), runs=20),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        flagship.append(rec)
+        log(f"  dense_grad at {shape}: wgmma {rec['ms']:.4f} ms ({rec['device_ms']:.4f} back to "
+            f"back; {2 * K * M * N / rec['ms'] / 1e9:.1f} TFLOP/s), CUDA-core arrangement "
+            f"(median of 5) {rec['cuda_core_ms']:.4f} ms, torch.matmul {rec['library_ms']:.4f} "
+            f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+        del x, dz, got
+    torch.cuda.empty_cache()
+    return {"sass_hgmma": len(hgmma), "flagship": flagship,
+            "ptxas": [line.strip() for line in _build.build_log.get(
+                "dense_grad_wgmma", "").splitlines() if "registers" in line or "spill" in line]}
 
 
 def phase_r(dev):
@@ -1689,8 +1825,9 @@ def phase_r(dev):
     from trustedai_cl_vae_ad_tpu_torch.testing import steps_apart
 
     gib, adam, names = 2.0 ** 30, r11.ADAM, ("w", "mu", "nu")
-    for key in dga.launches:
-        dga.launches[key] = 0
+    for counts in (dga.launches, dga.dense_grad_arrangements):
+        for key in counts:
+            counts[key] = 0
     expected = dict.fromkeys(dga.launches, 0)
     records = []
 
@@ -1769,7 +1906,10 @@ def phase_r(dev):
     whole_state("port layout", DGA_PORT_LAYOUT)
     launches = dict(dga.launches)
     assert launches == expected, (launches, expected)
-    log(f"  launches on this path: {launches}")
+    # dot_only's bf16 product at (768, 12800, 4000) goes to the tensor cores, every launch
+    arrangements = dict(dga.dense_grad_arrangements)
+    assert arrangements == {"wgmma": expected["dense_grad"], "cuda_core": 0}, arrangements
+    log(f"  launches on this path: {launches}; dense_grad by arrangement: {arrangements}")
 
     # what one pass over the bytes costs: the float32 epilogue on the flagship's two dense
     # kernels, first held bit for bit against its plain version over row blocks (same
@@ -1812,7 +1952,8 @@ def phase_r(dev):
             f"pass {rec['bound_ms']:.4f} ms")
         del ops, g, state, got, param, opt
     torch.cuda.empty_cache()
-    return {"launches": launches, "records": records, "flagship_epilogue": flagship}
+    return {"launches": launches, "dense_grad_arrangements": arrangements, "records": records,
+            "flagship_epilogue": flagship}
 
 
 def cudnn_weight_gradient(x, dy):
@@ -2151,11 +2292,13 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc for each source, started together
-        list(pool.map(lambda module: module.build(),
-                      (stream_score, moments, int8_gemm, dense_grad_adam, conv_dw)))
-    log(f"  stream_score, moments, int8_gemm, dense_grad_adam and conv_dw built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for kernel in ("stream_score", "moments", "int8_gemm", "dense_grad_adam", "conv_dw"):
+        list(pool.map(lambda build: build(),
+                      (stream_score.build, moments.build, int8_gemm.build, dense_grad_adam.build,
+                       dense_grad_adam.build_wgmma, conv_dw.build)))
+    log(f"  stream_score, moments, int8_gemm, dense_grad_adam, dense_grad_wgmma and conv_dw built "
+        f"and loaded in {time.perf_counter() - t0:.1f} s")
+    for kernel in ("stream_score", "moments", "int8_gemm", "dense_grad_adam", "dense_grad_wgmma",
+                   "conv_dw"):
         for line in _build.build_log.get(kernel, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
@@ -2218,8 +2361,8 @@ def main(argv=None):
         dict(INT8_KERNEL, launches=int8_launches, **out["m"]),
         *moments_entries("global", out["f"], global_launches[0], global_launches[1]),
         *moments_entries("perdim", out["i"], perdim_launches[2], perdim_launches[3]),
-        *(dict(DGA_SOURCE, name=name, replaces=replaces, launches=out["r"]["launches"][counter],
-               **out["q"][counter]) for name, (counter, replaces) in DGA_KERNELS.items()),
+        *(dict(source, name=name, replaces=replaces, launches=out["r"]["launches"][counter],
+               **out["q"][counter]) for name, (counter, replaces, source) in DGA_KERNELS.items()),
         dict(CONV_DW_KERNEL, launches=out["t"]["launches"], conv1=out["s"]["conv1"],
              **out["s"]["conv2"]),
     ]}))

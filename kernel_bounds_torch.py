@@ -11,9 +11,9 @@ device: the numbers follow from the shapes and NVIDIA's data sheet (H100 SXM:
 3.35 TB/s, 989 TFLOP/s bf16 dense, 1,979 TOP/s int8 dense, 67 TFLOP/s float32
 outside the tensor cores). Row 3 is included with the bounds that
 ``chip_smoke.py`` computes for it; row 10 also at the shapes of the two
-quantized Dense layers of the serving path (1 and 16 frames); rows 4 and 9
-also at the flagship's two dense shapes and row 4 in the port's own (out, in)
-layout of the encoder Dense.
+quantized Dense layers of the serving path (1 and 16 frames); rows 4, 6 and 9
+also at the flagship's two dense shapes and rows 4 and 6 in the port's own
+(out, in) layout of the encoder Dense.
 
 Usage: python3 kernel_bounds_torch.py [--json]
 """
@@ -36,6 +36,11 @@ PORTED = {3, 4, 5, 6, 7, 8, 9, 10, 11}
 def fused(k, m, n):
     """x (k, m), dz (k, n) read; w, mu, nu (m, n) read and written; 2 k m n operations."""
     return BF16 * (k * m + k * n + 6 * m * n), 2 * k * m * n
+
+
+def dot_only(k, m, n):
+    """x (k, m), dz (k, n) read, g (m, n) written; 2 k m n operations."""
+    return BF16 * (k * m + k * n + m * n), 2 * k * m * n
 
 
 def epilogue(m, n):
@@ -72,7 +77,13 @@ def rows():
         (4, "the same at the diag shape", f"K={K} M={M} N={N} bf16", *fused(K, M, N), "bf16"),
         (5, "r11_diag.py:132 fused_xt", f"K={K} M={M} N={N} bf16", *fused(K, M, N), "bf16"),
         (6, "r11_diag.py:163 dot_only", f"K={K} M={M} N={N} bf16",
-         BF16 * (K * M + K * N + mn), 2 * K * mn, "bf16"),
+         *dot_only(K, M, N), "bf16"),
+        (6, "the same on the flagship's encoder Dense", f"K={K} M={M_FULL} N={N} bf16",
+         *dot_only(K, M_FULL, N), "bf16"),
+        (6, "the same on the flagship's decoder Dense", "K={} M={} N={} bf16".format(*DEC),
+         *dot_only(*DEC), "bf16"),
+        (6, "the same, enc as the port stores it", f"K={K} M={N} N={M_FULL} bf16",
+         *dot_only(K, N, M_FULL), "bf16"),
         (7, "r11_diag.py:183 copy_only", f"3x ({M}, {N}) bf16",
          BF16 * 6 * mn, 0, "bf16"),
         (8, "r11_diag.py:207 epi_bf16", f"4x ({M}, {N}) bf16", *epilogue(M, N), "f32"),

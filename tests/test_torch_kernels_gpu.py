@@ -591,6 +591,105 @@ def test_dense_grad_kernel_matches_a_float64_product(cuda_device, shape, dtype):
     assert worst <= (1.0 if dtype == "bfloat16" else shape[0])
 
 
+# -- the tensor-core arrangement of the product (csrc/dense_grad_wgmma.cu) -----------------------
+
+# (K, M, N, k, i, j): a 1 at x[k, i] and at dz[k, j] puts g's only nonzero at (i, j). Corners
+# of a tile, a row of the second warpgroup (i % 128 >= 64), the last stage of K (its tail),
+# the masked N edge (N = 200: the second tile of N holds 72 columns), a second tile of M and
+# of N, every k % 8 and 16-byte chunk c % 8 of the swizzle somewhere
+DGW_ONE_HOT = [(200, 256, 200, 0, 0, 0), (200, 256, 200, 5, 64, 8), (200, 256, 200, 199, 127, 199),
+               (200, 256, 200, 130, 200, 131), (200, 256, 200, 71, 71, 9),
+               (200, 256, 200, 66, 250, 192), (200, 256, 200, 127, 129, 63),
+               (3, 64, 128, 2, 63, 127), (64, 384, 256, 63, 383, 255), (64, 384, 256, 17, 300, 100)]
+DGW_SHAPES = [(3, 64, 128), (64, 384, 256), (200, 1000, 4000), (768, 12800, 4000)]
+
+
+@pytest.mark.parametrize("K, M, N, k, i, j", DGW_ONE_HOT,
+                         ids=[f"{K}x{M}x{N}-k{k}-i{i}-j{j}" for K, M, N, k, i, j in DGW_ONE_HOT])
+def test_wgmma_dense_grad_puts_a_one_hot_product_in_its_place(cuda_device, K, M, N, k, i, j):
+    """A wrong swizzle, descriptor or fragment map moves or loses the single 1."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+
+    x = torch.zeros((K, M), dtype=torch.bfloat16, device=cuda_device)
+    dz = torch.zeros((K, N), dtype=torch.bfloat16, device=cuda_device)
+    x[k, i] = 1.0
+    dz[k, j] = 1.0
+    before = dga.dense_grad_arrangements["wgmma"]
+    g = dga.dense_grad(x, dz)
+    torch.cuda.synchronize()
+    assert dga.dense_grad_arrangements["wgmma"] == before + 1
+    assert g.nonzero().tolist() == [[i, j]] and float(g[i, j]) == 1.0
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 128), (70, 136, 72), (200, 1000, 4000)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_dense_grad_is_exact_on_small_integers(cuda_device, shape):
+    """Integers in [-3, 3]: every partial sum is an integer below 2^11, exact in
+    any order, so every element equals the float64 product: the whole tile map
+    is checked bit for bit."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+
+    K, M, N = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(K + M + N)
+    x = torch.randint(-3, 4, (K, M), generator=gen, device=cuda_device).to(torch.bfloat16)
+    dz = torch.randint(-3, 4, (K, N), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = dga.dense_grad_arrangements["wgmma"]
+    got = dga.dense_grad(x, dz)
+    torch.cuda.synchronize()
+    assert dga.dense_grad_arrangements["wgmma"] == before + 1
+    assert torch.equal(got, (x.double().t() @ dz.double()).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", DGW_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_dense_grad_matches_a_float64_product(cuda_device, shape):
+    """Within one bfloat16 step of the float64 product rounded once, on at most
+    1% of the elements, with the floor K 2^-24 max|g| where the terms cancel;
+    two runs give equal bits; both launches counted under "wgmma"."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+
+    ops = _dga_case(cuda_device, shape, "bfloat16")
+    before = dict(dga.dense_grad_arrangements)
+    got = dga.dense_grad(ops["x"], ops["dz"])
+    again = dga.dense_grad(ops["x"], ops["dz"], out=torch.empty_like(got))
+    torch.cuda.synchronize()
+    assert dga.dense_grad_arrangements == {"wgmma": before["wgmma"] + 2,
+                                           "cuda_core": before["cuda_core"]}
+    assert torch.equal(got, again)
+    g64 = ops["x"].double().t() @ ops["dz"].double()
+    share, worst = steps_apart(got, g64.float().to(torch.bfloat16),
+                               floor=shape[0] * 2.0 ** -24 * float(g64.abs().max()))
+    assert worst <= 1.0 and share <= 0.01, (share, worst)
+
+
+# (shape, dtype, offset of x and dz, offset of out): float32, ragged M or N, views that do
+# not start on a 16-byte boundary
+DGW_CUDA_CORE = [((5, 37, 53), "bfloat16", 0, 0), ((3, 1003, 250), "bfloat16", 0, 0),
+                 ((64, 384, 256), "float32", 0, 0), ((64, 384, 256), "bfloat16", 1, 0),
+                 ((64, 384, 256), "bfloat16", 0, 1)]
+
+
+@pytest.mark.parametrize("shape, dtype, offset, out_offset", DGW_CUDA_CORE,
+                         ids=[f"{'x'.join(map(str, s))}-{d}-{o}-{p}"
+                              for s, d, o, p in DGW_CUDA_CORE])
+def test_dense_grad_keeps_the_cuda_core_arrangement_off_the_rule(cuda_device, shape, dtype, offset,
+                                                                 out_offset):
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+
+    ops = _dga_case(cuda_device, shape, dtype, offset)
+    out = shifted(torch.empty((shape[1], shape[2]), dtype=ops["x"].dtype, device=cuda_device),
+                  out_offset)
+    assert dga.dense_grad_arrangement(ops["x"], ops["dz"], out) == "cuda_core"
+    before = dict(dga.dense_grad_arrangements)
+    dga.dense_grad(ops["x"], ops["dz"], out=out)
+    torch.cuda.synchronize()
+    assert dga.dense_grad_arrangements == {"wgmma": before["wgmma"],
+                                           "cuda_core": before["cuda_core"] + 1}
+    g64 = ops["x"].double().t() @ ops["dz"].double()
+    _share, worst = steps_apart(out, g64.float().to(out.dtype),
+                                floor=shape[0] * 2.0 ** -24 * float(g64.abs().max()))
+    assert worst <= (1.0 if dtype == "bfloat16" else shape[0])
+
+
 @pytest.mark.parametrize("count", [1, 5])
 @pytest.mark.parametrize("tile", ["default", "big"])
 @pytest.mark.parametrize("x_transposed", [False, True], ids=["x_km", "x_mk"])

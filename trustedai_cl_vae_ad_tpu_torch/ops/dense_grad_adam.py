@@ -25,8 +25,9 @@ function with the operands swapped: ``fused_dense_grad_adam(x=dz, dz=x, w=W,
 ...)`` contracts the same K rows and gives the (N, M) update.
 
 On CUDA tensors every function launches its hand-written kernel from
-``csrc/dense_grad_adam.cu`` (the source's header says what bounds each and
-what its design does about it), or raises. On CPU tensors it runs the plain
+``csrc/dense_grad_adam.cu``, or for the bf16 product alone from
+``csrc/dense_grad_wgmma.cu`` (each source's header says what bounds its
+kernels and what their design does about it), or raises. On CPU tensors it runs the plain
 PyTorch version beside it (``*_reference``), which is what the kernels are
 held against on the card: the streaming kernels bit for bit, the products
 within the order of their sums.
@@ -42,13 +43,17 @@ import torch
 #: launches of each CUDA kernel in this process (the plain versions do not count)
 launches: Dict[str, int] = {"fused": 0, "fused_xt": 0, "dense_grad": 0, "stream_copy": 0,
                             "epilogue_bf16": 0, "epilogue_f32": 0}
+#: launches of ``dense_grad`` by arrangement (each is also one of launches["dense_grad"])
+dense_grad_arrangements: Dict[str, int] = {"wgmma": 0, "cuda_core": 0}
 
 TILES = ("default", "big")  # 64 x 64 and 128 x 128 outputs a block
 ARITHMETICS = ("float32", "bfloat16")
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 _LIB_NAME = "dense_grad_adam"
+_WGMMA_LIB_NAME = "dense_grad_wgmma"
 _lib = None
+_wgmma_lib = None
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -71,6 +76,22 @@ def build():
         lib.dga_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def build_wgmma():
+    """Compile (first call) and load the tensor-core product; returns the library."""
+    global _wgmma_lib
+    if _wgmma_lib is None:
+        from trustedai_cl_vae_ad_tpu_torch.ops._build import load_library
+
+        lib = load_library(_WGMMA_LIB_NAME)
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.dgw_launch.argtypes = [p, p, p, ll, ll, ll, p]
+        lib.dgw_launch.restype = ctypes.c_int
+        lib.dgw_error_string.argtypes = [ctypes.c_int]
+        lib.dgw_error_string.restype = ctypes.c_char_p
+        _wgmma_lib = lib
+    return _wgmma_lib
 
 
 # -- the six scalars -------------------------------------------------------------
@@ -154,6 +175,12 @@ def _check_product(x: torch.Tensor, dz: torch.Tensor, x_transposed: bool) -> Tup
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: {_lib.dga_error_string(rc).decode()}")
+
+
+def _raise_on_wgmma(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"dense_grad (wgmma) kernel launch failed: {_wgmma_lib.dgw_error_string(rc).decode()}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -249,27 +276,67 @@ def dense_grad_reference(x: torch.Tensor, dz: torch.Tensor,
     return g if out is None else out.copy_(g)
 
 
+def dense_grad_arrangement(x: torch.Tensor, dz: torch.Tensor, out: torch.Tensor) -> str:
+    """Which kernel ``dense_grad`` launches for these operands on the card, by
+    dtype, shape and alignment alone: "wgmma" (``csrc/dense_grad_wgmma.cu``,
+    the tensor cores) for bfloat16 with M and N multiples of 8, x, dz, out
+    starting on 16-byte boundaries, and K's stages of 64 rows and the 128 x 128
+    tiles each fewer than 2^31 (the kernel's int counts); "cuda_core"
+    (``tile_kernel`` of ``csrc/dense_grad_adam.cu``) for everything else:
+    float32, ragged M or N, views off a 16-byte boundary, counts past an int."""
+    (k, m), n = x.shape, dz.shape[1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dz, out))
+    counts_fit = -(-k // 64) < 2**31 and -(-m // 128) * -(-n // 128) < 2**31
+    if x.dtype == torch.bfloat16 and m % 8 == 0 and n % 8 == 0 and aligned and counts_fit:
+        return "wgmma"
+    return "cuda_core"
+
+
 def dense_grad(x: torch.Tensor, dz: torch.Tensor, out: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
     """g (M, N) = x^T . dz for x (K, M) and dz (K, N), summed in float32 and
     written in the operands' dtype (``dot_only``). ``out`` is written and
-    returned when given, else a new tensor."""
-    k, m, n = _check_product(x, dz, x_transposed=False)
+    returned when given, else a new tensor.
+
+    On the card the kernel is chosen by ``dense_grad_arrangement``: bfloat16
+    with M % 8 == 0, N % 8 == 0, x, dz, out 16-byte aligned and K's stages
+    and the tiles fewer than 2^31 each runs on the tensor cores (wgmma),
+    anything else on CUDA cores. The choice is never
+    made on failure: a launch that fails raises. Each launch counts in
+    ``launches["dense_grad"]`` and in ``dense_grad_arrangements``."""
+    _, m, n = _check_product(x, dz, x_transposed=False)
     if out is not None:
         _check_matrix("out", out, x.dtype, x.device, (m, n))
         _check_disjoint([("out", out)], [("x", x), ("dz", dz)])
     if x.device.type == "cpu":
         return dense_grad_reference(x, dz, out)
-    lib = build()
     if out is None:
         out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    arrangement = dense_grad_arrangement(x, dz, out)
+    _launch_dense_grad(arrangement, x, dz, out)
+    launches["dense_grad"] += 1
+    dense_grad_arrangements[arrangement] += 1
+    return out
+
+
+def _launch_dense_grad(arrangement: str, x: torch.Tensor, dz: torch.Tensor,
+                       out: torch.Tensor) -> None:
+    """One launch of the named arrangement on checked CUDA operands; counts
+    nothing (``dense_grad`` counts). The tensor-core kernel refuses what its
+    rule excludes, with an error."""
+    (k, m), n = x.shape, dz.shape[1]
+    if arrangement == "wgmma":
+        lib = build_wgmma()
+        with torch.cuda.device(x.device):
+            rc = lib.dgw_launch(x.data_ptr(), dz.data_ptr(), out.data_ptr(), k, m, n, _stream(x))
+        _raise_on_wgmma(rc)
+        return
+    lib = build()
     with torch.cuda.device(x.device):
         rc = lib.dga_tile_launch(x.data_ptr(), dz.data_ptr(), out.data_ptr(), None, None,
                                  k, m, n, _DTYPES[x.dtype], 0, 0, 0,
                                  0.0, 0.0, 0.0, 0.0, 1.0, 1.0, _stream(x))
     _raise_on(rc, "dense_grad")
-    launches["dense_grad"] += 1
-    return out
 
 
 # -- the product with the step in its epilogue (rows 4 and 5) -----------------------
