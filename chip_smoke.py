@@ -10,8 +10,8 @@ without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
   (b) build: nvcc builds the stream-scorer, the moments, the int8 GEMM, the
-      dense-update and the convolution weight-gradient kernels from csrc/ into
-      build/, all at once;
+      dense-update and the convolution weight-gradient kernels (seven sources)
+      from csrc/ into build/, all at once;
   (c) kernel vs its plain PyTorch version on the card, 8-frame sequences at
       224x300x3 and 37x53x3 (constant first frame, seeding, converged state),
       at the tolerances of trustedai_cl_vae_ad_tpu_torch/testing.py, and the
@@ -122,27 +122,39 @@ without printing its final line.
       M. Then the float32 epilogue on the flagship's two dense kernels beside
       ops/adam.py's adam_lean step on a tensor of the same shape (logged, not
       compared: they round mu differently).
-  (s) the convolution weight-gradient kernel (csrc/conv_dw.cu) vs its plain
-      PyTorch version and a float64 reference on the card: the archived
-      check's two shapes, a ragged batch of 5 and a shape with more channels
-      than one tile (40 -> 70), in float32 and bfloat16; the flagship
-      encoder's conv1 (768, 224, 300, 3 -> 32) and conv2 (768, 112, 150,
-      32 -> 64) in bfloat16 at the full batch, the float64 reference taken
-      over blocks of 32 images. Tolerance: 1e-4 of the largest |dW| plus 1e-4
-      relative (12.9 M float32 additions in another order than the reference's;
-      the products of bfloat16 values are exact). Views that do not start on a
-      16-byte boundary give the same bits as aligned ones; odd H raises; two
-      runs give equal bits; both gradients through the autograd Function
-      against autograd of conv2d_same, float32 and bfloat16. Times at conv1 and
-      conv2, batch 768, bfloat16: CUDA-event median of 100 and back-to-back
-      time of the kernel, its bound, the plain version, cuDNN's weight
-      gradient (a yardstick only this script calls), and an NHWC copy of dy;
+  (s) the convolution weight-gradient kernels vs their plain PyTorch version
+      and a float64 reference on the card. The CUDA-core kernel
+      (csrc/conv_dw.cu): the archived check's two shapes, a ragged batch of 5
+      and a shape with more channels than one tile (40 -> 70), in float32 and
+      bfloat16, each also as views that do not start on a 16-byte boundary,
+      which give the same bits (both calls take that kernel); odd H raises;
+      two runs give equal bits; both gradients through the autograd Function
+      against autograd of conv2d_same, float32 and bfloat16. The tensor-core
+      kernel (csrc/conv_dw_wgmma.cu, bfloat16 with channel counts that are
+      multiples of 8 on 16-byte boundaries, as ops.conv_dw.conv_dw_arrangement
+      picks): HGMMA in its SASS (cuobjdump) and its ptxas report, one-hot
+      products in their place, one line, conv2 at batch 2, a tail of
+      positions, lines across the stages, a partial tile of CI, CO = 8 and
+      two tiles of CO against float64, two runs equal, and each shape as a
+      view one element into an allocation, which takes the CUDA-core kernel
+      and is held to float64 as well; a wgmma launch off the rule raises.
+      Then the flagship encoder's conv1 (768, 224, 300, 3 -> 32, the
+      CUDA-core kernel) and conv2 (768, 112, 150, 32 -> 64, the tensor cores)
+      in bfloat16 at the full batch, the float64 reference taken over blocks
+      of 32 images. Tolerance: 1e-4 of the largest |dW| plus 1e-4 relative
+      (12.9 M float32 additions in another order than the reference's; the
+      products of bfloat16 values are exact). Times at conv1 and conv2:
+      CUDA-event median of 100 and back-to-back time of the kernel, its
+      bound, the plain version, cuDNN's weight gradient (a yardstick only
+      this script calls), an NHWC copy of dy, and at conv2 the CUDA-core
+      kernel on the same operands;
   (t) probes/r18.py's bench at full width, as probe_r18_torch.py --bench
       --batch 256 drives it: the flagship KurtosisGlobal train + score step in
       bfloat16 with adam_lean, with 0, 1 and 2 encoder convolutions' weight
       gradients routed through the kernel; the variants' losses after one
       update agree; then 3 warm-up + 10 timed steps a variant. The kernel's
-      launches equal steps x routed convolutions, the global moments kernels
+      launches equal steps x routed convolutions, conv1's all on the CUDA-core
+      kernel and conv2's all on the tensor cores; the global moments kernels
       launch once a step;
   (u) checkpoints of the flagship (float32, adam, 16 GB of state) from the
       card: two synchronous saves, the first of the weights alone (rounds 1
@@ -195,14 +207,33 @@ DGA_KERNELS = {
     "adam_epilogue_bf16": ("epilogue_bf16", "benchmarks/r11_diag.py:207", DGA_SOURCE),
     "adam_epilogue_f32": ("epilogue_f32", "benchmarks/r11_diag.py:238", DGA_SOURCE),
 }
+# kernel 11's two arrangements (ops.conv_dw.conv_dw_arrangement): the CUDA-core kernel, which the
+# main path runs at conv1, and the tensor-core one, which it runs at conv2
 CONV_DW_KERNEL = {
     "name": "conv_dw",
     "route": "cuda",
     "source": f"{PACKAGE}/csrc/conv_dw.cu",
     "replaces": "benchmarks/r18_conv_dw.py:53",
+    "arrangement": "cuda_core",
 }
+CONV_DW_WGMMA_KERNEL = dict(CONV_DW_KERNEL, name="conv_dw_wgmma", arrangement="wgmma",
+                            source=f"{PACKAGE}/csrc/conv_dw_wgmma.cu")
 # (B, H, W, CI, CO): the archived check's two shapes, a ragged batch, more channels than a tile
 CONV_DW_SMALL = [(2, 8, 12, 3, 8), (3, 16, 16, 5, 4), (5, 6, 10, 3, 32), (3, 4, 70, 40, 70)]
+# the tensor-core arrangement's: one line, conv2 at batch 2, a tail of positions (105), lines of
+# 67 positions across the stages of 64, a second (partial) tile of CI, CO = 8, two tiles of CO
+CONV_DW_WGMMA_SMALL = [(1, 4, 150, 32, 64), (2, 112, 150, 32, 64), (7, 10, 6, 16, 24),
+                       (3, 6, 134, 32, 64), (3, 4, 70, 40, 64), (5, 6, 130, 64, 8),
+                       (2, 4, 140, 32, 128)]
+# ((B, H, W, CI, CO), x index, dy index): a 1 in each puts dW's only nonzero at (h - 2 oh,
+# w - 2 ow, ci, co): tile corners, all three warpgroups (kh), the right padding column, the
+# bottom row, second tiles of CI and CO, the last position of the last split
+CONV_DW_ONE_HOT = [((1, 4, 150, 32, 64), (0, 0, 0, 0), (0, 0, 0, 0)),
+                   ((1, 4, 150, 32, 64), (0, 3, 149, 31), (0, 1, 74, 63)),
+                   ((1, 4, 150, 32, 64), (0, 2, 148, 17), (0, 1, 74, 40)),
+                   ((2, 8, 140, 40, 72), (1, 7, 139, 39), (1, 3, 69, 71)),
+                   ((2, 8, 140, 40, 72), (1, 6, 130, 33), (1, 2, 64, 70)),
+                   ((2, 112, 150, 32, 64), (1, 111, 149, 31), (1, 55, 74, 63))]
 CONV_DW_BATCH, CONV_DW_BLOCK = 768, 32
 R18_BATCH, R18_WARMUP, R18_STEPS = 256, 3, 10
 MOMENTS_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/moments.cu"}
@@ -1727,16 +1758,12 @@ def phase_q_tensor_cores(dev):
     script calls). Returns the additions to kernel 6's record."""
     import torch
 
-    from trustedai_cl_vae_ad_tpu_torch.ops import _build
     from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
     from trustedai_cl_vae_ad_tpu_torch.probes import r11
     from trustedai_cl_vae_ad_tpu_torch.testing import steps_apart
 
     bf16 = torch.bfloat16
-    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_paths["dense_grad_wgmma"])],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    hgmma = [line.split(";")[0].strip() for line in sass.splitlines() if "HGMMA" in line]
+    hgmma = sass_hgmma("dense_grad_wgmma")
     assert hgmma, "no HGMMA instruction in the SASS of dense_grad_wgmma"
     log(f"  SASS of dense_grad_wgmma: {len(hgmma)} HGMMA instructions, e.g. {hgmma[0]}")
 
@@ -1809,8 +1836,7 @@ def phase_q_tensor_cores(dev):
         del x, dz, got
     torch.cuda.empty_cache()
     return {"sass_hgmma": len(hgmma), "flagship": flagship,
-            "ptxas": [line.strip() for line in _build.build_log.get(
-                "dense_grad_wgmma", "").splitlines() if "registers" in line or "spill" in line]}
+            "ptxas": ptxas_report("dense_grad_wgmma")}
 
 
 def phase_r(dev):
@@ -1982,9 +2008,46 @@ def conv_dw_float64(x, dy, block=CONV_DW_BLOCK):
                for b0 in range(0, x.shape[0], block))
 
 
+def sass_hgmma(library):
+    """The HGMMA instructions in the SASS of a built kernel library (cuobjdump)."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_paths[library])],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    return [line.split(";")[0].strip() for line in sass.splitlines() if "HGMMA" in line]
+
+
+def ptxas_report(library):
+    from trustedai_cl_vae_ad_tpu_torch.ops import _build
+
+    return [line.strip() for line in _build.build_log.get(library, "").splitlines()
+            if "registers" in line or "spill" in line or "smem" in line]
+
+
+def conv_dw_close(got, ref64, label):
+    """Within 1e-4 of the largest |dW| plus 1e-4 relative of the float64 reference; returns
+    (largest error, largest |dW|)."""
+    err = (got.double() - ref64).abs()
+    scale = float(ref64.abs().max())
+    assert bool((err <= 1e-4 * scale + 1e-4 * ref64.abs()).all()), (label, float(err.max()), scale)
+    return float(err.max()), scale
+
+
+def conv_dw_operands(dev, shape, dtype, seed=0):
+    import torch
+
+    b, h, w, ci, co = shape
+    gen = torch.Generator(device=dev).manual_seed(seed + b + h + w + ci + co)
+    x = torch.randn((b, h, w, ci), device=dev, generator=gen).to(dtype)
+    dy = torch.randn((b, h // 2, w // 2, co), device=dev, generator=gen).to(dtype)
+    return x, dy
+
+
 def phase_s(dev):
-    """The convolution weight-gradient kernel vs its plain version and a float64 reference
-    on the card; returns the kernel's records at the flagship's conv1 and conv2."""
+    """The convolution weight-gradient kernels vs their plain version and a float64 reference
+    on the card; returns each arrangement's record at the flagship layer the main path runs
+    it on (conv1: the CUDA-core kernel, conv2: the tensor cores), the other layer beside it."""
     import torch
 
     from trustedai_cl_vae_ad_tpu_torch.models.cvae import conv2d_same
@@ -1992,44 +2055,31 @@ def phase_s(dev):
     from trustedai_cl_vae_ad_tpu_torch.probes import r18
     from trustedai_cl_vae_ad_tpu_torch.testing import shifted
 
-    def operands(shape, dtype, seed=0):
-        b, h, w, ci, co = shape
-        gen = torch.Generator(device=dev).manual_seed(seed + b + h + w + ci + co)
-        x = torch.randn((b, h, w, ci), device=dev, generator=gen).to(dtype)
-        dy = torch.randn((b, h // 2, w // 2, co), device=dev, generator=gen).to(dtype)
-        return x, dy
-
-    def close(got, ref64, label):
-        """Within 1e-4 of the largest |dW| plus 1e-4 relative; returns the largest error."""
-        err = (got.double() - ref64).abs()
-        scale = float(ref64.abs().max())
-        assert bool((err <= 1e-4 * scale + 1e-4 * ref64.abs()).all()), (label, float(err.max()),
-                                                                        scale)
-        return float(err.max()), scale
-
     launches = cdw.launches
     for shape in CONV_DW_SMALL:
         for dtype in (torch.float32, torch.bfloat16):
-            x, dy = operands(shape, dtype)
+            x, dy = conv_dw_operands(dev, shape, dtype)
+            assert cdw.conv_dw_arrangement(x, dy) == "cuda_core", shape
             got = cdw.conv_dw(x, dy)
             torch.cuda.synchronize()
             assert got.shape == (3, 3, shape[3], shape[4]) and got.dtype == torch.float32
-            err, scale = close(got, conv_dw_float64(x, dy), (shape, dtype))
-            plain_err, _ = close(cdw.conv_dw_reference(x, dy), conv_dw_float64(x, dy),
-                                 (shape, dtype, "plain"))
+            err, scale = conv_dw_close(got, conv_dw_float64(x, dy), (shape, dtype))
+            plain_err, _ = conv_dw_close(cdw.conv_dw_reference(x, dy), conv_dw_float64(x, dy),
+                                         (shape, dtype, "plain"))
             assert torch.equal(got, cdw.conv_dw(x, dy)), "two runs differ"
             # the same values one element into an allocation: the staging reads element by
             # element, the sums are taken in the same order
             assert x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
             xs, dys = shifted(x, 1), shifted(dy, 1)
             assert xs.data_ptr() % 16 and dys.data_ptr() % 16
+            assert cdw.conv_dw_arrangement(xs, dys) == "cuda_core"
             assert torch.equal(got, cdw.conv_dw(xs, dys)), "a misaligned view gives other bits"
-            log(f"  {shape} {str(dtype)[6:]}: max_abs_err {err:.3g} of {scale:.3g} against "
-                f"float64 (plain version {plain_err:.3g}); two runs and a view at +1 element "
-                f"give equal bits")
+            log(f"  {shape} {str(dtype)[6:]} (cuda_core): max_abs_err {err:.3g} of {scale:.3g} "
+                f"against float64 (plain version {plain_err:.3g}); two runs and a view at +1 "
+                f"element give equal bits")
     assert cdw.launches == launches + 3 * 2 * len(CONV_DW_SMALL)
 
-    x, dy = operands(CONV_DW_SMALL[0], torch.float32)
+    x, dy = conv_dw_operands(dev, CONV_DW_SMALL[0], torch.float32)
     for what, call, error in (
             ("odd H", lambda: cdw.conv_dw(x[:, :7], dy), ValueError),
             ("odd W", lambda: cdw.conv_dw(x[:, :, :11].contiguous(), dy), ValueError),
@@ -2039,14 +2089,16 @@ def phase_s(dev):
             ("dy on the cpu", lambda: cdw.conv_dw(x, dy.cpu()), ValueError),
             ("a dy of another size", lambda: cdw.conv_dw(x, dy[:, :3].contiguous()), ValueError),
             ("an odd input to the Function", lambda: cdw.conv2d_s2_kernel_dw(
-                x[:, :7], torch.zeros(3, 3, 3, 8, device=dev)), ValueError)):
+                x[:, :7], torch.zeros(3, 3, 3, 8, device=dev)), ValueError),
+            ("a wgmma launch off the rule (CI = 3)",
+             lambda: cdw._launch("wgmma", x.bfloat16(), dy.bfloat16()), RuntimeError)):
         expect_raises(call, error, what)
 
     # both gradients through the Function against autograd of conv2d_same: float32 (TF32 is
     # off) at the check's tolerance, bfloat16 within bfloat16's 8 bits of the float32 result
     for shape in CONV_DW_SMALL[:2] + [(8, 32, 48, 32, 64)]:
         b, h, w, ci, co = shape
-        x, dy = operands(shape, torch.float32, seed=1)
+        x, dy = conv_dw_operands(dev, shape, torch.float32, seed=1)
         gen = torch.Generator(device=dev).manual_seed(ci)
         weight = torch.randn((3, 3, ci, co), device=dev, generator=gen) * 0.1
         ref_dx, ref_dw = r18.autograd_gradients(x, weight, dy)
@@ -2068,14 +2120,20 @@ def phase_s(dev):
         log(f"  {shape}: forward, dx and dW through the Function agree with autograd of "
             f"conv2d_same in float32 (rtol 1e-4) and bfloat16 (rtol 2^-6)")
 
+    tensor_cores = phase_s_tensor_cores(dev)
+
     records = {}
     for label, (h, w, ci, co) in r18.FLAGSHIP_SHAPES.items():
         torch.cuda.empty_cache()
         shape = (CONV_DW_BATCH, h, w, ci, co)
-        x, dy = operands(shape, torch.bfloat16)
+        x, dy = conv_dw_operands(dev, shape, torch.bfloat16)
+        arrangement = cdw.conv_dw_arrangement(x, dy)
+        assert arrangement == ("wgmma" if label == "conv2" else "cuda_core"), (label, arrangement)
+        before = dict(cdw.conv_dw_arrangements)
         got = cdw.conv_dw(x, dy)
         torch.cuda.synchronize()
-        err, scale = close(got, conv_dw_float64(x, dy), shape)
+        assert cdw.conv_dw_arrangements[arrangement] == before[arrangement] + 1
+        err, scale = conv_dw_close(got, conv_dw_float64(x, dy), shape)
         assert torch.equal(got, cdw.conv_dw(x, dy)), "two runs differ"
         library_call = cudnn_weight_gradient(x, dy)
         library = library_call().float().permute(2, 3, 1, 0)
@@ -2087,7 +2145,8 @@ def phase_s(dev):
         # dy as the library may hand it over: NCHW memory behind an NHWC view
         dy_nchw = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
         records[label] = dict(
-            shape=list(shape), max_abs_err=err, ms=median_ms(lambda: cdw.conv_dw(x, dy)),
+            shape=list(shape), arrangement=arrangement, max_abs_err=err,
+            ms=median_ms(lambda: cdw.conv_dw(x, dy)),
             device_ms=queued_ms(lambda: cdw.conv_dw(x, dy)),
             plain_ms=median_ms(lambda: cdw.conv_dw_reference(x, dy), runs=5, warmup=1),
             library_ms=median_ms(library_call, runs=20, warmup=2),
@@ -2095,9 +2154,22 @@ def phase_s(dev):
             bound_ms=bound_ms, bound_by=bound_by)
         r = records[label]
         flops = 2 * 9 * ci * co * positions
-        log(f"  {label} {shape} bfloat16: max_abs_err {err:.3g} of {scale:.3g} against float64 "
-            f"over blocks of {CONV_DW_BLOCK} images (cuDNN's bfloat16 result is "
+        log(f"  {label} {shape} bfloat16 ({arrangement}): max_abs_err {err:.3g} of {scale:.3g} "
+            f"against float64 over blocks of {CONV_DW_BLOCK} images (cuDNN's bfloat16 result is "
             f"{library_err:.3g} from the kernel's), two runs equal bit for bit")
+        if arrangement == "wgmma":  # the CUDA-core kernel on the same operands, beside it
+            cuda_core = lambda: cdw._launch("cuda_core", x, dy)  # noqa: E731
+            r["cuda_core_max_abs_err"] = conv_dw_close(cuda_core(), conv_dw_float64(x, dy),
+                                                       (shape, "cuda_core"))[0]
+            r["cuda_core_ms"] = median_ms(cuda_core, runs=20, warmup=2)
+            r["cuda_core_device_ms"] = queued_ms(cuda_core, runs=20)
+            # one block of 384 threads and 230,400 bytes of shared memory an SM: splits = SMs
+            r["splits"] = cdw.build_wgmma().cdw_wgmma_splits(*shape)
+            log(f"  {label} the CUDA-core arrangement on the same operands (median of 20): "
+                f"{r['cuda_core_ms']:.4f} ms ({r['cuda_core_device_ms']:.4f} ms back to back), "
+                f"max_abs_err {r['cuda_core_max_abs_err']:.3g}; the wgmma launch split the "
+                f"positions over {r['splits']} blocks on "
+                f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
         log(f"  {label} median of 100: kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} ms back to "
             f"back, {flops / r['device_ms'] / 1e9:.1f} TFLOP/s), plain (median of 5) "
             f"{r['plain_ms']:.4f} ms, cuDNN's weight gradient (median of 20) "
@@ -2105,7 +2177,56 @@ def phase_s(dev):
             f"copy of dy ({dy.numel() * 2 / 1e6:.0f} MB) {r['nhwc_copy_ms']:.4f} ms")
         del x, dy, dy_nchw, got, library, library_call
     torch.cuda.empty_cache()
+    records["conv2"].update(tensor_cores)
     return records
+
+
+def phase_s_tensor_cores(dev):
+    """Kernel 11's tensor-core arrangement at small shapes: HGMMA in its SASS, its ptxas
+    report, one-hot products in their place, float64 parity, two runs equal; a view one
+    element into an allocation takes the CUDA-core kernel and is held to float64 too.
+    Returns the additions to conv2's record."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+    from trustedai_cl_vae_ad_tpu_torch.testing import shifted
+
+    hgmma = sass_hgmma("conv_dw_wgmma")
+    assert hgmma, "no HGMMA instruction in the SASS of conv_dw_wgmma"
+    ptxas = ptxas_report("conv_dw_wgmma")
+    log(f"  SASS of conv_dw_wgmma: {len(hgmma)} HGMMA instructions, e.g. {hgmma[0]}")
+    for line in ptxas:
+        log(f"  ptxas conv_dw_wgmma: {line}")
+
+    def counted(arrangement, fn):  # one launch, under `arrangement`
+        want = dict(cdw.conv_dw_arrangements)
+        want[arrangement] += 1
+        out = fn()
+        torch.cuda.synchronize()
+        assert cdw.conv_dw_arrangements == want, (cdw.conv_dw_arrangements, want)
+        return out
+
+    for (b, h, w, ci, co), xi, di in CONV_DW_ONE_HOT:
+        x = torch.zeros((b, h, w, ci), dtype=torch.bfloat16, device=dev)
+        dy = torch.zeros((b, h // 2, w // 2, co), dtype=torch.bfloat16, device=dev)
+        x[xi], dy[di] = 1.0, 1.0
+        got = counted("wgmma", lambda: cdw.conv_dw(x, dy))
+        want = [[xi[1] - 2 * di[1], xi[2] - 2 * di[2], xi[3], di[3]]]
+        assert got.nonzero().tolist() == want and float(got[tuple(want[0])]) == 1.0, (
+            xi, di, got.nonzero()[:4].tolist())
+    log(f"  one-hot products at {len(CONV_DW_ONE_HOT)} places land where they belong")
+    for shape in CONV_DW_WGMMA_SMALL:
+        x, dy = conv_dw_operands(dev, shape, torch.bfloat16)
+        got = counted("wgmma", lambda: cdw.conv_dw(x, dy))
+        ref64 = conv_dw_float64(x, dy)
+        err, scale = conv_dw_close(got, ref64, (shape, "wgmma"))
+        assert torch.equal(got, counted("wgmma", lambda: cdw.conv_dw(x, dy))), "two runs differ"
+        xs, dys = shifted(x, 1), shifted(dy, 1)
+        view_err, _ = conv_dw_close(counted("cuda_core", lambda: cdw.conv_dw(xs, dys)), ref64,
+                                    (shape, "a view at +1 element"))
+        log(f"  {shape} bfloat16 (wgmma): max_abs_err {err:.3g} of {scale:.3g} against float64, "
+            f"two runs equal; a view at +1 element takes the CUDA-core kernel: {view_err:.3g}")
+    return {"sass_hgmma": len(hgmma), "ptxas": ptxas}
 
 
 def phase_t(dev):
@@ -2120,28 +2241,35 @@ def phase_t(dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cdw.launches = 0
+    cdw.conv_dw_arrangements.update(wgmma=0, cuda_core=0)
     moments.launches = moments.bwd_launches = 0
     rows = r18.bench(batch=R18_BATCH, steps=R18_STEPS, warmup=R18_WARMUP, device=dev, seed=0)
-    launches = cdw.launches
+    launches, arrangements = cdw.launches, dict(cdw.conv_dw_arrangements)
     peak = torch.cuda.max_memory_allocated()
     steps = R18_WARMUP + R18_STEPS
     assert [r["variant"] for r in rows] == [label for label, _ in r18.VARIANTS]
     for row, (label, patch) in zip(rows, r18.VARIANTS):
         assert row["routed"] == list(range(patch)), row
         assert row["launches"] == steps * patch, (label, row["launches"])
+        # conv1 (CI = 3) on the CUDA-core kernel, conv2 (32 -> 64, bfloat16) on the tensor cores
+        assert row["arrangements"] == {"cuda_core": steps * min(patch, 1),
+                                       "wgmma": steps * max(patch - 1, 0)}, (label, row)
         assert row["moments_launches"] == [steps, steps], (label, row["moments_launches"])
         assert row["last_loss"] == row["last_loss"] and abs(row["last_loss"]) != float("inf")
         log(f"  {label}: {row['ms_per_step']:.2f} ms a step by the host clock, "
             f"{row['event_ms']:.2f} by CUDA events, {row['fps']:.1f} frames/s ({R18_STEPS} steps "
             f"after {R18_WARMUP} warm-up, batch {R18_BATCH}); loss after one update "
             f"{row['loss_after_one_step']:.6f}, last {row['last_loss']:.6f}; kernel launches "
-            f"{row['launches']}; the Function copied {row['copied_bytes_per_step'] / 1e6:.1f} MB "
-            f"a step into NHWC order")
-    # two checking steps and the timed run for each variant: 0 + 1 + 2 routed convolutions
+            f"{row['launches']} {row['arrangements']}; the Function copied "
+            f"{row['copied_bytes_per_step'] / 1e6:.1f} MB a step into NHWC order")
+    # two checking steps and the timed run for each variant: 0 + 1 + 2 routed convolutions, of
+    # which conv1 (1 + 1) takes the CUDA-core kernel and conv2 (0 + 1) the tensor cores
     assert launches == (2 + steps) * 3, launches
+    assert arrangements == {"cuda_core": (2 + steps) * 2, "wgmma": 2 + steps}, arrangements
     assert moments.launches == moments.bwd_launches == (2 + steps) * 3
-    log(f"  kernel launches on this path {launches}; max_memory_allocated {peak / 2**30:.2f} GiB")
-    return {"launches": launches, "rows": rows}
+    log(f"  kernel launches on this path {launches} {arrangements}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    return {"launches": launches, "arrangements": arrangements, "rows": rows}
 
 
 def phase_u(dev):
@@ -2294,11 +2422,11 @@ def main(argv=None):
     with ThreadPoolExecutor() as pool:  # one nvcc for each source, started together
         list(pool.map(lambda build: build(),
                       (stream_score.build, moments.build, int8_gemm.build, dense_grad_adam.build,
-                       dense_grad_adam.build_wgmma, conv_dw.build)))
-    log(f"  stream_score, moments, int8_gemm, dense_grad_adam, dense_grad_wgmma and conv_dw built "
-        f"and loaded in {time.perf_counter() - t0:.1f} s")
+                       dense_grad_adam.build_wgmma, conv_dw.build, conv_dw.build_wgmma)))
+    log(f"  stream_score, moments, int8_gemm, dense_grad_adam, dense_grad_wgmma, conv_dw and "
+        f"conv_dw_wgmma built and loaded in {time.perf_counter() - t0:.1f} s")
     for kernel in ("stream_score", "moments", "int8_gemm", "dense_grad_adam", "dense_grad_wgmma",
-                   "conv_dw"):
+                   "conv_dw", "conv_dw_wgmma"):
         for line in _build.build_log.get(kernel, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
@@ -2351,8 +2479,9 @@ def main(argv=None):
     # just before that path: (e) for the scorer, (h) for the global moments,
     # (k) with KurtosisSingle for the per-dimension moments, (p)'s w8a8
     # multi-camera run for the int8 GEMM (and the scorer's batched launches),
-    # (r) for the six dense-update kernels, (t) for the convolution weight gradient (its
-    # times are conv2's, the heavier layer; conv1's are beside them)
+    # (r) for the six dense-update kernels, (t) for the convolution weight gradient: its
+    # CUDA-core kernel with conv1's times, its tensor-core kernel with conv2's (and the
+    # CUDA-core kernel's on the same operands beside them)
     global_launches, perdim_launches = out["h"], out["k"][0]
     int8_launches, fleet_scorer_launches = out["p"]["launches"]
     print(json.dumps({"kernels": [
@@ -2363,7 +2492,9 @@ def main(argv=None):
         *moments_entries("perdim", out["i"], perdim_launches[2], perdim_launches[3]),
         *(dict(source, name=name, replaces=replaces, launches=out["r"]["launches"][counter],
                **out["q"][counter]) for name, (counter, replaces, source) in DGA_KERNELS.items()),
-        dict(CONV_DW_KERNEL, launches=out["t"]["launches"], conv1=out["s"]["conv1"],
+        dict(CONV_DW_KERNEL, launches=out["t"]["arrangements"]["cuda_core"],
+             **out["s"]["conv1"]),
+        dict(CONV_DW_WGMMA_KERNEL, launches=out["t"]["arrangements"]["wgmma"],
              **out["s"]["conv2"]),
     ]}))
     print(smi)

@@ -1,7 +1,7 @@
 """The CUDA kernels (stream scorer, single and batched; global and per-dimension
 moments; the int8 GEMM; the six dense-update kernels; the convolution weight
-gradient) vs their plain PyTorch versions on the card, and the background
-checkpoint saver's copy through pinned memory.
+gradient on CUDA cores and on the tensor cores) vs their plain PyTorch versions
+on the card, and the background checkpoint saver's copy through pinned memory.
 
 Marked ``cuda``: without a CUDA device these tests skip. On the card run
 ``python -m pytest tests/test_torch_kernels_gpu.py -q``.
@@ -777,25 +777,170 @@ def _conv_dw_operands(shape, dtype, dev, offset=0):
     return (shifted(x, offset), shifted(dy, offset)) if offset else (x, dy)
 
 
+def _conv_dw_float64(x, dy):
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+
+    return cdw.conv_dw_reference(x, dy, accumulate=torch.float64)
+
+
+def _assert_near_float64(got, ref64):
+    """Within 1e-4 of the largest |dW| plus 1e-4 relative of the float64 reference."""
+    err = (got.double() - ref64).abs()
+    scale = float(ref64.abs().max())
+    assert bool((err <= 1e-4 * scale + 1e-4 * ref64.abs()).all()), (float(err.max()), scale)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", CONV_DW_CASES, ids=[str(s) for s in CONV_DW_CASES])
 def test_conv_dw_kernel_matches_plain_version(cuda_device, shape, dtype):
     """Against the plain version (float32 products by the library): the sums are taken
-    in another order, so 1e-4 of the largest |dW| plus 1e-4 relative."""
+    in another order, so 1e-4 of the largest |dW| plus 1e-4 relative. The same values
+    one element into an allocation: equal bits where both calls take one arrangement
+    (the CUDA-core kernel's staging reads element by element in the same order); where
+    the aligned call took the tensor cores, the view takes the CUDA-core kernel, and
+    each is held to the float64 reference instead."""
     from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
 
     x, dy = _conv_dw_operands(shape, dtype, cuda_device)
-    before = cdw.launches
+    arrangement = cdw.conv_dw_arrangement(x, dy)
+    before = (cdw.launches, dict(cdw.conv_dw_arrangements))
     got = cdw.conv_dw(x, dy)
     torch.cuda.synchronize()
-    assert cdw.launches == before + 1
+    assert cdw.launches == before[0] + 1
+    assert cdw.conv_dw_arrangements[arrangement] == before[1][arrangement] + 1
     ref = cdw.conv_dw_reference(x, dy)
     assert got.shape == ref.shape == (3, 3, shape[3], shape[4]) and got.dtype == torch.float32
     scale = float(ref.abs().max())
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * scale)
     assert torch.equal(got, cdw.conv_dw(x, dy)), "two runs differ"
     xs, dys = _conv_dw_operands(shape, dtype, cuda_device, offset=1)
-    assert xs.data_ptr() % 16 and torch.equal(got, cdw.conv_dw(xs, dys))
+    assert xs.data_ptr() % 16 and cdw.conv_dw_arrangement(xs, dys) == "cuda_core"
+    shifted_dw = cdw.conv_dw(xs, dys)
+    if arrangement == "cuda_core":
+        assert torch.equal(got, shifted_dw)
+    else:
+        ref64 = _conv_dw_float64(x, dy)
+        _assert_near_float64(got, ref64)
+        _assert_near_float64(shifted_dw, ref64)
+
+
+# -- the tensor-core arrangement of the weight gradient (csrc/conv_dw_wgmma.cu) -------------------
+
+# ((B, H, W, CI, CO), x index, dy index): a single 1 in each puts dW's only nonzero at
+# (h - 2 oh, w - 2 ow, ci, co) when that tap exists. Tile corners; the second and third
+# warpgroups (kh = 1, 2); the right padding column (w = W - 1 at ow = OW - 1: kw = 1 only; the
+# kw = 2 tap of it is padding); the bottom row; a second tile of CI and of CO; a position in
+# the last stage of a split (the last position of all); a tap that does not exist
+CONV_DW_ONE_HOT = [
+    ((1, 4, 150, 32, 64), (0, 0, 0, 0), (0, 0, 0, 0)),
+    ((1, 4, 150, 32, 64), (0, 3, 149, 31), (0, 1, 74, 63)),
+    ((1, 4, 150, 32, 64), (0, 2, 148, 17), (0, 1, 74, 40)),
+    ((1, 4, 150, 32, 64), (0, 1, 10, 8), (0, 0, 5, 1)),
+    ((2, 8, 140, 40, 72), (1, 7, 139, 39), (1, 3, 69, 71)),
+    ((2, 8, 140, 40, 72), (1, 6, 130, 33), (1, 2, 64, 70)),
+    ((2, 112, 150, 32, 64), (1, 111, 149, 31), (1, 55, 74, 63)),
+    ((2, 112, 150, 32, 64), (0, 57, 64, 9), (0, 28, 32, 5)),
+    ((3, 6, 10, 8, 8), (2, 5, 9, 7), (2, 2, 4, 7)),
+    ((1, 4, 150, 32, 64), (0, 0, 0, 0), (0, 1, 0, 0)),
+]
+# (B, H, W, CI, CO): one line; the flagship's conv2 at batch 2; a K tail (P = 7 x 5 x 3 = 105
+# positions, no multiple of 64); a ragged OW (67) whose lines cross the 64-position stages; a
+# second, partial tile of CI (40); CO = 8; two tiles of CO (128)
+CONV_DW_WGMMA = [(1, 4, 150, 32, 64), (2, 112, 150, 32, 64), (7, 10, 6, 16, 24),
+                 (3, 6, 134, 32, 64), (3, 4, 70, 40, 64), (5, 6, 130, 64, 8),
+                 (2, 4, 140, 32, 128)]
+
+
+def _counted(cdw, arrangement, fn):
+    """fn() launched once, under ``arrangement``."""
+    before = (cdw.launches, dict(cdw.conv_dw_arrangements))
+    out = fn()
+    torch.cuda.synchronize()
+    want = dict(before[1], **{arrangement: before[1][arrangement] + 1})
+    assert (cdw.launches, cdw.conv_dw_arrangements) == (before[0] + 1, want)
+    return out
+
+
+@pytest.mark.parametrize("shape, xi, di", CONV_DW_ONE_HOT,
+                         ids=[f"{'x'.join(map(str, s))}-x{'.'.join(map(str, a))}-dy"
+                              f"{'.'.join(map(str, d))}" for s, a, d in CONV_DW_ONE_HOT])
+def test_wgmma_conv_dw_puts_a_one_hot_product_in_its_place(cuda_device, shape, xi, di):
+    """A wrong swizzle, descriptor, gather offset, padding mask or fragment map moves
+    or loses the single 1."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+
+    b, h, w, ci, co = shape
+    x = torch.zeros((b, h, w, ci), dtype=torch.bfloat16, device=cuda_device)
+    dy = torch.zeros((b, h // 2, w // 2, co), dtype=torch.bfloat16, device=cuda_device)
+    x[xi] = 1.0
+    dy[di] = 1.0
+    got = _counted(cdw, "wgmma", lambda: cdw.conv_dw(x, dy))
+    kh, kw = xi[1] - 2 * di[1], xi[2] - 2 * di[2]
+    want = [[kh, kw, xi[3], di[3]]] if xi[0] == di[0] and 0 <= kh < 3 and 0 <= kw < 3 else []
+    assert got.nonzero().tolist() == want
+    assert all(float(got[tuple(i)]) == 1.0 for i in want)
+
+
+@pytest.mark.parametrize("shape", CONV_DW_WGMMA, ids=[str(s) for s in CONV_DW_WGMMA])
+def test_wgmma_conv_dw_matches_a_float64_reference(cuda_device, shape):
+    """Within 1e-4 of the largest |dW| plus 1e-4 relative of the float64 sums
+    (products of bfloat16 values are exact; float32 sums in another order); two
+    runs give equal bits; both launches counted under "wgmma"."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+
+    x, dy = _conv_dw_operands(shape, torch.bfloat16, cuda_device)
+    got = _counted(cdw, "wgmma", lambda: cdw.conv_dw(x, dy))
+    assert got.shape == (3, 3, shape[3], shape[4]) and got.dtype == torch.float32
+    _assert_near_float64(got, _conv_dw_float64(x, dy))
+    assert torch.equal(got, _counted(cdw, "wgmma", lambda: cdw.conv_dw(x, dy)))
+
+
+def test_wgmma_conv_dw_is_exact_on_small_integers(cuda_device):
+    """Integers in [-2, 2]: every partial sum is an integer below 2^24, exact in any
+    order, so the whole result equals the float64 sums bit for bit."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+
+    b, h, w, ci, co = 3, 6, 134, 40, 72
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randint(-2, 3, (b, h, w, ci), generator=gen, device=cuda_device).bfloat16()
+    dy = torch.randint(-2, 3, (b, h // 2, w // 2, co), generator=gen,
+                       device=cuda_device).bfloat16()
+    got = _counted(cdw, "wgmma", lambda: cdw.conv_dw(x, dy))
+    assert torch.equal(got.double(), _conv_dw_float64(x, dy))
+
+
+# bfloat16 operands off the rule, and float32: the CUDA-core kernel with its checks
+CONV_DW_CUDA_CORE = [((2, 8, 12, 3, 8), torch.bfloat16, 0),
+                     ((3, 4, 70, 40, 70), torch.bfloat16, 0),
+                     ((2, 6, 8, 12, 16), torch.bfloat16, 0),
+                     ((1, 4, 150, 32, 64), torch.float32, 0),
+                     ((1, 4, 150, 32, 64), torch.bfloat16, 1)]
+
+
+@pytest.mark.parametrize("shape, dtype, offset", CONV_DW_CUDA_CORE,
+                         ids=[f"{'x'.join(map(str, s))}-{str(d)[6:]}-{o}"
+                              for s, d, o in CONV_DW_CUDA_CORE])
+def test_conv_dw_keeps_the_cuda_core_arrangement_off_the_rule(cuda_device, shape, dtype, offset):
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+
+    x, dy = _conv_dw_operands(shape, dtype, cuda_device, offset)
+    assert cdw.conv_dw_arrangement(x, dy) == "cuda_core"
+    got = _counted(cdw, "cuda_core", lambda: cdw.conv_dw(x, dy))
+    _assert_near_float64(got, _conv_dw_float64(x, dy))
+
+
+def test_the_wgmma_launcher_refuses_what_the_rule_excludes(cuda_device):
+    """Handed operands off the rule, the tensor-core launcher raises: nothing is rerouted."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
+
+    x, dy = _conv_dw_operands((1, 4, 150, 32, 64), torch.bfloat16, cuda_device, offset=1)
+    before = (cdw.launches, dict(cdw.conv_dw_arrangements))
+    with pytest.raises(RuntimeError, match="wgmma"):
+        cdw._launch("wgmma", x, dy)
+    x, dy = _conv_dw_operands((2, 8, 12, 12, 16), torch.bfloat16, cuda_device)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        cdw._launch("wgmma", x, dy)
+    assert (cdw.launches, cdw.conv_dw_arrangements) == before
 
 
 def test_conv_dw_kernel_rejects_bad_inputs(cuda_device):

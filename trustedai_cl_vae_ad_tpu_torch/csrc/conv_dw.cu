@@ -57,8 +57,10 @@
 // allow it, element by element otherwise (always at CI = 3, whose 6-byte pixels
 // line up with nothing; the staging is a small share of the work there). The
 // order of the sums does not depend on which of the two it is.
-// Next: the product on the tensor cores (wgmma from the staged tiles), loads
-// that run ahead of the arithmetic (cp.async or TMA), a tree in the join.
+// The tensor cores: bf16 operands with channel counts that are multiples of 8 on 16-byte
+// boundaries go to conv_dw_wgmma.cu (wgmma fed by a cp.async im2col gather) instead; this
+// kernel keeps float32, CI = 3 (6-byte pixels fit no 16-byte chunk) and ragged channel
+// counts (ops/conv_dw.py's conv_dw_arrangement). Next here: CI = 3 on the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -13,11 +13,15 @@ dy (B, H/2, W/2, CO) are NHWC, bfloat16 or float32, both alike; the result is
 (3, 3, CI, CO) float32, HWIO. ``dw_to_oihw`` maps it onto the gradient of an
 ``nn.Conv2d.weight`` (the bridge's HWIO -> OIHW map).
 
-On a CUDA tensor ``conv_dw`` launches the hand-written kernel
-``csrc/conv_dw.cu`` (the source's header says what bounds it and what its
-design does about that), or raises. On a CPU tensor it runs
-``conv_dw_reference``, the plain PyTorch version of the same arithmetic, which
-the kernel is held against on the card.
+On a CUDA tensor ``conv_dw`` launches one of two hand-written kernels, as
+``conv_dw_arrangement`` picks from dtype, shape and alignment alone:
+``csrc/conv_dw_wgmma.cu`` (the tensor cores) for bfloat16 with channel counts
+that are multiples of 8 on 16-byte boundaries, ``csrc/conv_dw.cu`` (CUDA
+cores) for everything else (each source's header says what bounds it and
+what its design does about that); a launch that fails raises, nothing falls
+back to the other kernel. On a CPU tensor it runs ``conv_dw_reference``, the
+plain PyTorch version of the same arithmetic, which the kernels are held
+against on the card.
 """
 
 from __future__ import annotations
@@ -27,13 +31,17 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-#: launches of the CUDA kernel in this process (the plain version does not count)
+#: launches of the CUDA kernels in this process (the plain version does not count)
 launches = 0
+#: launches by arrangement (each is also one of ``launches``)
+conv_dw_arrangements = {"wgmma": 0, "cuda_core": 0}
 #: bytes that ``Conv2dS2KernelDW.backward`` copied to hand the kernel NHWC-contiguous operands
 copied_bytes = 0
 
 _LIB_NAME = "conv_dw"
+_WGMMA_LIB_NAME = "conv_dw_wgmma"
 _lib = None
+_wgmma_lib = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,6 +61,24 @@ def build():
         lib.conv_dw_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def build_wgmma():
+    """Compile (first call) and load the tensor-core kernel; returns the library."""
+    global _wgmma_lib
+    if _wgmma_lib is None:
+        from trustedai_cl_vae_ad_tpu_torch.ops._build import load_library
+
+        lib = load_library(_WGMMA_LIB_NAME)
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.cdw_wgmma_splits.argtypes = [ll, ll, ll, ll, ll]
+        lib.cdw_wgmma_splits.restype = ll
+        lib.cdw_wgmma_launch.argtypes = [p, p, p, p, ll, ll, ll, ll, ll, ll, p]
+        lib.cdw_wgmma_launch.restype = i
+        lib.cdw_wgmma_error_string.argtypes = [i]
+        lib.cdw_wgmma_error_string.restype = ctypes.c_char_p
+        _wgmma_lib = lib
+    return _wgmma_lib
 
 
 def _check(x: torch.Tensor, dy: torch.Tensor) -> None:
@@ -93,28 +119,64 @@ def conv_dw_reference(x: torch.Tensor, dy: torch.Tensor,
     return torch.stack(taps).reshape(3, 3, x.shape[3], dy.shape[3])
 
 
-def _conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    global launches
-    lib = build()
+def _shape_fits(b: int, h: int, w: int, ci: int, co: int) -> bool:
+    """The tensor-core kernel's limits on the shapes: every count an int, the
+    positions B H/2 W/2 below 2^31 (a block counts its share of them in
+    ints), and the CUDA-core kernel's limits on the rest."""
+    lim, big = 1 << 31, 1 << 40
+    return (b < lim and h < lim and w < 1 << 30 and ci < 1 << 20 and co < 1 << 20
+            and b * (h // 2) * (w // 2) < lim and 9 * ci * co < lim
+            and b * h * w < big // ci and b * h * w < big // co)
+
+
+def conv_dw_arrangement(x: torch.Tensor, dy: torch.Tensor) -> str:
+    """Which kernel ``conv_dw`` launches for these operands on the card, by
+    dtype, shape and alignment alone: "wgmma" (``csrc/conv_dw_wgmma.cu``, the
+    tensor cores) for bfloat16 with CI and CO multiples of 8, x and dy starting
+    on 16-byte boundaries, and the shapes within the kernel's counts (fewer
+    than 2^31 output positions); "cuda_core" (``csrc/conv_dw.cu``) for
+    everything else: float32, CI = 3, ragged channel counts, views off a
+    16-byte boundary, counts past the kernel's ints. ``cdw_wgmma_launch``
+    refuses exactly what this excludes."""
+    b, h, w, ci = x.shape
+    co = dy.shape[3]
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    if (x.dtype == torch.bfloat16 and dy.dtype == torch.bfloat16 and ci % 8 == 0
+            and co % 8 == 0 and aligned and _shape_fits(b, h, w, ci, co)):
+        return "wgmma"
+    return "cuda_core"
+
+
+def _launch(arrangement: str, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """One launch of the named arrangement on checked CUDA operands; returns
+    dW. Counts nothing."""
+    wgmma = arrangement == "wgmma"
+    lib = build_wgmma() if wgmma else build()
+    error = lib.cdw_wgmma_error_string if wgmma else lib.conv_dw_error_string
     dev = x.device
     b, h, w, ci = x.shape
     co = dy.shape[3]
     code = _DTYPE_CODES[x.dtype]
     with torch.cuda.device(dev):
-        splits = lib.conv_dw_splits(code, b, h, w, ci, co)
+        splits = (lib.cdw_wgmma_splits(b, h, w, ci, co) if wgmma
+                  else lib.conv_dw_splits(code, b, h, w, ci, co))
         if splits <= 0:
-            raise RuntimeError("conv_dw cannot plan a launch for x of shape "
-                               f"{tuple(x.shape)}: {lib.conv_dw_error_string(-splits).decode()}")
+            raise RuntimeError(f"conv_dw ({arrangement}) cannot plan a launch for x of shape "
+                               f"{tuple(x.shape)}: {error(-splits).decode()}")
         # every element of both is written by the launch
         scratch = torch.empty(splits * 9 * ci * co, dtype=torch.float32, device=dev)
         out = torch.empty((3, 3, ci, co), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.conv_dw_launch(x.data_ptr(), dy.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                                scratch.numel(), code, b, h, w, ci, co, stream)
+        if wgmma:
+            rc = lib.cdw_wgmma_launch(x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+                                      scratch.data_ptr(), scratch.numel(), b, h, w, ci, co,
+                                      stream)
+        else:
+            rc = lib.conv_dw_launch(x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+                                    scratch.data_ptr(), scratch.numel(), code, b, h, w, ci, co,
+                                    stream)
     if rc != 0:
-        raise RuntimeError(
-            f"conv_dw kernel launch failed: {lib.conv_dw_error_string(rc).decode()}")
-    launches += 1
+        raise RuntimeError(f"conv_dw ({arrangement}) kernel launch failed: {error(rc).decode()}")
     return out
 
 
@@ -123,11 +185,18 @@ def conv_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     convolution of x (B, H, W, CI) whose output gradient is dy (B, H/2, W/2,
     CO). Both are contiguous NHWC tensors of one dtype (float32 or bfloat16)
     on one device, H and W even; a view that starts at an address that is not
-    a multiple of 16 is taken (element by element). CUDA tensors go through
-    the kernel (or raise); CPU tensors through the plain version."""
+    a multiple of 16 is taken. CUDA tensors go through the kernel that
+    ``conv_dw_arrangement`` picks (or raise), each launch counted in
+    ``launches`` and in ``conv_dw_arrangements``; CPU tensors through the
+    plain version."""
+    global launches
     _check(x, dy)
     if x.device.type == "cuda":
-        return _conv_dw_cuda(x, dy)
+        arrangement = conv_dw_arrangement(x, dy)
+        out = _launch(arrangement, x, dy)
+        launches += 1
+        conv_dw_arrangements[arrangement] += 1
+        return out
     if x.device.type != "cpu":
         raise ValueError(f"conv_dw supports cuda and cpu tensors, got {x.device}")
     return conv_dw_reference(x, dy)

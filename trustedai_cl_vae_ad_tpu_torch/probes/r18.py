@@ -27,7 +27,8 @@ JAX harness's keys (``probe``, ``variant``, ``batch``, ``ms`` or ``fps`` and
 ``bound_ms`` / ``bound_by`` (each operand read once and the result written
 once over an H100's 3.35 TB/s, against 2 * 9 CI CO operations a position at
 the card's peak rate for the operands' type), ``library_ms``, and
-for ``bench`` the launches of the kernel, the layers routed and the bytes the
+for ``bench`` the launches of the kernel (and of each of its two arrangements,
+``ops.conv_dw.conv_dw_arrangement``), the layers routed and the bytes the
 Function had to copy into NHWC order.
 """
 
@@ -329,6 +330,7 @@ def bench(batch: int = 768, steps: int = 20, warmup: int = WARMUP, device="cuda"
     for row, (label, patch) in zip(rows, VARIANTS):
         model = build(patch)
         counts = (cdw.launches, moments.launches, moments.bwd_launches, cdw.copied_bytes)
+        arrangements = dict(cdw.conv_dw_arrangements)
         for i in range(warmup):
             loss, z = train_score_step(model, x_u8, 100.0, 10.0, eps=eps(2 + i))
         _fence(device)
@@ -349,6 +351,8 @@ def bench(batch: int = 768, steps: int = 20, warmup: int = WARMUP, device="cuda"
                    event_ms=start.elapsed_time(end) / steps if cuda else None,
                    last_loss=last, steps=steps, warmup=warmup,
                    launches=cdw.launches - counts[0],
+                   arrangements={k: v - arrangements[k]
+                                 for k, v in cdw.conv_dw_arrangements.items()},
                    moments_launches=[moments.launches - counts[1],
                                      moments.bwd_launches - counts[2]],
                    copied_bytes_per_step=(cdw.copied_bytes - counts[3]) // (warmup + steps),
