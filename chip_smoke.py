@@ -9,9 +9,9 @@ and crash-atomic checkpoints; any failure raises and the script exits non-zero
 without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
-  (b) build: nvcc builds the stream-scorer, the moments, the int8 GEMM, the
-      dense-update and the convolution weight-gradient kernels (seven sources)
-      from csrc/ into build/, all at once;
+  (b) build: nvcc builds the stream-scorer, the moments, the int8 GEMM (on CUDA
+      cores and on the tensor cores), the dense-update and the convolution
+      weight-gradient kernels (eight sources) from csrc/ into build/, all at once;
   (c) kernel vs its plain PyTorch version on the card, 8-frame sequences at
       224x300x3 and 37x53x3 (constant first frame, seeding, converged state),
       at the tolerances of trustedai_cl_vae_ad_tpu_torch/testing.py, and the
@@ -61,26 +61,36 @@ without printing its final line.
       run on 16 + 256 rows of which 24 weigh 1; the losses are finite, the
       parameters and the served reconstruction of a fixed frame change.
       Then one CL step each for the other two types at a tiny size.
-  (m) the int8 GEMM kernel vs its plain PyTorch version on the card, bit for
-      bit: the archived probe's (32, 268800, 4096); the encoder Dense's (1 and
-      16, 268800, 4000) chunk by chunk as ops/quant.py calls it, the decoder
-      Dense's (16, 2000, 134400); a ragged (3, 1003, 37); a saturated chunk of
-      131072; a range inside a larger matrix; a view that is not 16-byte
-      aligned; bad inputs raise. Times: CUDA-event median of 100 and the
-      back-to-back device time of the kernel, the plain version and
-      torch._int_mm at the probe's shape, and the kernel at the path's shapes;
+  (m) the int8 GEMM's two arrangements vs the plain PyTorch version on the
+      card, bit for bit: IMMA in the tensor-core library's SASS (cuobjdump) and
+      its ptxas report; the archived probe's (32, 268800, 4096) in one range;
+      the encoder Dense's (1 and 16, 268800, 4000) in chunks of 131072 as
+      ops/quant.py calls it (one launch on the tensor cores, 3 on the CUDA
+      cores), the decoder Dense's (1 and 16, 2000, 134400), each by both
+      arrangements and torch._int_mm; a ragged (3, 1003, 37) and a range off
+      16 (CUDA cores); ragged M, N edges, M = 40, saturated chunks of 131072 (+
+      and -) and a range past I32_EXACT_K that wraps (tensor cores); a view
+      that is not 16-byte aligned takes the CUDA cores and the tensor-core
+      launcher refuses it; bad inputs raise. Times: CUDA-event median of 100
+      and the back-to-back device time of both arrangements and
+      torch._int_mm (x zero-padded to 32 rows, which it needs, a call a chunk)
+      at the probe's and the path's shapes, the plain version at the probe's;
   (n) the batched scorer (one launch over a grid of K = 16 frames with a
       validity mask) vs the plain batched version at 224x300x3, 8 ticks from
       mixed start states with some streams dropping ticks, per stream at the
       tolerances of (c);
   (o) a tiny config: the multi-camera engine on cuda vs cpu, K = 3 with one
-      stream dropping ticks, float and w8a8; w8 and w8a8 fidelity against the
+      stream dropping ticks, float and w8a8 (the int8 GEMM counted by
+      arrangement: the encoder's Dense layers on the tensor cores, the
+      decoder's, K = 8, on the CUDA cores); w8 and w8a8 fidelity against the
       float forward; an int8 sidecar written, healed after a simulated kill
       between its two renames, and reloaded;
   (p) the flagship through run_all_cameras, as camera_streamer_torch.py
       --all-cameras --n-streams 16 --quantize drives it: 16 synthetic 240x320
       cameras, one dropping every 4th tick, 64 ticks in float and in w8a8 (the
-      int8 kernel launched 4 times a tick, the scorer once), 64 frames on the
+      int8 GEMM launched once a quantized Dense on the tensor cores, 2 a tick,
+      or once a chunk on the CUDA cores, as its rule sends each shape, counted
+      by arrangement; the scorer once a tick), 64 frames on the
       single-stream engine in float and with quantize=True, the quantization
       pass timed, the reconstruction of a fixed batch against the float
       forward; then an int8-checkpoint boot of the same weights from a
@@ -187,12 +197,18 @@ STREAM_KERNEL = {
     "source": f"{PACKAGE}/csrc/stream_score.cu",
     "replaces": "trustedai_cl_vae_ad_tpu/ops/stream_score.py:98",
 }
+# kernel 10's two arrangements (ops.int8_gemm.int8_gemm_arrangement): the tensor-core kernel,
+# which the flagship's w8a8 path runs, and the CUDA-core one, which takes operands off the rule
+# (the tiny model's decoder Dense of K = 8 in phase o)
 INT8_KERNEL = {
     "name": "int8_gemm",
     "route": "cuda",
     "source": f"{PACKAGE}/csrc/int8_gemm.cu",
     "replaces": "benchmarks/r4_int8_gemm.py:45",
+    "arrangement": "cuda_core",
 }
+INT8_MMA_KERNEL = dict(INT8_KERNEL, name="int8_gemm_mma", arrangement="mma",
+                       source=f"{PACKAGE}/csrc/int8_gemm_mma.cu")
 DGA_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/dense_grad_adam.cu"}
 # the bf16 product alone runs on the tensor cores (ops.dense_grad_adam.dense_grad_arrangement)
 DGW_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/dense_grad_wgmma.cu",
@@ -1017,62 +1033,118 @@ def phase_l():
 
 
 def phase_m(dev):
-    """The int8 GEMM kernel vs its plain version on the card, bit for bit;
-    returns the kernel's record at the probe's shape with the path's shapes
-    beside it."""
+    """Kernel 10's two arrangements vs the plain version on the card, bit for bit; IMMA in
+    the tensor-core library's SASS; both timed at the probe's and the path's shapes. Returns
+    {"cuda_core": record, "mma": record}: each at the probe's shape with the path's beside it."""
     import torch
 
     from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
     from trustedai_cl_vae_ad_tpu_torch.ops.quant import _I32_SAFE_K
+
+    imma = sass_instructions("int8_gemm_mma", "IMMA")
+    assert imma, "no IMMA instruction in the SASS of int8_gemm_mma"
+    ptxas = ptxas_report("int8_gemm_mma")
+    log(f"  SASS of int8_gemm_mma: {len(imma)} IMMA instructions, e.g. {imma[0]}")
+    for line in ptxas:
+        log(f"  ptxas int8_gemm_mma: {line}")
 
     def rnd(shape, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return torch.randint(-127, 128, shape, device=dev, generator=gen,
                              dtype=torch.int32).to(torch.int8)
 
-    def check(x, w, k0=0, k1=None, label=""):
-        got = ig.int8_gemm(x, w, k0, k1)
+    def counted(arrangement, fn, n_launches=1):  # fn's launches, all under `arrangement`
+        want = dict(ig.int8_gemm_arrangements)
+        want[arrangement] += n_launches
+        out = fn()
         torch.cuda.synchronize()
+        assert ig.int8_gemm_arrangements == want, (ig.int8_gemm_arrangements, want)
+        return out
+
+    def check(x, w, k0=0, k1=None, label="", arrangement="mma"):
+        assert ig.int8_gemm_arrangement(x, w, k0, k1) == arrangement, label
+        got = counted(arrangement, lambda: ig.int8_gemm(x, w, k0, k1))
         ref = ig.int8_gemm_reference(x, w, k0, k1)
         assert got.dtype == torch.int32 and got.shape == ref.shape
         assert torch.equal(got, ref), (label, int((got.long() - ref.long()).abs().max()))
         return got
 
-    def chunks(k):
-        return [(s, min(s + _I32_SAFE_K, k)) for s in range(0, k, _I32_SAFE_K)]
+    def times(x, w, chunk):
+        """Both arrangements' CUDA-event medians and back-to-back times on the same operands."""
+        k = x.shape[1]
+        out = {}
+        for arrangement in ("mma", "cuda_core"):
+            fn = lambda: ig._launch(arrangement, x, w, 0, k, chunk)  # noqa: E731
+            out[arrangement] = (median_ms(fn), queued_ms(fn))
+        return out
 
-    before = ig.launches
-    path = []
+    def library(x, w, chunk):
+        """torch._int_mm over the chunks, x zero-padded to 32 rows (it takes M > 16 only); each
+        chunk's operands copied once beforehand, the weights as a transposed (N, K) view."""
+        k = x.shape[1]
+        xp = torch.zeros((max(32, x.shape[0]), k), dtype=torch.int8, device=dev)
+        xp[:x.shape[0]] = x
+        parts = [(xp[:, s:s + chunk].contiguous(), w[:, s:s + chunk].contiguous())
+                 for s in range(0, k, chunk)]
+        got = torch.stack([torch._int_mm(a, b.t()) for a, b in parts])[:, :x.shape[0]]
+        fn = lambda: [torch._int_mm(a, b.t()) for a, b in parts]  # noqa: E731
+        return got, median_ms(fn), queued_ms(fn)
+
+    records = {"cuda_core": {"path": []}, "mma": {"path": [], "sass_imma": len(imma),
+                                                   "ptxas": ptxas}}
     for m, k, n in PATH_SHAPES:
         x, w = rnd((m, k), m), rnd((n, k), n)
-        for s, e in chunks(k):  # as ops/quant.py::_int8_partials calls it
-            check(x, w, s, e, f"({m}, {k}, {n}) [{s}, {e})")
-        fn = lambda: [ig.int8_gemm(x, w, s, e) for s, e in chunks(k)]  # noqa: E731
+        arrangement = ig.int8_gemm_arrangement(x, w, 0, k, _I32_SAFE_K)
+        chunks = -(-k // _I32_SAFE_K)
+        got = counted(arrangement, lambda: ig.int8_gemm_chunked(x, w, _I32_SAFE_K),
+                      1 if arrangement == "mma" else chunks)
+        assert torch.equal(got, ig.int8_gemm_chunked_reference(x, w, _I32_SAFE_K)), (m, k, n)
+        for other in ("mma", "cuda_core"):  # the other arrangement gives the same bits
+            assert torch.equal(ig._launch(other, x, w, 0, k, _I32_SAFE_K), got), (m, k, n, other)
+        assert torch.equal(ig.int8_gemm_chunked(x, w, _I32_SAFE_K), got), "two runs differ"
+        timed = times(x, w, _I32_SAFE_K)
+        lib_got, lib_ms, lib_device_ms = library(x, w, _I32_SAFE_K)
+        assert torch.equal(lib_got, got), "torch._int_mm disagrees"
         bound_ms, bound_by = int8_bound(m, k, n)
-        path.append({"shape": [m, k, n], "launches_per_call": len(chunks(k)),
-                     "ms": median_ms(fn), "device_ms": queued_ms(fn),
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"  ({m}, {k}, {n}) in {len(chunks(k))} launches: equal bit for bit; kernel "
-            f"{path[-1]['ms']:.4f} ms ({path[-1]['device_ms']:.4f} ms back to back), bound "
-            f"{bound_ms:.5f} ms ({bound_by})")
+        for name, record in records.items():
+            record["path"].append({
+                "shape": [m, k, n], "chunks": chunks, "rule": arrangement,
+                "launches_per_call": 1 if name == "mma" else chunks,
+                "ms": timed[name][0], "device_ms": timed[name][1], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms, "library_device_ms": lib_device_ms})
+        log(f"  ({m}, {k}, {n}) in {chunks} chunks, the rule's {arrangement}: equal bit for "
+            f"bit, both arrangements and torch._int_mm; mma (1 launch) "
+            f"{timed['mma'][0]:.4f} ms ({timed['mma'][1]:.4f} b2b), cuda_core ({chunks} "
+            f"launches) {timed['cuda_core'][0]:.4f} ms ({timed['cuda_core'][1]:.4f} b2b), "
+            f"torch._int_mm on x padded to 32 rows {lib_ms:.4f} ms ({lib_device_ms:.4f} b2b), "
+            f"bound {bound_ms:.5f} ms ({bound_by})")
         del x, w
+
     x, w = rnd((3, 1003), 1), rnd((37, 1003), 2)
-    check(x, w, label="ragged")
-    check(x, w, 5, 900, "ragged range")
+    check(x, w, label="ragged", arrangement="cuda_core")
+    check(x, w, 5, 900, "ragged range", arrangement="cuda_core")
     check(rnd((5, 4096), 3), rnd((50, 4096), 4), 16, 4000, "a range inside a larger matrix")
     check(rnd((40, 512), 5), rnd((33, 512), 6), label="M above one tile of 32")
+    for m, k, n in ((3, 4096, 1000), (17, 2000, 130), (16, 144, 129)):  # ragged M, N edges
+        check(rnd((m, k), m), rnd((n, k), n), label=f"({m}, {k}, {n})")
     sat = torch.full((2, _I32_SAFE_K), 127, dtype=torch.int8, device=dev)
     got = check(sat, torch.full((17, _I32_SAFE_K), 127, dtype=torch.int8, device=dev),
                 label="saturated")
     assert int(got[0, 0]) == 127 * 127 * _I32_SAFE_K < 2 ** 31
     got = check(sat, -sat, label="saturated, negative")
     assert int(got[1, 1]) == -127 * 127 * _I32_SAFE_K
-    # a contiguous view that starts one byte into an allocation: no 16-byte loads
+    long = torch.full((1, ig.I32_EXACT_K + 8), 127, dtype=torch.int8, device=dev)
+    assert int(check(long, long, label="wrapping")[0, 0]) == \
+        127 * 127 * (ig.I32_EXACT_K + 8) - 2 ** 32
+    # a contiguous view that starts one byte into an allocation: the CUDA-core kernel's bytes
     view = rnd((16 * 2000 + 1,), 7)[1:].view(16, 2000)
     assert view.data_ptr() % 16 != 0
-    check(view, rnd((100, 2000), 8), label="misaligned view")
-    log("  ragged (3, 1003, 37), ranges, M = 40, saturated chunks of 131072 (+ and -) and a "
-        "view at +1 byte: equal bit for bit")
+    check(view, rnd((100, 2000), 8), label="misaligned view", arrangement="cuda_core")
+    expect_raises(lambda: ig._launch("mma", view, rnd((100, 2000), 8), 0, 2000, 2000),
+                  RuntimeError, "an mma launch of a view off a 16-byte boundary")
+    log("  ragged (3, 1003, 37) and ranges (CUDA cores), M = 40, ragged M and N edges, saturated "
+        "chunks of 131072 (+ and -), wrapping past I32_EXACT_K (tensor cores), a view at +1 "
+        "byte (CUDA cores; refused by the tensor-core launcher): equal bit for bit")
     x, w = rnd((4, 64), 9), rnd((6, 64), 10)
     for bad_x, bad_w, error in ((x.int(), w, TypeError), (x, w.float(), TypeError),
                                 (x[:, ::2], w[:, ::2], ValueError), (x[0], w, ValueError),
@@ -1083,26 +1155,30 @@ def phase_m(dev):
                       f"{bad_w.dtype} {tuple(bad_w.shape)}")
     expect_raises(lambda: ig.int8_gemm(x, w, 8, 8), ValueError, "an empty range")
     expect_raises(lambda: ig.int8_gemm(x, w, 0, 65), ValueError, "a range past K")
+    expect_raises(lambda: ig.int8_gemm_chunked(x, w, 0), ValueError, "a chunk of 0")
 
     m, k, n = PROBE_SHAPE
     x, w = rnd((m, k), 11), rnd((n, k), 12)
     got = check(x, w, label="probe")  # one launch over all of K: no sum of random data leaves int32
+    assert torch.equal(ig._launch("cuda_core", x, w, 0, k, k)[0], got)
+    assert torch.equal(ig.int8_gemm(x, w), got), "two runs differ"
     lib = torch._int_mm(x, w.t())
     assert torch.equal(got, lib), "torch._int_mm disagrees"
-    assert ig.launches > before
     bound_ms, bound_by = int8_bound(m, k, n)
-    record = dict(shape=list(PROBE_SHAPE), max_abs_err=0.0,
-                  ms=median_ms(lambda: ig.int8_gemm(x, w)),
-                  device_ms=queued_ms(lambda: ig.int8_gemm(x, w)),
-                  plain_ms=median_ms(lambda: ig.int8_gemm_reference(x, w), runs=10, warmup=2),
-                  library_ms=median_ms(lambda: torch._int_mm(x, w.t())),
-                  library_device_ms=queued_ms(lambda: torch._int_mm(x, w.t())),
-                  bound_ms=bound_ms, bound_by=bound_by, path=path)
-    log(f"  probe {PROBE_SHAPE}, one launch, median of 100: kernel {record['ms']:.4f} ms "
-        f"({record['device_ms']:.4f} ms back to back), plain (float64, median of 10) "
-        f"{record['plain_ms']:.3f} ms, torch._int_mm {record['library_ms']:.4f} ms "
-        f"({record['library_device_ms']:.4f} back to back), bound {bound_ms:.5f} ms ({bound_by})")
-    return record
+    timed = times(x, w, k)
+    plain_ms = median_ms(lambda: ig.int8_gemm_reference(x, w), runs=10, warmup=2)
+    lib_ms = median_ms(lambda: torch._int_mm(x, w.t()))
+    lib_device_ms = queued_ms(lambda: torch._int_mm(x, w.t()))
+    for name, record in records.items():
+        record.update(shape=list(PROBE_SHAPE), max_abs_err=0.0, ms=timed[name][0],
+                      device_ms=timed[name][1], plain_ms=plain_ms, library_ms=lib_ms,
+                      library_device_ms=lib_device_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"  probe {PROBE_SHAPE}, one launch each, median of 100: mma {timed['mma'][0]:.4f} ms "
+        f"({timed['mma'][1]:.4f} b2b), cuda_core {timed['cuda_core'][0]:.4f} ms "
+        f"({timed['cuda_core'][1]:.4f} b2b), plain (float64, median of 10) {plain_ms:.3f} ms, "
+        f"torch._int_mm {lib_ms:.4f} ms ({lib_device_ms:.4f} b2b), bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    return records
 
 
 def phase_n(dev):
@@ -1226,7 +1302,7 @@ def phase_o():
     import numpy as np
     import torch
 
-    from trustedai_cl_vae_ad_tpu_torch.ops import quant
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, quant
     from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
     from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
     from trustedai_cl_vae_ad_tpu_torch.testing import warm_score_state
@@ -1251,7 +1327,18 @@ def phase_o():
                 maps, scalars = warm_score_state(engine.height, engine.width)
                 engine.maps = torch.from_numpy(np.stack([maps] * k)).to(engine.device)
                 engine.scalars = torch.from_numpy(np.stack([scalars] * k)).to(engine.device)
+                if name == "cuda" and quantize:  # the int8 launches of this run, from zero
+                    torch.cuda.synchronize()
+                    int8_gemm.launches = 0
+                    for arrangement in int8_gemm.int8_gemm_arrangements:
+                        int8_gemm.int8_gemm_arrangements[arrangement] = 0
                 runs[name] = run_fleet(engine, n_ticks, width=64, height=40, motion=0.0)[1]
+                if name == "cuda" and quantize:
+                    int8_counts = dict(int8_gemm.int8_gemm_arrangements)
+                    # the encoder's two Dense layers (K = 768, 16) on the tensor cores, the
+                    # decoder's (K = 8, off the rule's multiples of 16) on the CUDA cores
+                    assert int8_counts["mma"] == 2 * int8_counts["cuda_core"] > 0, int8_counts
+                    assert int8_gemm.launches == sum(int8_counts.values())
             agreed = True
             # w8a8: a convolution that differs by 1e-7 between the devices can
             # move one activation across a rounding boundary of its quantization
@@ -1275,7 +1362,8 @@ def phase_o():
                                                                        if r is not None)]
             assert flagged, "the injected blob was not flagged on cuda"
             log(f"  K = {k}, {n_ticks} ticks, {'w8a8' if quantize else 'float'}: cuda == cpu; "
-                f"ticks with an alarm {flagged}")
+                f"ticks with an alarm {flagged}"
+                + (f"; int8 launches by arrangement {int8_counts}" if quantize else ""))
         gen = torch.Generator(device="cuda").manual_seed(0)
         x = torch.rand((4, *config["data"]["image_size"]), device="cuda", generator=gen)
         qp = quant.quantize_params(gpu_model.core, gpu_model.params)
@@ -1307,6 +1395,7 @@ def phase_o():
         log("  int8 sidecar written, healed after a simulated kill, reloaded equal")
     finally:
         quant.DEFAULT_MIN_ELEMS = default_min
+    return {"int8_arrangements": int8_counts}
 
 
 def assert_scores_finite(results, label):
@@ -1355,6 +1444,23 @@ def phase_p():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         int8_gemm.launches = stream_score.launches = 0
+        for arrangement in int8_gemm.int8_gemm_arrangements:
+            int8_gemm.int8_gemm_arrangements[arrangement] = 0
+
+    def int8_per_forward(m):
+        """Launches of each int8 arrangement in one w8a8 forward of m frames: the encoder Dense
+        (K = 268800, 3 chunks) and the decoder Dense (K = 2000, 1 chunk), as the rule sends
+        them: one launch a Dense on the tensor cores, one a chunk on the CUDA cores."""
+        per = {"mma": 0, "cuda_core": 0}
+        for k, n in ((268800, 4000), (2000, 134400)):
+            x = torch.empty((m, k), dtype=torch.int8, device="meta")
+            w = torch.empty((n, k), dtype=torch.int8, device="meta")
+            arrangement = int8_gemm.int8_gemm_arrangement(x, w, 0, k, quant._I32_SAFE_K)
+            per[arrangement] += 1 if arrangement == "mma" else -(-k // quant._I32_SAFE_K)
+        return per
+
+    def int8_counts(per, times):
+        return {a: per[a] * times for a in per}
 
     def single(quantize, qparams=None, serving_model=None):
         engine = build_engine(serving_model or model, config, anomaly_settings=settings,
@@ -1366,7 +1472,9 @@ def phase_p():
                                                      seed=0),
                              on_result=results.append, log=lambda m: None)
         counts = (int8_gemm.launches, stream_score.launches)
-        assert len(results) == 64 and counts == (4 * 64 * bool(quantize or qparams), 64), counts
+        want = int8_counts(int8_per_forward(1), 64 * bool(quantize or qparams))
+        assert len(results) == 64 and counts == (sum(want.values()), 64), counts
+        assert int8_gemm.int8_gemm_arrangements == want, (int8_gemm.int8_gemm_arrangements, want)
         assert_scores_finite(results, "single stream")
         return summary, torch.cuda.max_memory_allocated(), results
 
@@ -1377,8 +1485,12 @@ def phase_p():
         reset_counts()
         summary, ticks = run_fleet(engine, n_ticks)
         counts = (int8_gemm.launches, stream_score.launches)
-        # the encoder Dense contracts over 268800 = 3 safe chunks, the decoder's over 2000 = 1
-        assert counts == (4 * n_ticks * engine.quantized, n_ticks), counts
+        # the encoder Dense contracts over 268800 = 3 safe chunks, the decoder's over 2000 = 1;
+        # on the tensor cores each Dense is one launch
+        want = int8_counts(int8_per_forward(FLEET_STREAMS), n_ticks * engine.quantized)
+        assert counts == (sum(want.values()), n_ticks), counts
+        assert int8_gemm.int8_gemm_arrangements == want, (int8_gemm.int8_gemm_arrangements, want)
+        counts = counts + (dict(int8_gemm.int8_gemm_arrangements),)
         for i in range(FLEET_STREAMS):
             assert_scores_finite([tick[i] for tick in ticks], f"stream {i}")
         assert torch.isfinite(engine.maps).all()
@@ -1422,12 +1534,13 @@ def phase_p():
     del engine
     s1q, peak1q, frames_q = single(True)
     out["frame_w8a8"] = s1q
+    out["frame_int8_arrangements"] = dict(int8_gemm.int8_gemm_arrangements)
     log(f"  K = {FLEET_STREAMS} cameras, {FLEET_TICKS} ticks (240x320 -> 224x300), camera "
         f"{FLEET_STREAMS - 1} dropping every {DROP_EVERY}th tick: tick latency float p50 "
         f"{sf['p50_ms']:.3f} ms p95 {sf['p95_ms']:.3f} ms, w8a8 p50 {sq['p50_ms']:.3f} ms p95 "
         f"{sq['p95_ms']:.3f} ms; max_memory_allocated float {peakf / gib:.2f} GiB, w8a8 beside "
         f"the float model {peakq / gib:.2f} GiB; launches in the w8a8 run: int8_gemm "
-        f"{counts[0]}, stream_score {counts[1]}")
+        f"{counts[0]} ({counts[2]}), stream_score {counts[1]}")
     log(f"  K = 1, 64 frames: frame latency float p50 {s1['p50_ms']:.3f} ms p95 "
         f"{s1['p95_ms']:.3f} ms, w8a8 p50 {s1q['p50_ms']:.3f} ms p95 {s1q['p95_ms']:.3f} ms; "
         f"max_memory_allocated float {peak1 / gib:.2f} GiB, w8a8 beside the float model "
@@ -1763,7 +1876,7 @@ def phase_q_tensor_cores(dev):
     from trustedai_cl_vae_ad_tpu_torch.testing import steps_apart
 
     bf16 = torch.bfloat16
-    hgmma = sass_hgmma("dense_grad_wgmma")
+    hgmma = sass_instructions("dense_grad_wgmma", "HGMMA")
     assert hgmma, "no HGMMA instruction in the SASS of dense_grad_wgmma"
     log(f"  SASS of dense_grad_wgmma: {len(hgmma)} HGMMA instructions, e.g. {hgmma[0]}")
 
@@ -2008,14 +2121,15 @@ def conv_dw_float64(x, dy, block=CONV_DW_BLOCK):
                for b0 in range(0, x.shape[0], block))
 
 
-def sass_hgmma(library):
-    """The HGMMA instructions in the SASS of a built kernel library (cuobjdump)."""
+def sass_instructions(library, opcode):
+    """The instructions of one opcode (HGMMA, IMMA) in the SASS of a built kernel library
+    (cuobjdump)."""
     from trustedai_cl_vae_ad_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_paths[library])],
                           capture_output=True, text=True, timeout=120, check=True).stdout
-    return [line.split(";")[0].strip() for line in sass.splitlines() if "HGMMA" in line]
+    return [line.split(";")[0].strip() for line in sass.splitlines() if opcode in line]
 
 
 def ptxas_report(library):
@@ -2191,7 +2305,7 @@ def phase_s_tensor_cores(dev):
     from trustedai_cl_vae_ad_tpu_torch.ops import conv_dw as cdw
     from trustedai_cl_vae_ad_tpu_torch.testing import shifted
 
-    hgmma = sass_hgmma("conv_dw_wgmma")
+    hgmma = sass_instructions("conv_dw_wgmma", "HGMMA")
     assert hgmma, "no HGMMA instruction in the SASS of conv_dw_wgmma"
     ptxas = ptxas_report("conv_dw_wgmma")
     log(f"  SASS of conv_dw_wgmma: {len(hgmma)} HGMMA instructions, e.g. {hgmma[0]}")
@@ -2421,12 +2535,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc for each source, started together
         list(pool.map(lambda build: build(),
-                      (stream_score.build, moments.build, int8_gemm.build, dense_grad_adam.build,
-                       dense_grad_adam.build_wgmma, conv_dw.build, conv_dw.build_wgmma)))
-    log(f"  stream_score, moments, int8_gemm, dense_grad_adam, dense_grad_wgmma, conv_dw and "
-        f"conv_dw_wgmma built and loaded in {time.perf_counter() - t0:.1f} s")
-    for kernel in ("stream_score", "moments", "int8_gemm", "dense_grad_adam", "dense_grad_wgmma",
-                   "conv_dw", "conv_dw_wgmma"):
+                      (stream_score.build, moments.build, int8_gemm.build, int8_gemm.build_mma,
+                       dense_grad_adam.build, dense_grad_adam.build_wgmma, conv_dw.build,
+                       conv_dw.build_wgmma)))
+    log(f"  stream_score, moments, int8_gemm, int8_gemm_mma, dense_grad_adam, dense_grad_wgmma, "
+        f"conv_dw and conv_dw_wgmma built and loaded in {time.perf_counter() - t0:.1f} s")
+    for kernel in ("stream_score", "moments", "int8_gemm", "int8_gemm_mma", "dense_grad_adam",
+                   "dense_grad_wgmma", "conv_dw", "conv_dw_wgmma"):
         for line in _build.build_log.get(kernel, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
@@ -2478,16 +2593,23 @@ def main(argv=None):
     # launches of each kernel on the path that runs it, counted from zero
     # just before that path: (e) for the scorer, (h) for the global moments,
     # (k) with KurtosisSingle for the per-dimension moments, (p)'s w8a8
-    # multi-camera run for the int8 GEMM (and the scorer's batched launches),
+    # multi-camera run for the int8 GEMM's tensor-core arrangement (and the scorer's
+    # batched launches; the single-stream w8a8 run's beside it), (o)'s tiny w8a8
+    # multi-camera run for its CUDA-core arrangement (the flagship's beside it),
     # (r) for the six dense-update kernels, (t) for the convolution weight gradient: its
     # CUDA-core kernel with conv1's times, its tensor-core kernel with conv2's (and the
     # CUDA-core kernel's on the same operands beside them)
     global_launches, perdim_launches = out["h"], out["k"][0]
-    int8_launches, fleet_scorer_launches = out["p"]["launches"]
+    _, fleet_scorer_launches, fleet_int8 = out["p"]["launches"]
+    frame_int8 = out["p"]["frame_int8_arrangements"]
+    tiny_int8 = out["o"]["int8_arrangements"]
     print(json.dumps({"kernels": [
         dict(STREAM_KERNEL, launches=out["e"][0], launches_cl_stream=out["l"],
              launches_fleet_ticks=fleet_scorer_launches, batched=out["n"], **out["c"]),
-        dict(INT8_KERNEL, launches=int8_launches, **out["m"]),
+        dict(INT8_MMA_KERNEL, launches=fleet_int8["mma"], launches_frames=frame_int8["mma"],
+             **out["m"]["mma"]),
+        dict(INT8_KERNEL, launches=tiny_int8["cuda_core"], launches_fleet_ticks=fleet_int8[
+            "cuda_core"], launches_frames=frame_int8["cuda_core"], **out["m"]["cuda_core"]),
         *moments_entries("global", out["f"], global_launches[0], global_launches[1]),
         *moments_entries("perdim", out["i"], perdim_launches[2], perdim_launches[3]),
         *(dict(source, name=name, replaces=replaces, launches=out["r"]["launches"][counter],

@@ -1,5 +1,5 @@
 """The CUDA kernels (stream scorer, single and batched; global and per-dimension
-moments; the int8 GEMM; the six dense-update kernels; the convolution weight
+moments; the int8 GEMM on CUDA cores and on the tensor cores; the six dense-update kernels; the convolution weight
 gradient on CUDA cores and on the tensor cores) vs their plain PyTorch versions
 on the card, and the background checkpoint saver's copy through pinned memory.
 
@@ -367,6 +367,153 @@ def test_int8_gemm_kernel_rejects_bad_inputs(cuda_device):
             ig.int8_gemm(x, w, k0, k1)
 
 
+# -- the int8 GEMM on the tensor cores (csrc/int8_gemm_mma.cu) ----------------------------
+
+def _on_the_tensor_cores(ig, fn, launches=1):
+    """fn's result, after checking that it launched ``launches`` times, all on "mma"."""
+    before = (ig.launches, dict(ig.int8_gemm_arrangements))
+    out = fn()
+    torch.cuda.synchronize()
+    assert ig.launches == before[0] + launches
+    assert ig.int8_gemm_arrangements == dict(before[1], mma=before[1]["mma"] + launches)
+    return out
+
+
+# (M, K, N, chunk): the path's four shapes (N cut for time) in chunks of 131072, the probe's
+# (N cut), ragged M, N edges, K tails of 16 (K = 2000 ends half way through a k32 step), M past
+# one tile of 32, a last chunk of 16 bytes, several splits a chunk
+MMA_CASES = [(16, 268800, 512, 131072), (1, 268800, 384, 131072), (16, 2000, 4096, 131072),
+             (1, 2000, 4096, 131072), (32, 268800, 256, None), (3, 4096, 1000, None),
+             (17, 2000, 130, None), (40, 1024, 200, None), (16, 144, 129, None),
+             (8, 4112, 1, 2048), (5, 16384, 40, 4096)]
+
+
+@pytest.mark.parametrize("m, k, n, chunk", MMA_CASES,
+                         ids=[f"{m}x{k}x{n}-{c}" for m, k, n, c in MMA_CASES])
+def test_mma_int8_gemm_equals_plain_version(cuda_device, m, k, n, chunk):
+    """Bit for bit, in one launch however many chunks, and the same bits twice."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+
+    x, w = _rand_i8((m, k), m + k, cuda_device), _rand_i8((n, k), n, cuda_device)
+    assert ig.int8_gemm_arrangement(x, w, 0, k, chunk) == "mma"
+    if chunk is None:
+        def run():
+            return ig.int8_gemm(x, w)
+        want = ig.int8_gemm_reference(x, w)
+    else:
+        def run():
+            return ig.int8_gemm_chunked(x, w, chunk)
+        want = ig.int8_gemm_chunked_reference(x, w, chunk)
+    got = _on_the_tensor_cores(ig, run)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(_on_the_tensor_cores(ig, run), got)
+
+
+# (M, K, N, chunk, m, k, n): a 1 at x[m, k] and w[n, k] puts out's only nonzero at
+# (k // chunk, m, n): tile corners, the last row of an N edge, the last split and the last
+# chunk of the encoder Dense's shape, the second z tile of M
+MMA_ONE_HOT = [(16, 2000, 300, 2000, 0, 0, 0), (16, 2000, 300, 2000, 15, 1999, 299),
+               (32, 4096, 256, 4096, 31, 4095, 255), (1, 268800, 4000, 131072, 0, 268799, 3999),
+               (16, 268800, 4000, 131072, 15, 131071, 127),
+               (16, 268800, 4000, 131072, 9, 262143, 3968), (3, 16384, 40, 4096, 2, 4095, 17),
+               (40, 512, 129, 512, 39, 511, 128)]
+
+
+@pytest.mark.parametrize("m, k, n, chunk, mi, ki, ni", MMA_ONE_HOT,
+                         ids=["x".join(map(str, c)) for c in MMA_ONE_HOT])
+def test_mma_int8_gemm_puts_a_one_hot_product_in_its_place(cuda_device, m, k, n, chunk, mi, ki,
+                                                          ni):
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+
+    x = torch.zeros((m, k), dtype=torch.int8, device=cuda_device)
+    w = torch.zeros((n, k), dtype=torch.int8, device=cuda_device)
+    x[mi, ki], w[ni, ki] = 1, 1
+    got = _on_the_tensor_cores(ig, lambda: ig.int8_gemm_chunked(x, w, chunk))
+    assert got.nonzero().tolist() == [[ki // chunk, mi, ni]] and int(got[ki // chunk, mi, ni]) == 1
+
+
+def test_mma_int8_gemm_saturated_chunks_and_wrapping(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+
+    k = 1 << 17
+    pos = torch.full((2, 2 * k), 127, dtype=torch.int8, device=cuda_device)
+    got = _on_the_tensor_cores(ig, lambda: ig.int8_gemm_chunked(pos, pos, k))
+    assert bool((got == 127 * 127 * k).all()) and got.shape == (2, 2, 2)
+    got = _on_the_tensor_cores(ig, lambda: ig.int8_gemm_chunked(pos, -pos, k))
+    assert bool((got == -127 * 127 * k).all())
+    # a range that leaves int32 wraps modulo 2^32, as the plain version does
+    long = torch.full((1, ig.I32_EXACT_K + 8), 127, dtype=torch.int8, device=cuda_device)
+    got = _on_the_tensor_cores(ig, lambda: ig.int8_gemm(long, long))
+    assert int(got[0, 0]) == 127 * 127 * (ig.I32_EXACT_K + 8) - 2 ** 32
+    assert torch.equal(got, ig.int8_gemm_reference(long, long))
+
+
+def test_int8_gemm_chunked_call_on_mma_equals_per_chunk_calls(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+
+    x, w = _rand_i8((16, 268800), 5, cuda_device), _rand_i8((256, 268800), 6, cuda_device)
+    chunked = _on_the_tensor_cores(ig, lambda: ig.int8_gemm_chunked(x, w, 131072))
+    singles = [_on_the_tensor_cores(ig, lambda: ig.int8_gemm(x, w, s, min(s + 131072, 268800)))
+               for s in range(0, 268800, 131072)]
+    assert chunked.shape == (3, 16, 256) and torch.equal(chunked, torch.stack(singles))
+
+
+def test_a_quantized_dense_of_three_chunks_is_one_launch(cuda_device):
+    """ops/quant.py's encoder-Dense product: K = 268800 in 3 chunks, one launch."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+    from trustedai_cl_vae_ad_tpu_torch.ops import quant
+
+    x, w = _rand_i8((16, 268800), 7, cuda_device), _rand_i8((300, 268800), 8, cuda_device)
+    partials = _on_the_tensor_cores(ig, lambda: quant._int8_partials(x, w))
+    assert len(partials) == 3
+    for part, s in zip(partials, range(0, 268800, quant._I32_SAFE_K)):
+        assert torch.equal(part, ig.int8_gemm_reference(x, w, s, min(s + quant._I32_SAFE_K, 268800)))
+
+
+@pytest.mark.parametrize("case", ["view_at_plus_1", "k_not_a_multiple_of_16", "range_off_16",
+                                  "chunk_off_16"])
+def test_int8_gemm_off_the_rule_takes_the_cuda_core_kernel(cuda_device, case):
+    """Counted under "cuda_core", one launch a chunk, and equal to the plain version."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+
+    k, k0, k1, chunk = 2000, 0, 2000, 1000
+    x, w = _rand_i8((16, k), 1, cuda_device), _rand_i8((100, k), 2, cuda_device)
+    if case == "view_at_plus_1":
+        x = _rand_i8((16 * k + 1,), 3, cuda_device)[1:].view(16, k)
+    elif case == "k_not_a_multiple_of_16":
+        k1 = k = 1003
+        x, w = x[:, :k].contiguous(), w[:, :k].contiguous()
+        chunk = 500
+    elif case == "range_off_16":
+        k0, k1 = 5, 1995
+        chunk = k1 - k0
+    else:
+        chunk = 100
+    assert ig.int8_gemm_arrangement(x, w, k0, k1, chunk) == "cuda_core"
+    before = (ig.launches, dict(ig.int8_gemm_arrangements))
+    if case == "range_off_16":
+        got, want, n_launches = ig.int8_gemm(x, w, k0, k1), ig.int8_gemm_reference(x, w, k0, k1), 1
+    else:
+        got = ig.int8_gemm_chunked(x, w, chunk)
+        want, n_launches = ig.int8_gemm_chunked_reference(x, w, chunk), -(-k // chunk)
+    assert ig.launches == before[0] + n_launches
+    assert ig.int8_gemm_arrangements == dict(
+        before[1], cuda_core=before[1]["cuda_core"] + n_launches)
+    assert torch.equal(got, want)
+
+
+def test_the_int8_mma_launcher_refuses_what_the_rule_excludes(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+
+    x = _rand_i8((16 * 2000 + 1,), 3, cuda_device)[1:].view(16, 2000)
+    w = _rand_i8((100, 2000), 4, cuda_device)
+    with pytest.raises(RuntimeError, match="mma"):
+        ig._launch("mma", x, w, 0, 2000, 2000)
+    with pytest.raises(RuntimeError, match="mma"):
+        ig._launch("mma", w[:16], w, 0, 2000, 1000)
+
+
 @pytest.mark.parametrize("mode", ["w8", "w8a8"])
 def test_call_quantized_on_the_card_matches_cpu(cuda_device, mode):
     """The quantized forward of a tiny model on the card against the same
@@ -392,9 +539,13 @@ def test_call_quantized_on_the_card_matches_cpu(cuda_device, mode):
         want = quant.call_quantized(cpu_model.core, quant.quantize_params(
             cpu_model.core, cpu_model.params, min_elems=0), x, mode=mode)
         qp = quant.quantize_params(gpu_model.core, gpu_model.params, min_elems=0)
-        before = ig.launches
+        before = (ig.launches, dict(ig.int8_gemm_arrangements))
         got = quant.call_quantized(gpu_model.core, qp, x.to(cuda_device), mode=mode)
-    assert ig.launches - before == (2 if mode == "w8a8" else 0)
+    assert ig.launches - before[0] == (2 if mode == "w8a8" else 0)
+    # the encoder Dense (K = 768) on the tensor cores, the decoder's (K = 8) on CUDA cores
+    each = 1 if mode == "w8a8" else 0
+    assert ig.int8_gemm_arrangements == {"mma": before[1]["mma"] + each,
+                                         "cuda_core": before[1]["cuda_core"] + each}
     # a convolution that differs by 1e-7 can flip one activation's rounding
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 if mode == "w8" else 2e-4)
 
@@ -486,6 +637,7 @@ def test_multicam_tick_on_the_card_launches_each_kernel_once_per_dense_and_tick(
     engine = MultiCameraEngine(model, config, n_streams=4, qparams=qp)
     rng = np.random.RandomState(0)
     before = (ig.launches, ss.launches)
+    arrangements = dict(ig.int8_gemm_arrangements)
     for t in range(3):
         frames = [rng.randint(0, 255, (40, 64, 3), np.uint8) for _ in range(4)]
         frames[2] = None if t == 1 else frames[2]
@@ -493,6 +645,9 @@ def test_multicam_tick_on_the_card_launches_each_kernel_once_per_dense_and_tick(
         assert (out[2] is None) == (t == 1)
         assert all(np.isfinite(r.pixel_count) for r in out if r is not None)
     assert (ig.launches - before[0], ss.launches - before[1]) == (3 * 2, 3)
+    # a tick: the encoder Dense (K = 768) on the tensor cores, the decoder's (K = 8) on CUDA cores
+    assert ig.int8_gemm_arrangements == {"mma": arrangements["mma"] + 3,
+                                         "cuda_core": arrangements["cuda_core"] + 3}
 
 
 # -- the dense-update kernels (csrc/dense_grad_adam.cu) ---------------------------------

@@ -30,7 +30,9 @@ tensors (by reference, in the port's layouts); a quantized Dense is
 the layout of the port's float Dense (``nn.Linear.weight``) and the transpose
 of the JAX tree's (in, out). The reason is the kernel: with (out, in) the
 contraction axis is contiguous in the weights as it is in the activations, so
-a thread's 16-byte load feeds four ``dp4a`` instructions directly; a scale
+the weights are the tensor cores' row-major operand and the activations their
+column-major one as they are stored (on the CUDA-core path a thread's 16-byte
+load feeds four ``dp4a`` instructions directly); a scale
 belongs to a row, so ``quantize_dense_kernel`` works through independent row
 blocks with one pass for each block's row maxima, and never holds float32
 temporaries of the whole kernel. ``bridge.py`` carries the tree to the JAX
@@ -51,7 +53,7 @@ import torch.nn.functional as F
 
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import conv2d_same, normalize_image_input
 from trustedai_cl_vae_ad_tpu_torch.ops.convt import conv_transpose_same
-from trustedai_cl_vae_ad_tpu_torch.ops.int8_gemm import int8_gemm
+from trustedai_cl_vae_ad_tpu_torch.ops.int8_gemm import int8_gemm_chunked
 
 DEFAULT_MIN_ELEMS = 1 << 25
 
@@ -138,12 +140,10 @@ def _int8_partials(x_i8: torch.Tensor, k_i8: torch.Tensor) -> list:
     """The int32 products of the contraction's chunks, in order. The encoder
     Dense contracts over K = 268800, where an all-saturated row (activations
     after a relu are non-negative) could leave int32: the contraction is
-    split into chunks that provably cannot, each one launch of the int8
-    kernel on its range of the full matrices, so the kernel is still read
-    exactly once in total."""
-    k_total = k_i8.shape[1]
-    return [int8_gemm(x_i8, k_i8, s, min(s + _I32_SAFE_K, k_total))
-            for s in range(0, k_total, _I32_SAFE_K)]
+    split into chunks that provably cannot, all computed by one
+    ``int8_gemm_chunked`` call (one launch on the tensor cores), so the
+    kernel is still read exactly once in total."""
+    return list(int8_gemm_chunked(x_i8, k_i8, _I32_SAFE_K).unbind(0))
 
 
 def _rescale(partials: list, sx: torch.Tensor, scale: torch.Tensor,
