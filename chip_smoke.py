@@ -9,19 +9,25 @@ and crash-atomic checkpoints; any failure raises and the script exits non-zero
 without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
-  (b) build: nvcc builds the stream-scorer, the moments, the int8 GEMM (on CUDA
+  (b) build: nvcc builds the stream-scorer (one block a frame and one
+      thread-block cluster a frame), the moments, the int8 GEMM (on CUDA
       cores and on the tensor cores), the dense-update and the convolution
-      weight-gradient kernels (eight sources) from csrc/ into build/, all at once;
-  (c) kernel vs its plain PyTorch version on the card, 8-frame sequences at
-      224x300x3 and 37x53x3 (constant first frame, seeding, converged state),
-      at the tolerances of trustedai_cl_vae_ad_tpu_torch/testing.py, and the
-      median time of each over 100 runs (CUDA events);
+      weight-gradient kernels (nine sources) from csrc/ into build/, all at
+      once, and logs each one's ptxas registers, shared memory and spills;
+  (c) the scorer vs its plain PyTorch version on the card, 8-frame sequences
+      at 224x300x3 and 37x53x3 (constant first frame, seeding, converged
+      state), at the tolerances of trustedai_cl_vae_ad_tpu_torch/testing.py:
+      through stream_score_step (the rule's arrangement, the cluster kernel,
+      one counted launch a frame) and through each arrangement on its own
+      (clusters of 16 and of 8, the one-block kernel); the cluster sizes'
+      cudaOccupancyMaxActiveClusters; the CUDA-event median of 100 and the
+      back-to-back time of each arrangement on the same operands at K = 1;
   (d) a tiny-config engine on cuda vs the same weights on cpu, 16 synthetic
       40x64 frames (the device resize runs);
   (e) the flagship (configs/config.yml, 224x300x3, latent 2000, ~1.34 B
       parameters, seeded random weights) scores 64 synthetic 240x320 frames
-      through stream/run.py, as camera_streamer_torch.py does; the kernel's
-      launch count must equal the frames scored;
+      through stream/run.py, as camera_streamer_torch.py does; the scorer's
+      launches must equal the frames scored, all on the cluster kernel;
   (f) the moments kernels vs their plain PyTorch versions on the card,
       forward and backward, at (256, 2000) float32 and bfloat16, (768, 2000)
       and a ragged (7, 13): rtol 1e-5 on mean and variance, 1e-4 on skew,
@@ -75,10 +81,11 @@ without printing its final line.
       and the back-to-back device time of both arrangements and
       torch._int_mm (x zero-padded to 32 rows, which it needs, a call a chunk)
       at the probe's and the path's shapes, the plain version at the probe's;
-  (n) the batched scorer (one launch over a grid of K = 16 frames with a
-      validity mask) vs the plain batched version at 224x300x3, 8 ticks from
-      mixed start states with some streams dropping ticks, per stream at the
-      tolerances of (c);
+  (n) the batched scorer (one launch for K = 16 frames with a validity mask)
+      vs the plain batched version at 224x300x3, 8 ticks from mixed start
+      states with some streams dropping ticks, per stream at the tolerances
+      of (c), through stream_score_step_batched and through each arrangement;
+      the times of (c) at K = 16;
   (o) a tiny config: the multi-camera engine on cuda vs cpu, K = 3 with one
       stream dropping ticks, float and w8a8 (the int8 GEMM counted by
       arrangement: the encoder's Dense layers on the tensor cores, the
@@ -90,7 +97,7 @@ without printing its final line.
       cameras, one dropping every 4th tick, 64 ticks in float and in w8a8 (the
       int8 GEMM launched once a quantized Dense on the tensor cores, 2 a tick,
       or once a chunk on the CUDA cores, as its rule sends each shape, counted
-      by arrangement; the scorer once a tick), 64 frames on the
+      by arrangement; the scorer once a tick on the cluster kernel), 64 frames on the
       single-stream engine in float and with quantize=True, the quantization
       pass timed, the reconstruction of a fixed batch against the float
       forward; then an int8-checkpoint boot of the same weights from a
@@ -191,12 +198,21 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "trustedai_cl_vae_ad_tpu_torch"
+# kernel 1's two arrangements (ops.stream_score.stream_score_arrangement): the one-block kernel,
+# which takes frames whose slice does not fit a CTA's shared memory, and the cluster kernel, which
+# every frame of the main path takes
 STREAM_KERNEL = {
     "name": "stream_score",
     "route": "cuda",
     "source": f"{PACKAGE}/csrc/stream_score.cu",
     "replaces": "trustedai_cl_vae_ad_tpu/ops/stream_score.py:98",
+    "arrangement": "block",
 }
+STREAM_CLUSTER_KERNEL = dict(STREAM_KERNEL, name="stream_score_cluster", arrangement="cluster",
+                             source=f"{PACKAGE}/csrc/stream_score_cluster.cu")
+# (arrangement, cluster size) of the scorer held against its plain version and timed on the same
+# operands in phases (c) and (n): both cluster sizes the rule may take, and the one-block kernel
+SCORER_VARIANTS = [("cluster", 16), ("cluster", 8), ("block", 1)]
 # kernel 10's two arrangements (ops.int8_gemm.int8_gemm_arrangement): the tensor-core kernel,
 # which the flagship's w8a8 path runs, and the CUDA-core one, which takes operands off the rule
 # (the tiny model's decoder Dense of K = 8 in phase o)
@@ -430,9 +446,68 @@ def moments_entries(kind, record, launches, bwd_launches):
     return [forward, backward]
 
 
+def scorer_bound(k, h, w, c):
+    """(bound_ms, bound_by) of one scorer update of k frames: img and rec read, maps and
+    scalars read and written, norm and [score, count] written; about 3 operations a channel
+    and 30 a pixel."""
+    nbytes = 4 * k * (2 * h * w * c + 2 * 2 * h * w + 2 * 6 + h * w + 2)
+    return bound(nbytes, k * h * w * (3 * c + 30))
+
+
+def forced_scorer(arrangement, clusters):
+    """A single-frame scorer step through the named arrangement, uncounted."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+
+    def step(state, img, rec, alpha):
+        maps, scalars, norm, sc = ss._launch(arrangement, clusters, (), img, rec, state.maps,
+                                             state.scalars, alpha, None)
+        return ss.StreamScoreState(maps, scalars), norm, sc[0], sc[1]
+    return step
+
+
+def scorer_times(launch, plain, k, h, w, c):
+    """The CUDA-event median of 100 and the back-to-back time of each arrangement's launch
+    on the same operands (``launch(arrangement, clusters)``), the plain version's median
+    (of 10 at K > 1) and the bound."""
+    rows = {}
+    for arrangement, clusters in SCORER_VARIANTS:
+        rows[f"{arrangement}{clusters if arrangement == 'cluster' else ''}"] = dict(
+            ms=median_ms(lambda: launch(arrangement, clusters)),
+            device_ms=queued_ms(lambda: launch(arrangement, clusters)))
+    plain_ms = (median_ms(plain) if k == 1 else median_ms(plain, runs=10, warmup=2))
+    bound_ms, bound_by = scorer_bound(k, h, w, c)
+    return rows, dict(plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def scorer_records(rule, errors, rows, common):
+    """The kernels' line records of the two arrangements: the cluster kernel at the size the
+    rule takes, the one-block kernel, each with its error against the plain version."""
+    cluster = f"cluster{rule[1]}"
+    return {"cluster": dict(common, max_abs_err=errors[cluster], clusters=rule[1], **rows[cluster]),
+            "block": dict(common, max_abs_err=errors["block"], **rows["block"]),
+            "variants": rows, "max_abs_err": errors}
+
+
+def log_scorer_times(label, rows, common):
+    for name, row in rows.items():
+        log(f"  {label} {name}: median of 100 {row['ms']:.4f} ms, back to back "
+            f"{row['device_ms']:.4f} ms ({common['bound_ms'] / row['device_ms']:.1%} of the "
+            f"bound {common['bound_ms']:.5f} ms)")
+    log(f"  {label} plain version {common['plain_ms']:.4f} ms")
+
+
+def occupancy_line(ss, hw):
+    """cudaOccupancyMaxActiveClusters and the slice of each cluster size at hw pixels."""
+    return "; ".join(
+        f"C = {clusters}: cudaOccupancyMaxActiveClusters {ss.cluster_occupancy(hw, clusters)}, "
+        f"slice {ss.cluster_slice(hw, clusters)} pixels ({4 * ss.cluster_slice(hw, clusters)} "
+        f"bytes of shared memory a CTA)" for clusters in (16, 8))
+
+
 def phase_c(dev):
-    """Kernel vs the plain version on the card; returns the kernel's record
-    (max_abs_err, ms, plain_ms, its bound)."""
+    """The scorer's arrangements vs the plain version on the card, one frame at a time:
+    through the entry point (the rule's arrangement, counted) and through each of
+    SCORER_VARIANTS; returns the records of both arrangements with their times."""
     import numpy as np
     import torch
 
@@ -452,37 +527,56 @@ def phase_c(dev):
                     norm.cpu().numpy(), float(score), float(count))
         return run
 
-    max_err = 0.0
+    errors = {}
     for h, w, c in SEQ_SHAPES:
+        rule = ss.stream_score_arrangement(1, h * w, c)
+        assert rule[0] == "cluster", (h, w, c, rule)
         for start in STARTS:
             imgs, recs, maps0, scalars0 = score_sequence(h, w, c, 8, seed=h, start=start)
 
             def state0():
                 return ss.StreamScoreState(torch.from_numpy(maps0).to(dev),
                                            torch.from_numpy(scalars0).to(dev))
-            got = run_sequence(step(ss.stream_score_step), state0(), imgs, recs, ALPHA)
             ref = run_sequence(step(ss.stream_score_step_reference), state0(), imgs, recs, ALPHA)
-            err = compare_sequences(got, ref, f"{h}x{w}x{c} {start}")
+            before = (ss.launches, ss.stream_score_arrangements["cluster"])
+            got = run_sequence(step(ss.stream_score_step), state0(), imgs, recs, ALPHA)
+            assert (ss.launches, ss.stream_score_arrangements["cluster"]) == (
+                before[0] + 8, before[1] + 8), "one cluster launch a frame"
+            compare_sequences(got, ref, f"{h}x{w}x{c} {start} entry point")
+            line = []
+            for arrangement, clusters in SCORER_VARIANTS:
+                name = f"{arrangement}{clusters if arrangement == 'cluster' else ''}"
+                forced = run_sequence(step(forced_scorer(arrangement, clusters)), state0(), imgs,
+                                      recs, ALPHA)
+                err = compare_sequences(forced, ref, f"{h}x{w}x{c} {start} {name}")
+                if (h, w, c) == SEQ_SHAPES[0]:
+                    errors[name] = max(errors.get(name, 0.0), err)
+                line.append(f"{name} {err:.3g}")
             counts = [int(o[4]) for o in got]
             dcount = max(abs(g[4] - r[4]) for g, r in zip(got, ref))
             nan = sum(bool(np.isnan(o[3])) for o in got)
-            log(f"  {h}x{w}x{c} {start:9s}: max_abs_err {err:.3g}, counts {counts}, "
-                f"max |count - plain| {dcount:g}, NaN scores {nan}")
-            if (h, w, c) == SEQ_SHAPES[0]:
-                max_err = max(max_err, err)
+            log(f"  {h}x{w}x{c} {start:9s}: rule {rule}, max_abs_err {', '.join(line)}; counts "
+                f"{counts}, max |count - plain| {dcount:g}, NaN scores {nan}")
     h, w, c = SEQ_SHAPES[0]
+    rule = ss.stream_score_arrangement(1, h * w, c)
+    log(f"  {occupancy_line(ss, h * w)}")
+    resources = {name: resource_usage(name) for name in ("stream_score_cluster", "stream_score")}
+    for name, lines in resources.items():
+        assert lines, f"cuobjdump found no kernel in {name}"
+        log(f"  {name}: {'; '.join(lines)}")
     imgs, recs, maps0, scalars0 = score_sequence(h, w, c, 8, seed=1, start="converged")
     state = ss.StreamScoreState(torch.from_numpy(maps0).to(dev), torch.from_numpy(scalars0).to(dev))
     img, rec = torch.from_numpy(imgs[3]).to(dev), torch.from_numpy(recs[3]).to(dev)
-    ms = median_ms(lambda: ss.stream_score_step(state, img, rec, ALPHA))
-    plain_ms = median_ms(lambda: ss.stream_score_step_reference(state, img, rec, ALPHA))
-    device_ms = queued_ms(lambda: ss.stream_score_step(state, img, rec, ALPHA))
-    # img and rec read, maps and scalars read and written, norm and [score,
-    # count] written; about 3 operations a channel and 30 a pixel
-    nbytes = 4 * (2 * h * w * c + 2 * 2 * h * w + 2 * 6 + h * w + 2)
-    bound_ms, bound_by = bound(nbytes, h * w * (3 * c + 30))
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, device_ms=device_ms)
+    rows, common = scorer_times(
+        lambda arrangement, clusters: ss._launch(arrangement, clusters, (), img, rec, state.maps,
+                                                 state.scalars, ALPHA, None),
+        lambda: ss.stream_score_step_reference(state, img, rec, ALPHA), 1, h, w, c)
+    entry_ms = median_ms(lambda: ss.stream_score_step(state, img, rec, ALPHA))
+    log_scorer_times(f"{h}x{w}x{c} K = 1", rows, common)
+    log(f"  {h}x{w}x{c} K = 1 through stream_score_step (rule {rule}): median of 100 "
+        f"{entry_ms:.4f} ms")
+    return dict(scorer_records(rule, errors, rows, common), entry_ms=entry_ms, rule=rule,
+                resources=resources)
 
 
 def phase_d():
@@ -532,9 +626,24 @@ def phase_d():
         f"anomalous {[r.tag for r in b if r.anomalous]}")
 
 
+def reset_scorer_counts(stream_score):
+    stream_score.launches = 0
+    for arrangement in stream_score.stream_score_arrangements:
+        stream_score.stream_score_arrangements[arrangement] = 0
+
+
+def scorer_counts(stream_score, n):
+    """The scorer's launches by arrangement since the reset: n in all, all on the cluster
+    kernel (the rule's for the flagship's 224x300 frames, one and 16 at a time)."""
+    counts = dict(stream_score.stream_score_arrangements)
+    assert stream_score.launches == n and counts == {"cluster": n, "block": 0}, (
+        stream_score.launches, counts, n)
+    return counts
+
+
 def phase_e():
     """The flagship on the card through the CLI's run loop; returns the
-    launches of the scorer kernel and the run's summary."""
+    scorer's launches by arrangement and the run's summary."""
     import torch
 
     from trustedai_cl_vae_ad_tpu_torch.ops import stream_score
@@ -554,13 +663,12 @@ def phase_e():
     engine = build_engine(model, config, anomaly_settings=anomaly_settings)
     source = SyntheticSource(n_frames=64, anomaly_frames=range(40, 44), seed=0)
     results = []
-    stream_score.launches = 0
+    reset_scorer_counts(stream_score)
     summary = run_stream(engine, source, on_result=results.append, log=lambda m: None)
-    launches = stream_score.launches
+    launches = scorer_counts(stream_score, len(results))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     assert summary["frames"] == 64 and len(results) == 64, summary
-    assert launches == len(results), (launches, len(results))
     assert torch.isfinite(engine.score_state.maps).all()
     assert bool(torch.isfinite(engine.score_state.scalars[:2]).all())
     for r in results:
@@ -909,8 +1017,8 @@ def write_replay_file(directory, n=CL_REPLAY):
 
 def phase_l():
     """Continual learning in the live engine at the flagship's size, then one
-    CL step each for the other two types at a tiny size. Returns the scorer
-    kernel's launches of the flagship's CL stream."""
+    CL step each for the other two types at a tiny size. Returns the scorer's
+    launches by arrangement in the flagship's CL stream."""
     import numpy as np
     import torch
 
@@ -972,7 +1080,7 @@ def phase_l():
     assert engine.ring_filled == 8 and engine.cl_epochs == 0
 
     rows = []
-    stream_score.launches = 0
+    reset_scorer_counts(stream_score)
     before = (moments.launches, moments.bwd_launches, moments.perdim_launches,
               moments.perdim_bwd_launches)
     start = 100.0  # later than the warm-up frames' wall clock is early
@@ -982,10 +1090,9 @@ def phase_l():
         on_result=lambda r: rows.append((r, dict(engine.timings))),
         clock=lambda n: start + (n + 1) / CL_FPS, log=lambda m: None)
     torch.cuda.synchronize()
-    launches = stream_score.launches
+    launches = scorer_counts(stream_score, CL_FRAMES)
     peak = torch.cuda.max_memory_allocated()
     assert summary["frames"] == CL_FRAMES and len(rows) == CL_FRAMES, summary
-    assert launches == CL_FRAMES, launches
     stepped = [r.tag for r, _ in rows if r.cl_stepped]
     assert engine.cl_epochs == len(stepped) == 3 == model.optimizer.count, (stepped,
                                                                             engine.cl_epochs)
@@ -1182,8 +1289,9 @@ def phase_m(dev):
 
 
 def phase_n(dev):
-    """The batched scorer kernel (grid = K frames, validity mask) vs the plain
-    batched version, stream by stream; returns its times."""
+    """The batched scorer (one launch for K = 16 frames with a validity mask) vs the plain
+    batched version, stream by stream: through the entry point (counted) and through each
+    of SCORER_VARIANTS; returns the records of both arrangements with their times."""
     import numpy as np
     import torch
 
@@ -1192,6 +1300,8 @@ def phase_n(dev):
 
     k, n_ticks = FLEET_STREAMS, 8
     h, w, c = SEQ_SHAPES[0]
+    rule = ss.stream_score_arrangement(k, h * w, c)
+    assert rule[0] == "cluster", rule
     seqs = [score_sequence(h, w, c, n_ticks, seed=100 + i, start=STARTS[i % 3]) for i in range(k)]
     imgs = np.stack([s[0] for s in seqs], axis=1)  # (ticks, K, H, W, C)
     recs = np.stack([s[1] for s in seqs], axis=1)
@@ -1212,44 +1322,61 @@ def phase_n(dev):
                          sc.cpu().numpy()))
         return outs
 
-    before = ss.launches
-    got = run(ss.stream_score_step_batched)
-    assert ss.launches == before + n_ticks, "one launch per tick"
+    def forced(arrangement, clusters):
+        def fn(maps, scalars, img, rec, alpha, ok):
+            return ss._launch(arrangement, clusters, (img.shape[0],), img, rec, maps, scalars,
+                              alpha, ok)
+        return fn
+
+    def check(got, label):
+        max_err = 0.0
+        for i in range(k):
+            def stream(outs):
+                return [(o[0][i], o[1][i], o[2][i], float(o[3][i, 0]), float(o[3][i, 1]))
+                        for o in outs]
+            max_err = max(max_err, compare_sequences(stream(got), stream(ref),
+                                                     f"{label} stream {i}"))
+            for t in range(n_ticks):
+                if not valid[t, i]:
+                    assert np.isnan(got[t][3][i, 0]) and got[t][3][i, 1] == 0.0, (t, i)
+                    prev = got[t - 1] if t else (np.stack([s[2] for s in seqs]),
+                                                 np.stack([s[3] for s in seqs]))
+                    assert np.array_equal(got[t][0][i], prev[0][i]), "a dropped tick moved maps"
+                    assert np.array_equal(got[t][1][i], prev[1][i]), "a dropped tick moved scalars"
+        return max_err
+
     ref = run(ss.stream_score_step_batched_reference)
-    max_err = 0.0
-    for i in range(k):
-        def stream(outs):
-            return [(o[0][i], o[1][i], o[2][i], float(o[3][i, 0]), float(o[3][i, 1]))
-                    for o in outs]
-        max_err = max(max_err, compare_sequences(stream(got), stream(ref), f"stream {i}"))
-        for t in range(n_ticks):
-            if not valid[t, i]:
-                assert np.isnan(got[t][3][i, 0]) and got[t][3][i, 1] == 0.0, (t, i)
-                prev = got[t - 1] if t else (np.stack([s[2] for s in seqs]),
-                                             np.stack([s[3] for s in seqs]))
-                assert np.array_equal(got[t][0][i], prev[0][i]), "a dropped tick moved the maps"
-                assert np.array_equal(got[t][1][i], prev[1][i]), "a dropped tick moved the scalars"
-    maps = torch.from_numpy(got[3][0]).to(dev)
-    scalars = torch.from_numpy(got[3][1]).to(dev)
+    before = (ss.launches, ss.stream_score_arrangements["cluster"])
+    entry_err = check(run(ss.stream_score_step_batched), "entry point")
+    assert (ss.launches, ss.stream_score_arrangements["cluster"]) == (
+        before[0] + n_ticks, before[1] + n_ticks), "one cluster launch per tick"
+    errors = {}
+    for arrangement, clusters in SCORER_VARIANTS:
+        name = f"{arrangement}{clusters if arrangement == 'cluster' else ''}"
+        errors[name] = check(run(forced(arrangement, clusters)), name)
+    maps = torch.from_numpy(ref[3][0]).to(dev)
+    scalars = torch.from_numpy(ref[3][1]).to(dev)
     img, rec = torch.from_numpy(imgs[4]).to(dev), torch.from_numpy(recs[4]).to(dev)
     ok = torch.from_numpy(valid[4]).to(dev)
-    record = dict(
-        streams=k, max_abs_err=max_err,
-        ms=median_ms(lambda: ss.stream_score_step_batched(maps, scalars, img, rec, ALPHA, ok)),
-        device_ms=queued_ms(lambda: ss.stream_score_step_batched(maps, scalars, img, rec,
-                                                                 ALPHA, ok)),
-        plain_ms=median_ms(lambda: ss.stream_score_step_batched_reference(
-            maps, scalars, img, rec, ALPHA, ok), runs=10, warmup=2))
+    rows, common = scorer_times(
+        lambda arrangement, clusters: forced(arrangement, clusters)(maps, scalars, img, rec,
+                                                                   ALPHA, ok),
+        lambda: ss.stream_score_step_batched_reference(maps, scalars, img, rec, ALPHA, ok),
+        k, h, w, c)
+    entry_ms = median_ms(lambda: ss.stream_score_step_batched(maps, scalars, img, rec, ALPHA, ok))
     expect_raises(lambda: ss.stream_score_step_batched(maps, scalars, img, rec, ALPHA, ok[:4]),
                   ValueError, "a validity mask of another length")
     expect_raises(lambda: ss.stream_score_step_batched(maps, scalars, img, rec, ALPHA,
                                                        ok.float()), ValueError,
                   "a float validity mask")
-    log(f"  K = {k} at {h}x{w}x{c}, {n_ticks} ticks, {int((~valid).sum())} dropped frames: "
-        f"max_abs_err {max_err:.3g} per stream, one launch per tick; kernel "
-        f"{record['ms']:.4f} ms ({record['device_ms']:.4f} ms back to back) for all {k}, plain "
-        f"batched version (median of 10) {record['plain_ms']:.3f} ms")
-    return record
+    log(f"  K = {k} at {h}x{w}x{c}, {n_ticks} ticks, {int((~valid).sum())} dropped frames, rule "
+        f"{rule}: max_abs_err per stream, entry point {entry_err:.3g}, "
+        + ", ".join(f"{name} {err:.3g}" for name, err in errors.items()) + "; one launch a tick")
+    log(f"  {occupancy_line(ss, h * w)}")
+    log_scorer_times(f"K = {k}", rows, common)
+    log(f"  K = {k} through stream_score_step_batched: median of 100 {entry_ms:.4f} ms")
+    return dict(scorer_records(rule, errors, rows, common), streams=k, entry_ms=entry_ms,
+                rule=rule)
 
 
 class DroppingReader:
@@ -1443,7 +1570,8 @@ def phase_p():
     def reset_counts():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        int8_gemm.launches = stream_score.launches = 0
+        int8_gemm.launches = 0
+        reset_scorer_counts(stream_score)
         for arrangement in int8_gemm.int8_gemm_arrangements:
             int8_gemm.int8_gemm_arrangements[arrangement] = 0
 
@@ -1474,6 +1602,7 @@ def phase_p():
         counts = (int8_gemm.launches, stream_score.launches)
         want = int8_counts(int8_per_forward(1), 64 * bool(quantize or qparams))
         assert len(results) == 64 and counts == (sum(want.values()), 64), counts
+        out.setdefault("frame_scorer", []).append(scorer_counts(stream_score, 64))
         assert int8_gemm.int8_gemm_arrangements == want, (int8_gemm.int8_gemm_arrangements, want)
         assert_scores_finite(results, "single stream")
         return summary, torch.cuda.max_memory_allocated(), results
@@ -1485,6 +1614,7 @@ def phase_p():
         reset_counts()
         summary, ticks = run_fleet(engine, n_ticks)
         counts = (int8_gemm.launches, stream_score.launches)
+        out.setdefault("tick_scorer", []).append(scorer_counts(stream_score, n_ticks))
         # the encoder Dense contracts over 268800 = 3 safe chunks, the decoder's over 2000 = 1;
         # on the tensor cores each Dense is one launch
         want = int8_counts(int8_per_forward(FLEET_STREAMS), n_ticks * engine.quantized)
@@ -2132,6 +2262,18 @@ def sass_instructions(library, opcode):
     return [line.split(";")[0].strip() for line in sass.splitlines() if opcode in line]
 
 
+def resource_usage(library):
+    """Registers, shared memory and stack of each kernel of a built library as cuobjdump reads
+    them from the binary (also when an earlier process built it, and no ptxas report is
+    at hand)."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "--dump-resource-usage", str(_build.library_paths[library])],
+                         capture_output=True, text=True, timeout=120, check=True).stdout
+    return [" ".join(line.split()) for line in out.splitlines() if "REG:" in line]
+
+
 def ptxas_report(library):
     from trustedai_cl_vae_ad_tpu_torch.ops import _build
 
@@ -2535,15 +2677,17 @@ def main(argv=None):
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc for each source, started together
         list(pool.map(lambda build: build(),
-                      (stream_score.build, moments.build, int8_gemm.build, int8_gemm.build_mma,
-                       dense_grad_adam.build, dense_grad_adam.build_wgmma, conv_dw.build,
-                       conv_dw.build_wgmma)))
-    log(f"  stream_score, moments, int8_gemm, int8_gemm_mma, dense_grad_adam, dense_grad_wgmma, "
-        f"conv_dw and conv_dw_wgmma built and loaded in {time.perf_counter() - t0:.1f} s")
-    for kernel in ("stream_score", "moments", "int8_gemm", "int8_gemm_mma", "dense_grad_adam",
-                   "dense_grad_wgmma", "conv_dw", "conv_dw_wgmma"):
+                      (stream_score.build, stream_score.build_cluster, moments.build,
+                       int8_gemm.build, int8_gemm.build_mma, dense_grad_adam.build,
+                       dense_grad_adam.build_wgmma, conv_dw.build, conv_dw.build_wgmma)))
+    log(f"  stream_score, stream_score_cluster, moments, int8_gemm, int8_gemm_mma, "
+        f"dense_grad_adam, dense_grad_wgmma, conv_dw and conv_dw_wgmma built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for kernel in ("stream_score", "stream_score_cluster", "moments", "int8_gemm",
+                   "int8_gemm_mma", "dense_grad_adam", "dense_grad_wgmma", "conv_dw",
+                   "conv_dw_wgmma"):
         for line in _build.build_log.get(kernel, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
 
     dev = torch.device("cuda")
@@ -2556,11 +2700,7 @@ def main(argv=None):
             out[phase] = fn()
             log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    run("c", "stream-scorer kernel vs plain version on the card", lambda: phase_c(dev))
-    if "c" in out:
-        log(f"  224x300x3 median of 100: kernel {out['c']['ms']:.4f} ms "
-            f"({out['c']['device_ms']:.4f} ms back to back on a full queue), plain "
-            f"{out['c']['plain_ms']:.4f} ms, bound {out['c']['bound_ms']:.5f} ms")
+    run("c", "stream-scorer kernels vs plain version on the card", lambda: phase_c(dev))
     run("d", "tiny engine: cuda vs cpu", phase_d)
     run("e", "flagship single-stream engine", phase_e)
     run("f", "global moments kernels vs plain versions on the card", lambda: phase_f(dev))
@@ -2575,7 +2715,7 @@ def main(argv=None):
                          bf16_steps=False)])
     run("l", "continual learning in the live engine", phase_l)
     run("m", "int8 GEMM kernel vs plain version on the card", lambda: phase_m(dev))
-    run("n", "batched stream-scorer kernel vs plain batched version", lambda: phase_n(dev))
+    run("n", "batched stream-scorer kernels vs plain batched version", lambda: phase_n(dev))
     run("o", "tiny multi-camera engine: cuda vs cpu, float and w8a8; the int8 sidecar", phase_o)
     run("p", "flagship int8 serving and the multi-camera tick", phase_p)
     run("q", "dense-update kernels vs plain versions on the card", lambda: phase_q(dev))
@@ -2591,7 +2731,8 @@ def main(argv=None):
         return 0
 
     # launches of each kernel on the path that runs it, counted from zero
-    # just before that path: (e) for the scorer, (h) for the global moments,
+    # just before that path: (e) for the scorer by arrangement (and (l)'s CL stream and
+    # (p)'s w8a8 ticks and frames beside it), (h) for the global moments,
     # (k) with KurtosisSingle for the per-dimension moments, (p)'s w8a8
     # multi-camera run for the int8 GEMM's tensor-core arrangement (and the scorer's
     # batched launches; the single-stream w8a8 run's beside it), (o)'s tiny w8a8
@@ -2600,12 +2741,20 @@ def main(argv=None):
     # CUDA-core kernel with conv1's times, its tensor-core kernel with conv2's (and the
     # CUDA-core kernel's on the same operands beside them)
     global_launches, perdim_launches = out["h"], out["k"][0]
-    _, fleet_scorer_launches, fleet_int8 = out["p"]["launches"]
+    _, _, fleet_int8 = out["p"]["launches"]
     frame_int8 = out["p"]["frame_int8_arrangements"]
+
+    def scorer_entry(kernel, arrangement):
+        # (p) runs float, then w8a8, then from the int8 boot: [1] is the w8a8 run
+        return dict(kernel, launches=out["e"][0][arrangement],
+                    launches_cl_stream=out["l"][arrangement],
+                    launches_fleet_ticks=out["p"]["tick_scorer"][1][arrangement],
+                    launches_frames=out["p"]["frame_scorer"][1][arrangement],
+                    batched=out["n"][arrangement], **out["c"][arrangement])
     tiny_int8 = out["o"]["int8_arrangements"]
     print(json.dumps({"kernels": [
-        dict(STREAM_KERNEL, launches=out["e"][0], launches_cl_stream=out["l"],
-             launches_fleet_ticks=fleet_scorer_launches, batched=out["n"], **out["c"]),
+        scorer_entry(STREAM_CLUSTER_KERNEL, "cluster"),
+        scorer_entry(STREAM_KERNEL, "block"),
         dict(INT8_MMA_KERNEL, launches=fleet_int8["mma"], launches_frames=frame_int8["mma"],
              **out["m"]["mma"]),
         dict(INT8_KERNEL, launches=tiny_int8["cuda_core"], launches_fleet_ticks=fleet_int8[

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Bounds of the archived TPU probes' kernels on one H100.
+"""Bounds of the TPU kernels' counterparts on one H100.
 
-For each archived Pallas probe under ``benchmarks/`` (PERF.md's kernel table,
-rows 4-11, all ported) this prints
-the least time an H100 could take for the same work at the shapes the probe
-and ``chip_smoke.py`` use: the larger of the bytes moved once (each input
-read once, each output written once) over the card's memory rate and the
-operations over the card's peak rate for their type. Nothing runs on a
-device: the numbers follow from the shapes and NVIDIA's data sheet (H100 SXM:
+For every row of PERF.md's kernel table (rows 1-11, all ported: the JAX
+package's kernels 1-3 and the archived Pallas probes under ``benchmarks/``)
+this prints the least time an H100 could take for the same work at the shapes
+the main path and ``chip_smoke.py`` use: the larger of the bytes moved once
+(each input read once, each output written once) over the card's memory rate
+and the operations over the card's peak rate for their type. Nothing runs on
+a device: the numbers follow from the shapes and NVIDIA's data sheet (H100 SXM:
 3.35 TB/s, 989 TFLOP/s bf16 dense, 1,979 TOP/s int8 dense, 67 TFLOP/s float32
-outside the tensor cores). Row 3 is included with the bounds that
-``chip_smoke.py`` computes for it; row 10 also at the shapes of the two
+outside the tensor cores). Rows 1-3 count the bytes and operations that
+``chip_smoke.py`` counts for them (row 1 at one frame and at a tick of 16
+cameras of the flagship's 224x300x3); row 10 also at the shapes of the two
 quantized Dense layers of the serving path (1 and 16 frames); rows 4, 6 and 9
 also at the flagship's two dense shapes and rows 4 and 6 in the port's own
 (out, in) layout of the encoder Dense.
@@ -30,7 +31,22 @@ K, M, N = 768, 12800, 4000
 M_FULL = 268800
 DEC = (768, 2000, 134400)  # the flagship's decoder Dense at batch 768
 BF16 = 2
-PORTED = {3, 4, 5, 6, 7, 8, 9, 10, 11}
+PORTED = set(range(1, 12))
+
+
+def stream_score(k, h, w, c):
+    """ops/stream_score.py: img, rec read; maps, scalars read and written; norm and [score,
+    count] written; about 3 operations a channel and 30 a pixel (as chip_smoke.py counts)."""
+    return 4 * k * (2 * h * w * c + 2 * 2 * h * w + 2 * 6 + h * w + 2), k * h * w * (3 * c + 30)
+
+
+def moments(n, cols, backward):
+    """ops/moments.py: z (n, cols) f32 read and the 4 x cols moments written, about 10
+    operations an element; backward: z, the moments and their gradients read, the gradient
+    written, about 14 an element (as chip_smoke.py counts)."""
+    if backward:
+        return 2 * 4 * n * cols + 2 * 4 * 4 * cols, 14 * n * cols
+    return 4 * n * cols + 4 * 4 * cols, 10 * n * cols
 
 
 def fused(k, m, n):
@@ -65,10 +81,18 @@ def rows():
     cw1, cw2 = conv_dw(768, 224, 300, 3, 32), conv_dw(768, 112, 150, 32, 64)
     return [
         # (row, kernel, shapes, bytes, operations, type of the operations)
+        (1, "ops/stream_score.py:98 _stream_kernel", "K=1 224x300x3 f32",
+         *stream_score(1, 224, 300, 3), "f32"),
+        (1, "the same, a tick of 16 cameras", "K=16 224x300x3 f32",
+         *stream_score(16, 224, 300, 3), "f32"),
+        (2, "ops/moments.py:77 _global_kernel forward", "z (256, 2000) f32",
+         *moments(256 * 2000, 1, False), "f32"),
+        (2, "ops/moments.py:174 _global_bwd", "z (256, 2000) f32",
+         *moments(256 * 2000, 1, True), "f32"),
         (3, "ops/moments.py:98 _perdim_kernel forward", "z (256, 2000) f32",
-         4 * 256 * 2000 + 4 * 4 * 2000, 10 * 256 * 2000, "f32"),
+         *moments(256, 2000, False), "f32"),
         (3, "ops/moments.py:210 _perdim_bwd", "z (256, 2000) f32",
-         2 * 4 * 256 * 2000 + 2 * 4 * 4 * 2000, 14 * 256 * 2000, "f32"),
+         *moments(256, 2000, True), "f32"),
         (4, "r11_kernel.py:84 _kernel, enc", f"K={K} M={M_FULL} N={N} bf16",
          *fused(K, M_FULL, N), "bf16"),
         (4, "the same, dec", "K={} M={} N={} bf16".format(*DEC), *fused(*DEC), "bf16"),

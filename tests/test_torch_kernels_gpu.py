@@ -1,4 +1,5 @@
-"""The CUDA kernels (stream scorer, single and batched; global and per-dimension
+"""The CUDA kernels (stream scorer, single and batched, on one block and on one
+thread-block cluster a frame; global and per-dimension
 moments; the int8 GEMM on CUDA cores and on the tensor cores; the six dense-update kernels; the convolution weight
 gradient on CUDA cores and on the tensor cores) vs their plain PyTorch versions
 on the card, and the background checkpoint saver's copy through pinned memory.
@@ -648,6 +649,198 @@ def test_multicam_tick_on_the_card_launches_each_kernel_once_per_dense_and_tick(
     # a tick: the encoder Dense (K = 768) on the tensor cores, the decoder's (K = 8) on CUDA cores
     assert ig.int8_gemm_arrangements == {"mma": arrangements["mma"] + 3,
                                          "cuda_core": arrangements["cuda_core"] + 3}
+
+
+# -- the scorer on one thread-block cluster a frame (csrc/stream_score_cluster.cu) -------------
+
+def _forced_step(arrangement, clusters, dev):
+    """A scorer step through the named arrangement (uncounted), on numpy inputs."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+
+    def fn(state, img, rec, alpha):
+        maps, scalars, norm, sc = ss._launch(arrangement, clusters, (), img, rec, state.maps,
+                                             state.scalars, alpha, None)
+        return ss.StreamScoreState(maps, scalars), norm, sc[0], sc[1]
+    return _step(fn, dev)
+
+
+def _cluster_sequence(dev, hwc, start, clusters, n_frames=8, seed=None):
+    """(got, ref): the cluster kernel at ``clusters`` and the plain version over one sequence."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+
+    h, w, c = hwc
+    imgs, recs, maps0, scalars0 = score_sequence(h, w, c, n_frames, seed=h if seed is None else seed,
+                                                 start=start)
+
+    def state0():
+        return ss.StreamScoreState(torch.from_numpy(maps0).to(dev), torch.from_numpy(scalars0).to(dev))
+
+    got = run_sequence(_forced_step("cluster", clusters, dev), state0(), imgs, recs, 0.99)
+    ref = run_sequence(_step(ss.stream_score_step_reference, dev), state0(), imgs, recs, 0.99)
+    return got, ref
+
+
+@pytest.mark.parametrize("start", STARTS)
+@pytest.mark.parametrize("hwc", [(224, 300, 3), (37, 53, 3)], ids=["224x300", "37x53"])
+@pytest.mark.parametrize("clusters", [8, 16], ids=["C8", "C16"])
+def test_cluster_kernel_matches_plain_version(cuda_device, clusters, hwc, start):
+    """Both cluster sizes, all three starts, at the tolerances of testing.py."""
+    got, ref = _cluster_sequence(cuda_device, hwc, start, clusters)
+    compare_sequences(got, ref, f"C={clusters} {hwc} {start}")
+    if start == "constant":
+        assert got[0][4] == 0.0 and np.isnan(got[0][3])
+
+
+def test_the_flagship_frame_takes_the_cluster_kernel_once_a_frame(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+
+    rule = ss.stream_score_arrangement(1, 224 * 300, 3)
+    assert rule[0] == "cluster"
+    state = ss.init_state(224, 300, cuda_device)
+    img = torch.rand(224, 300, 3, device=cuda_device)
+    before = (ss.launches, dict(ss.stream_score_arrangements))
+    for _ in range(3):
+        state, *_ = ss.stream_score_step(state, img, img * 0.5, 0.99)
+    assert ss.launches == before[0] + 3
+    assert ss.stream_score_arrangements == {"cluster": before[1]["cluster"] + 3,
+                                            "block": before[1]["block"]}
+    assert ss.cluster_occupancy(224 * 300, rule[1]) > 0
+
+
+# (H, W, C): H*W not a multiple of 8 or 16, frames smaller than C * 32 pixels (some ranks own
+# no pixel), one and four channels (the scalar loads of the HWC image)
+CLUSTER_RAGGED = [(13, 17, 3), (5, 7, 3), (1, 3, 3), (16, 16, 1), (9, 11, 4), (37, 53, 1)]
+
+
+@pytest.mark.parametrize("hwc", CLUSTER_RAGGED, ids=["x".join(map(str, s)) for s in CLUSTER_RAGGED])
+@pytest.mark.parametrize("clusters", [8, 16], ids=["C8", "C16"])
+def test_cluster_kernel_on_ragged_and_tiny_frames(cuda_device, clusters, hwc):
+    for start in STARTS:
+        got, ref = _cluster_sequence(cuda_device, hwc, start, clusters, n_frames=6)
+        compare_sequences(got, ref, f"C={clusters} {hwc} {start}")
+
+
+@pytest.mark.parametrize("clusters", [8, 16], ids=["C8", "C16"])
+def test_cluster_kernel_propagates_a_nan_pixel_as_the_plain_version(cuda_device, clusters):
+    """A NaN in one pixel makes err's min and max NaN, and with them the EMA min / max and the
+    whole norm map; the pixel's EMAs turn NaN, and z's mean with them, so the count is 0."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+
+    h, w, c = 37, 53, 3
+    imgs, recs, maps0, scalars0 = score_sequence(h, w, c, 3, seed=5, start="converged")
+    imgs[1, 20, 30, 1] = np.nan
+
+    def state0():
+        return ss.StreamScoreState(torch.from_numpy(maps0).to(cuda_device),
+                                   torch.from_numpy(scalars0).to(cuda_device))
+
+    got = run_sequence(_forced_step("cluster", clusters, cuda_device), state0(), imgs, recs, 0.99)
+    ref = run_sequence(_step(ss.stream_score_step_reference, cuda_device), state0(), imgs, recs,
+                       0.99)
+    maps, scalars, norm, score, count = got[1]
+    assert np.isnan(scalars[0]) and np.isnan(scalars[1])
+    assert np.isnan(maps).sum() == 2 and np.isnan(maps[:, 20, 30]).all()
+    for g, r in zip(got[1], ref[1]):
+        np.testing.assert_array_equal(np.isnan(np.asarray(g)), np.isnan(np.asarray(r)))
+    assert count == ref[1][4] == 0.0
+    np.testing.assert_allclose(score, ref[1][3], rtol=1e-4)
+    compare_sequences(got[:1], ref[:1], "before the NaN")
+
+
+@pytest.mark.parametrize("k", [1, 16, 33], ids=["K1", "K16", "K33"])
+def test_cluster_kernel_batched_with_a_validity_mask(cuda_device, k):
+    """K frames in one launch (33 clusters of 16 are more than one wave), with the mask
+    pattern of test_batched_kernel_matches_plain_batched_version; a dropped frame keeps its
+    state bit for bit and reports NaN and 0."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+
+    h, w, c = 224, 300, 3
+    n_ticks = 4
+    seqs = [score_sequence(h, w, c, n_ticks, seed=10 + i, start=STARTS[i % 3]) for i in range(k)]
+    valid = np.ones((n_ticks, k), bool)
+    valid[0, 1 % k] = valid[2, 3 % k] = valid[3, 3 % k] = False
+    valid[:, 4 % k] = False if k > 4 else valid[:, 4 % k]
+
+    def run(fn):
+        maps = torch.from_numpy(np.stack([s[2] for s in seqs])).to(cuda_device)
+        scalars = torch.from_numpy(np.stack([s[3] for s in seqs])).to(cuda_device)
+        outs = []
+        for t in range(n_ticks):
+            img = torch.from_numpy(np.stack([s[0][t] for s in seqs])).to(cuda_device)
+            rec = torch.from_numpy(np.stack([s[1][t] for s in seqs])).to(cuda_device)
+            prev = (maps, scalars)
+            maps, scalars, norm, sc = fn(maps, scalars, img, rec, 0.99,
+                                         torch.from_numpy(valid[t]).to(cuda_device))
+            for i in np.flatnonzero(~valid[t]):
+                assert torch.equal(maps[i], prev[0][i]) and torch.equal(scalars[i], prev[1][i])
+                assert bool(torch.isnan(sc[i, 0])) and float(sc[i, 1]) == 0.0
+            outs.append((maps.cpu().numpy(), scalars.cpu().numpy(), norm.cpu().numpy(),
+                         sc.cpu().numpy()))
+        return outs
+
+    assert ss.stream_score_arrangement(k, h * w, c)[0] == "cluster"
+    before = (ss.launches, ss.stream_score_arrangements["cluster"])
+    got = run(ss.stream_score_step_batched)
+    assert (ss.launches, ss.stream_score_arrangements["cluster"]) == (before[0] + n_ticks,
+                                                                      before[1] + n_ticks)
+    ref = run(ss.stream_score_step_batched_reference)
+    for i in range(k):
+        def stream(outs):
+            return [(o[0][i], o[1][i], o[2][i], float(o[3][i, 0]), float(o[3][i, 1]))
+                    for o in outs]
+        compare_sequences(stream(got), stream(ref), f"K={k} stream {i}")
+
+
+@pytest.mark.parametrize("clusters", [8, 16], ids=["C8", "C16"])
+def test_two_cluster_runs_give_equal_bits(cuda_device, clusters):
+    got, _ = _cluster_sequence(cuda_device, (224, 300, 3), "converged", clusters)
+    again, _ = _cluster_sequence(cuda_device, (224, 300, 3), "converged", clusters)
+    for a, b in zip(got, again):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_a_frame_the_rule_sends_to_block_takes_it(cuda_device):
+    """A 1080p frame's slice (518 KB at C = 16) does not fit a CTA: the one-block kernel."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+
+    h, w, c = 1080, 1920, 3
+    assert ss.stream_score_arrangement(1, h * w, c) == ("block", 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    img = torch.rand((h, w, c), device=cuda_device, generator=gen)
+    rec = torch.rand((h, w, c), device=cuda_device, generator=gen)
+    state = ss.StreamScoreState(torch.full((2, h, w), 0.3, device=cuda_device),
+                                torch.tensor([0.0, 1.0, 1.0, 2.0, 1.0, 0.0], device=cuda_device))
+    before = (ss.launches, dict(ss.stream_score_arrangements))
+    got = ss.stream_score_step(state, img, rec, 0.99)
+    assert ss.launches == before[0] + 1
+    assert ss.stream_score_arrangements == {"cluster": before[1]["cluster"],
+                                            "block": before[1]["block"] + 1}
+    ref = ss.stream_score_step_reference(state, img, rec, 0.99)
+    torch.testing.assert_close(got[0].maps, ref[0].maps, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-6)
+    assert abs(float(got[3]) - float(ref[3])) <= 2
+
+
+@pytest.mark.parametrize("clusters, hwc", [(32, (37, 53, 3)), (8, (1080, 1920, 3))],
+                         ids=["cluster-of-32", "slice-past-shared-memory"])
+def test_a_cluster_launch_the_card_refuses_raises(cuda_device, clusters, hwc):
+    """A cluster larger than Hopper's (and the kernel's) 16, or a slice larger than a CTA's
+    shared memory, is refused: RuntimeError naming the error, no result, and the next launch
+    is unaffected."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+
+    h, w, c = hwc
+    img = torch.rand((h, w, c), device=cuda_device)
+    state = ss.init_state(h, w, cuda_device)
+    before = (ss.launches, dict(ss.stream_score_arrangements))
+    with pytest.raises(RuntimeError, match="stream_score \\(cluster\\)"):
+        ss._launch("cluster", clusters, (), img, img, state.maps, state.scalars, 0.99, None)
+    assert (ss.launches, ss.stream_score_arrangements) == before
+    small = torch.rand((37, 53, 3), device=cuda_device)
+    out = ss.stream_score_step(ss.init_state(37, 53, cuda_device), small, small * 0.5, 0.99)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out[0].maps).all())
 
 
 # -- the dense-update kernels (csrc/dense_grad_adam.cu) ---------------------------------

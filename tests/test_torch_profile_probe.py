@@ -67,8 +67,11 @@ def test_kernel_bounds_follow_from_the_shapes():
     import kernel_bounds_torch as kb
 
     table = kb.bounds()
-    assert sorted({r["row"] for r in table}) == list(range(3, 12))
+    assert sorted({r["row"] for r in table}) == list(range(1, 12))
     by_kernel = {r["kernel"]: r for r in table}
+    frame = by_kernel["ops/stream_score.py:98 _stream_kernel"]
+    assert frame["bytes"] == 4 * (2 * 67200 * 3 + 4 * 67200 + 12 + 67200 + 2)
+    assert frame["bound_by"] == "bytes"
     fwd = by_kernel["ops/moments.py:98 _perdim_kernel forward"]
     assert fwd["bytes"] == 2_048_000 + 32_000 and fwd["bound_by"] == "bytes"
     assert abs(fwd["bound_ms"] - 2_080_000 / 3.35e12 * 1e3) < 1e-12

@@ -17,17 +17,23 @@ State layout, as in the JAX package:
   scalars: (6,) float32 — [err_min_ema, err_max_ema, count_ema, count_sq_ema,
                            initialized, unused]
 
-On a CUDA tensor ``stream_score_step`` launches the hand-written kernel
-``csrc/stream_score.cu`` (which replaces the TPU's Pallas ``_stream_kernel``;
-the source's header says what bounds it and how its design answers). On a
+On a CUDA tensor ``stream_score_step`` launches one of two hand-written
+kernels that replace the TPU's Pallas ``_stream_kernel``, as
+``stream_score_arrangement`` picks from the shape alone:
+``csrc/stream_score_cluster.cu`` (one thread-block cluster of C CTAs a frame,
+the frame-wide reductions joined through distributed shared memory) for
+every frame whose slice of H*W/C pixels fits a CTA's shared memory, and
+``csrc/stream_score.cu`` (one 1024-thread block a frame) for larger ones.
+Each source's header says what bounds it and how its design answers. A
+launch the card refuses raises; nothing falls back to the other kernel. On a
 CPU tensor it runs ``stream_score_step_reference``, the plain PyTorch
-version, which is also what the kernel is checked against on the card.
+version, which is also what the kernels are checked against on the card.
 
 ``stream_score_step_batched`` is the multi-camera tick's form: K frames with
 a state each (maps (K, 2, H, W), scalars (K, 6)) and a validity mask, ONE
-launch of the same kernel with a grid of K blocks on the card, a loop over
-the plain version on the CPU. A stream whose frame is not valid keeps its
-state and reports score NaN and count 0.
+launch of the same kernel for all K frames on the card, a loop over the
+plain version on the CPU. A stream whose frame is not valid keeps its state
+and reports score NaN and count 0.
 """
 
 from __future__ import annotations
@@ -37,11 +43,29 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-#: launches of the CUDA kernel in this process (the plain version does not count)
+#: launches of the CUDA kernels in this process (the plain version does not count)
 launches = 0
+#: launches by arrangement (each is also one of ``launches``)
+stream_score_arrangements = {"cluster": 0, "block": 0}
+
+#: shared memory a CTA of the cluster kernel may give its slice of the frame (one float a
+#: pixel): the 227 KB (232,448 bytes) a Hopper block can use, less 1 KB kept for the static
+#: scratch of the reductions (under 400 bytes)
+SLICE_BUDGET_BYTES = 232448 - 1024
+#: pixels a thread of the cluster kernel takes at a time; every slice starts on a multiple
+SLICE_GROUP = 4
+#: cluster sizes the rule takes: 8 is the portable size, 16 the largest Hopper allows
+#: (non-portable)
+CLUSTER_SIZES = (8, 16)
+#: the H100 SXM's SMs: K clusters of 16 are all resident at one CTA an SM while 16 K <= 132
+SMS = 132
+#: frames of one launch of the cluster kernel: the grid's y limit
+MAX_CLUSTER_FRAMES = 65535
 
 _LIB_NAME = "stream_score"
+_CLUSTER_LIB_NAME = "stream_score_cluster"
 _lib = None
+_cluster_lib = None
 
 
 class StreamScoreState(NamedTuple):
@@ -71,6 +95,79 @@ def build():
         lib.stream_score_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def build_cluster():
+    """Compile (first call) and load the cluster kernel; returns the library."""
+    global _cluster_lib
+    if _cluster_lib is None:
+        from trustedai_cl_vae_ad_tpu_torch.ops._build import load_library
+
+        lib = load_library(_CLUSTER_LIB_NAME)
+        p = ctypes.c_void_p
+        lib.stream_score_cluster_launch.argtypes = [
+            p, p, p, p, ctypes.c_float, p, p, p, p, p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        lib.stream_score_cluster_launch.restype = ctypes.c_int
+        lib.stream_score_cluster_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                       ctypes.POINTER(ctypes.c_int)]
+        lib.stream_score_cluster_occupancy.restype = ctypes.c_int
+        lib.stream_score_cluster_error_string.argtypes = [ctypes.c_int]
+        lib.stream_score_cluster_error_string.restype = ctypes.c_char_p
+        _cluster_lib = lib
+    return _cluster_lib
+
+
+def cluster_slice(hw: int, clusters: int) -> int:
+    """Pixels a rank of a cluster of ``clusters`` CTAs owns (the last ranks may own
+    fewer, or none): ceil(hw / clusters) rounded up to a multiple of ``SLICE_GROUP``, as
+    ``csrc/stream_score_cluster.cu::slice_pixels`` computes it."""
+    per_rank = -(-int(hw) // int(clusters))
+    return -(-per_rank // SLICE_GROUP) * SLICE_GROUP
+
+
+def cluster_preference(k: int) -> Tuple[int, ...]:
+    """The cluster sizes for a launch of ``k`` frames, best first: 16 while the k clusters of
+    16 fit the card's SMs at one CTA each (a frame then spreads over twice the SMs), else 8
+    (clusters of 16 would queue behind the resident ones: an H100 holds 14 of them at once,
+    30 of 8). PERF.md's row 1 has both sizes' times at K = 1 and K = 16."""
+    return (16, 8) if 16 * int(k) <= SMS else (8, 16)
+
+
+def stream_score_arrangement(k: int, hw: int, c: int) -> Tuple[str, int]:
+    """Which kernel a launch over ``k`` frames of ``hw`` pixels and ``c`` channels takes
+    on the card, by shape alone: ``("cluster", C)`` (``csrc/stream_score_cluster.cu``,
+    one cluster of C CTAs a frame) with the first C of ``cluster_preference(k)`` whose slice
+    of ``cluster_slice(hw, C)`` floats fits ``SLICE_BUDGET_BYTES``, for at most
+    ``MAX_CLUSTER_FRAMES`` frames; else ``("block", 1)`` (``csrc/stream_score.cu``, one
+    block a frame). 224x300, 240x320 and 480x640 take the cluster kernel; a 1080p frame
+    (2,073,600 pixels, 518 KB a slice at C = 16) takes the block kernel."""
+    if int(k) < 1 or int(hw) < 1 or int(c) < 1:
+        raise ValueError(f"no frames to score: k={k}, hw={hw}, c={c}")
+    if int(k) <= MAX_CLUSTER_FRAMES:
+        for clusters in cluster_preference(k):
+            if 4 * cluster_slice(hw, clusters) <= SLICE_BUDGET_BYTES:
+                return "cluster", clusters
+    return "block", 1
+
+
+def build_for(k: int, hw: int, c: int):
+    """Compile (first call) and load the kernel ``stream_score_arrangement`` picks for
+    this shape; returns its library."""
+    return build_cluster() if stream_score_arrangement(k, hw, c)[0] == "cluster" else build()
+
+
+def cluster_occupancy(hw: int, clusters: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster kernel for frames of ``hw``
+    pixels on clusters of ``clusters`` CTAs, on the current CUDA device (builds the
+    kernel; raises what the card refuses)."""
+    lib = build_cluster()
+    active = ctypes.c_int(0)
+    rc = lib.stream_score_cluster_occupancy(int(hw), int(clusters), ctypes.byref(active))
+    if rc != 0:
+        raise RuntimeError(f"stream_score cluster occupancy query failed: "
+                           f"{lib.stream_score_cluster_error_string(rc).decode()}")
+    return active.value
 
 
 def stream_score_step_reference(state: StreamScoreState, img: torch.Tensor,
@@ -133,11 +230,12 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(lead, img, rec, maps, scalars, alpha: float, valid):
-    """One launch of the kernel over ``lead`` = () (one frame) or (K,) frames;
-    the tensors are checked here. ``valid``: None, or a (K,) bool tensor."""
-    global launches
-    lib = build()
+def _launch(arrangement: str, clusters: int, lead, img, rec, maps, scalars, alpha: float,
+            valid):
+    """One launch of the named kernel (clusters of ``clusters`` CTAs for "cluster",
+    ignored for "block") over ``lead`` = () (one frame) or (K,) frames; the tensors are
+    checked here. ``valid``: None, or a (K,) bool tensor. Counts nothing; returns the
+    outputs."""
     h, w, c = img.shape[-3:]
     dev = img.device
     _check("img", img, (*lead, h, w, c), dev)
@@ -148,23 +246,46 @@ def _launch(lead, img, rec, maps, scalars, alpha: float, valid):
     out_scalars = torch.empty((*lead, 6), dtype=torch.float32, device=dev)
     norm = torch.empty((*lead, h, w), dtype=torch.float32, device=dev)
     score_count = torch.empty((*lead, 2), dtype=torch.float32, device=dev)
-    zbuf = torch.empty((*lead, h, w), dtype=torch.float32, device=dev)
+    k = lead[0] if lead else 1
+    valid_ptr = None if valid is None else valid.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.stream_score_launch(
-            img.data_ptr(), rec.data_ptr(), maps.data_ptr(), scalars.data_ptr(),
-            float(alpha), out_maps.data_ptr(), out_scalars.data_ptr(), norm.data_ptr(),
-            score_count.data_ptr(), zbuf.data_ptr(),
-            None if valid is None else valid.data_ptr(), lead[0] if lead else 1, h * w, c, stream)
+        if arrangement == "cluster":
+            lib = build_cluster()
+            error = lib.stream_score_cluster_error_string
+            rc = lib.stream_score_cluster_launch(
+                img.data_ptr(), rec.data_ptr(), maps.data_ptr(), scalars.data_ptr(),
+                float(alpha), out_maps.data_ptr(), out_scalars.data_ptr(), norm.data_ptr(),
+                score_count.data_ptr(), valid_ptr, k, h * w, c, int(clusters), stream)
+        elif arrangement == "block":
+            lib = build()
+            error = lib.stream_score_error_string
+            zbuf = torch.empty((*lead, h, w), dtype=torch.float32, device=dev)
+            rc = lib.stream_score_launch(
+                img.data_ptr(), rec.data_ptr(), maps.data_ptr(), scalars.data_ptr(),
+                float(alpha), out_maps.data_ptr(), out_scalars.data_ptr(), norm.data_ptr(),
+                score_count.data_ptr(), zbuf.data_ptr(), valid_ptr, k, h * w, c, stream)
+        else:
+            raise ValueError(f"unknown arrangement {arrangement!r}")
     if rc != 0:
-        raise RuntimeError(
-            f"stream_score kernel launch failed: {lib.stream_score_error_string(rc).decode()}")
-    launches += 1
+        raise RuntimeError(f"stream_score ({arrangement}) kernel launch failed: "
+                           f"{error(rc).decode()}")
     return out_maps, out_scalars, norm, score_count
 
 
+def _launch_by_rule(lead, img, rec, maps, scalars, alpha: float, valid):
+    """Launch the arrangement the rule picks for this shape and count the launch."""
+    global launches
+    h, w, c = img.shape[-3:]
+    arrangement, clusters = stream_score_arrangement(lead[0] if lead else 1, h * w, c)
+    out = _launch(arrangement, clusters, lead, img, rec, maps, scalars, alpha, valid)
+    launches += 1
+    stream_score_arrangements[arrangement] += 1
+    return out
+
+
 def _stream_cuda(state: StreamScoreState, img: torch.Tensor, rec: torch.Tensor, alpha: float):
-    out_maps, out_scalars, norm, score_count = _launch(
+    out_maps, out_scalars, norm, score_count = _launch_by_rule(
         (), img, rec, state.maps, state.scalars, alpha, None)
     return StreamScoreState(out_maps, out_scalars), norm, score_count[0], score_count[1]
 
@@ -175,8 +296,8 @@ def stream_score_step(state: StreamScoreState, img: torch.Tensor, rec: torch.Ten
     """One scorer update. img/rec: (H, W, C) f32 in [0, 1]; alpha: EMA weight
     (a Python float). Returns (new_state, norm_err_map, score, pixel_count).
 
-    CUDA tensors go through the kernel (or raise); CPU tensors through the
-    plain version."""
+    CUDA tensors go through the kernel ``stream_score_arrangement`` picks (or
+    raise); CPU tensors through the plain version."""
     if img.device.type == "cuda":
         return _stream_cuda(state, img, rec, alpha)
     if img.device.type != "cpu":
@@ -212,8 +333,8 @@ def stream_score_step_batched(maps: torch.Tensor, scalars: torch.Tensor, img: to
     float. Returns (new maps, new scalars, norm maps (K, H, W), [score,
     count] (K, 2)).
 
-    CUDA tensors go through the kernel, one launch for all K (or raise); CPU
-    tensors through the plain version."""
+    CUDA tensors go through the kernel ``stream_score_arrangement`` picks, one
+    launch for all K (or raise); CPU tensors through the plain version."""
     if img.dim() != 4:
         raise ValueError(f"img must be (K, H, W, C), got shape {tuple(img.shape)}")
     if valid.dtype != torch.bool or valid.device != img.device \
@@ -221,7 +342,7 @@ def stream_score_step_batched(maps: torch.Tensor, scalars: torch.Tensor, img: to
         raise ValueError(f"valid must be a contiguous bool tensor of shape ({img.shape[0]},) on "
                          f"{img.device}, got {valid.dtype} {tuple(valid.shape)} on {valid.device}")
     if img.device.type == "cuda":
-        return _launch((img.shape[0],), img, rec, maps, scalars, alpha, valid)
+        return _launch_by_rule((img.shape[0],), img, rec, maps, scalars, alpha, valid)
     if img.device.type != "cpu":
         raise ValueError(f"stream_score_step_batched supports cuda and cpu tensors, "
                          f"got {img.device}")

@@ -258,7 +258,7 @@ class StreamingEngine:
         shape = tuple(frame_shape) if frame_shape is not None else (
             self.height, self.width, self.channels)
         if self.device.type == "cuda":
-            stream_score.build()
+            stream_score.build_for(1, self.height * self.width, self.channels)
         ring = torch.zeros_like(self.ring)
         state = stream_score.init_state(self.height, self.width, self.device)
         with torch.inference_mode():
