@@ -10,10 +10,11 @@ without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
   (b) build: nvcc builds the stream-scorer (one block a frame and one
-      thread-block cluster a frame), the moments, the int8 GEMM (on CUDA
-      cores and on the tensor cores), the dense-update and the convolution
-      weight-gradient kernels (nine sources) from csrc/ into build/, all at
-      once, and logs each one's ptxas registers, shared memory and spills;
+      thread-block cluster a frame), the moments (on thread-block clusters,
+      and moments.cu's blocks), the int8 GEMM (on CUDA cores and on the
+      tensor cores), the dense-update and the convolution weight-gradient
+      kernels (ten sources) from csrc/ into build/, all at once, and logs
+      each one's ptxas registers, shared memory and spills;
   (c) the scorer vs its plain PyTorch version on the card, 8-frame sequences
       at 224x300x3 and 37x53x3 (constant first frame, seeding, converged
       state), at the tolerances of trustedai_cl_vae_ad_tpu_torch/testing.py:
@@ -28,13 +29,20 @@ without printing its final line.
       parameters, seeded random weights) scores 64 synthetic 240x320 frames
       through stream/run.py, as camera_streamer_torch.py does; the scorer's
       launches must equal the frames scored, all on the cluster kernel;
-  (f) the moments kernels vs their plain PyTorch versions on the card,
-      forward and backward, at (256, 2000) float32 and bfloat16, (768, 2000)
-      and a ragged (7, 13): rtol 1e-5 on mean and variance, 1e-4 on skew,
-      kurtosis and the gradient (the order of the sums differs), each with
-      an absolute floor for values that are differences of large sums; a
-      constant input; two runs equal bit for bit; and the median time of
-      each over 100 runs (CUDA events);
+  (f) the global moments kernels of both arrangements (the cluster kernels
+      of csrc/moments_cluster.cu, which every CUDA tensor takes, and
+      csrc/moments.cu by name) vs their plain PyTorch versions on the card,
+      forward and backward, at (256, 2000) float32 and bfloat16 (staged),
+      (768, 2000) float32 (streamed), a ragged (7, 13) and views off 16
+      bytes: rtol 1e-5 on mean and variance, 1e-4 on skew, kurtosis and the
+      gradient (the order of the sums differs), each with an absolute floor
+      for values that are differences of large sums; a constant input; two
+      runs equal bit for bit, staged and streamed equal, the backward equal
+      to moments.cu's bit for bit; launches the source refuses raise;
+      registers, shared memory and cudaOccupancyMaxActiveClusters; the
+      CUDA-event median of 100 and the back-to-back time of each arrangement
+      on the same operands, taken twice in turns; the back-to-back time of
+      both at a tiny (7, 13), and of the flagship's z staged and streamed;
   (g) a tiny config takes 3 training steps on cuda and, from the same
       weights, batches and latent noise, on cpu: loss dicts at rtol 1e-4 /
       atol 1e-6, parameters within 5% of what three Adam steps can move them
@@ -44,17 +52,20 @@ without printing its final line.
       the device resize runs, 256 validation frames), one epoch, float32,
       load_data -> train_model into a temporary log directory; the losses
       are finite and fall, the moments kernels were launched once per step,
+      all on the cluster kernels and none on moments.cu,
       and the checkpoint reloads to the same validation loss. Then the
       combined train + score step (train/bench_step.py) in bfloat16 with
       adam_lean: 5 warm-up and 10 timed steps. (2 training batches here; the
       two phases below run the same path.)
-  (i) the per-dimension moments kernels vs their plain PyTorch versions on
-      the card, column by column, forward and backward: (256, 2000) float32
-      and bfloat16, a ragged (37, 53), a batch of 1, a constant column among
-      random ones, views that are not 16-byte (float32) or 4-byte (bfloat16)
-      aligned; tolerances as in (f); two runs equal bit for bit; through
-      autograd with the variance row unused; bad inputs raise; and the
-      median time of each over 100 runs (CUDA events);
+  (i) the per-dimension moments kernels of both arrangements vs their plain
+      PyTorch versions on the card, column by column, forward and backward:
+      (256, 2000) float32 and bfloat16, (768, 2000) float32, a ragged
+      (37, 53), a batch of 1, a constant column among random ones, views
+      that are not 16-byte aligned, an odd bfloat16 width, every cluster size
+      the rule can take; tolerances as in (f); two runs equal bit for bit,
+      staged and streamed equal, the backward equal to moments.cu's; through
+      autograd with the variance row unused; bad inputs and refused
+      arrangements raise; the times of (f) at (256, 2000) float32;
   (j) phase (g) for KurtosisSingle and KLGaussian;
   (k) phase (h) with model.type KurtosisSingle (3 training batches; the
       per-dimension kernels are launched once per step and the global ones
@@ -268,7 +279,13 @@ CONV_DW_ONE_HOT = [((1, 4, 150, 32, 64), (0, 0, 0, 0), (0, 0, 0, 0)),
                    ((2, 112, 150, 32, 64), (1, 111, 149, 31), (1, 55, 74, 63))]
 CONV_DW_BATCH, CONV_DW_BLOCK = 768, 32
 R18_BATCH, R18_WARMUP, R18_STEPS = 256, 3, 10
-MOMENTS_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/moments.cu"}
+# kernels 2 and 3's two arrangements: the cluster kernels, which every CUDA tensor takes, and
+# csrc/moments.cu, the yardstick they are checked and timed against (only by name)
+MOMENTS_SOURCES = {
+    "cluster": {"route": "cuda", "source": f"{PACKAGE}/csrc/moments_cluster.cu",
+                "arrangement": "cluster"},
+    "blocks": {"route": "cuda", "source": f"{PACKAGE}/csrc/moments.cu", "arrangement": "blocks"},
+}
 JAX_MOMENTS = "trustedai_cl_vae_ad_tpu/ops/moments.py"
 MOMENTS_KERNELS = {
     "global": (f"{JAX_MOMENTS}:77", f"{JAX_MOMENTS}:174"),
@@ -298,11 +315,14 @@ PROBE_SHAPE = (32, 268800, 4096)  # benchmarks/r4_int8_gemm.py:81
 # (M, K, N) of the two quantized Dense layers on the multi-camera and the single-stream path
 PATH_SHAPES = [(16, 268800, 4000), (1, 268800, 4000), (16, 2000, 134400), (1, 2000, 134400)]
 FLEET_STREAMS, FLEET_TICKS, DROP_EVERY = 16, 64, 4
-MOMENT_SHAPES = [((256, 2000), "float32"), ((256, 2000), "bfloat16"), ((768, 2000), "float32"),
-                 ((7, 13), "float32"), ((7, 13), "bfloat16")]
+# (shape, dtype, elements the view starts into its allocation): the flagship in both types
+# (staged), (768, 2000) float32 (streamed), ragged ones, and views off 16 bytes
+MOMENT_SHAPES = [((256, 2000), "float32", 0), ((256, 2000), "bfloat16", 0),
+                 ((768, 2000), "float32", 0), ((7, 13), "float32", 0), ((7, 13), "bfloat16", 0),
+                 ((10, 100), "float32", 1), ((37, 53), "bfloat16", 1)]
 GRAD_WEIGHTS = (0.3, -0.7, 1.1, 0.9)
-PERDIM_SHAPES = [((256, 2000), "float32"), ((256, 2000), "bfloat16"), ((37, 53), "float32"),
-                 ((37, 53), "bfloat16"), ((1, 53), "float32")]
+PERDIM_SHAPES = [((256, 2000), "float32"), ((256, 2000), "bfloat16"), ((768, 2000), "float32"),
+                 ((37, 53), "float32"), ((37, 53), "bfloat16"), ((1, 53), "float32")]
 VAL_STEPS, BATCH = 1, 256
 CL_FRAMES, CL_FPS, CL_PERIOD_MS, CL_REPLAY = 64, 20.0, 1000.0, 8
 # phases (d) and (g); every optimized loss term takes part
@@ -397,53 +417,104 @@ def queued_ms(fn, runs=100):
     return start.elapsed_time(end) / runs
 
 
-def time_moments(z, out, gout, forward, plain_forward, backward, plain_backward, library):
-    """Times and bounds of a moments kernel pair at z's shape: CUDA-event
-    medians of 100, the back-to-back device times, the plain versions, and
-    the one PyTorch call that computes half of the forward."""
-    record = {
-        "ms": median_ms(lambda: forward(z)),
-        "plain_ms": median_ms(lambda: plain_forward(z)),
-        "device_ms": queued_ms(lambda: forward(z)),
-        "bwd_ms": median_ms(lambda: backward(z, out, gout)),
-        "bwd_device_ms": queued_ms(lambda: backward(z, out, gout)),
-        "plain_bwd_ms": median_ms(lambda: plain_backward(z, out, gout)),
-        "library_ms": median_ms(lambda: library(z)),
-    }
-    n, size = z.numel(), z.element_size()
-    # forward: z read once, the moments written; about 2 operations an
-    # element for the sum and 8 for the centred powers and their sums
-    record["bound_ms"], record["bound_by"] = bound(n * size + 4 * out.numel(), 10 * n)
-    # backward: z, the moments and their gradients read, the gradient
-    # written; about 14 operations an element
-    record["bwd_bound_ms"], record["bwd_bound_by"] = bound(
-        2 * n * size + 2 * 4 * out.numel(), 14 * n)
+def moments_bounds(n, size, out_numel):
+    """(bound_ms, bound_by) of a moments forward and backward over n elements of ``size``
+    bytes with ``out_numel`` moments: the forward reads z once and writes the moments, about
+    2 operations an element for the sum and 8 for the centred powers and their sums; the
+    backward reads z, the moments and their gradients and writes the gradient, about 14 an
+    element."""
+    record = {}
+    record["bound_ms"], record["bound_by"] = bound(n * size + 4 * out_numel, 10 * n)
+    record["bwd_bound_ms"], record["bwd_bound_by"] = bound(2 * n * size + 2 * 4 * out_numel,
+                                                           14 * n)
     return record
 
 
+def time_moments(z, out, gout, forward, plain_forward, backward, plain_backward, library):
+    """Times and bounds of a moments kernel pair at z's shape, both arrangements on the same
+    operands: CUDA-event medians of 100 through the entry point, the back-to-back device
+    times, the plain versions, and the one PyTorch call that computes half of the
+    forward."""
+    record = {
+        "plain_ms": median_ms(lambda: plain_forward(z)),
+        "plain_bwd_ms": median_ms(lambda: plain_backward(z, out, gout)),
+        "library_ms": median_ms(lambda: library(z)),
+    }
+    for arrangement in ("cluster", "blocks", "blocks", "cluster"):  # in turns
+        times = record.setdefault(arrangement, {})
+        for key, fn in (("ms", lambda: median_ms(lambda: forward(z, arrangement=arrangement))),
+                        ("device_ms", lambda: queued_ms(
+                            lambda: forward(z, arrangement=arrangement))),
+                        ("bwd_ms", lambda: median_ms(
+                            lambda: backward(z, out, gout, arrangement=arrangement))),
+                        ("bwd_device_ms", lambda: queued_ms(
+                            lambda: backward(z, out, gout, arrangement=arrangement)))):
+            times.setdefault(f"{key}_runs", []).append(fn())
+    for times in (record["cluster"], record["blocks"]):
+        for key in ("ms", "device_ms", "bwd_ms", "bwd_device_ms"):
+            times[key] = min(times[f"{key}_runs"])
+    record.update(moments_bounds(z.numel(), z.element_size(), out.numel()))
+    return record
+
+
+def moments_fixed_costs(mo, kind, z, dev):
+    """Back-to-back device times that separate a moments forward's fixed cost from its data:
+    both arrangements at a tiny (7, 13) float32, and the flagship's z both staged and
+    streamed (the rule stages it)."""
+    import torch
+
+    op = f"{kind}_forward"
+    tiny = moments_operand(dev, (7, 13), "float32", seed=7)
+    rule = mo.moments_arrangement(kind, z.shape, z.dtype, z.data_ptr() % 16 == 0)
+    assert rule.staged, rule
+    out = {f"tiny_{name}_device_ms": queued_ms(lambda: mo._launch(op, name, tiny))
+           for name in ("cluster", "blocks")}
+    for staged in (True, False):
+        arrangement = rule._replace(staged=staged)
+        out[f"{'staged' if staged else 'streamed'}_device_ms"] = queued_ms(
+            lambda: mo._launch(op, arrangement, z))
+    torch.cuda.synchronize()
+    log(f"  {kind} forward, back to back: (7, 13) float32 cluster "
+        f"{out['tiny_cluster_device_ms']:.4f} ms, blocks {out['tiny_blocks_device_ms']:.4f} ms; "
+        f"{tuple(z.shape)} {z.dtype} staged {out['staged_device_ms']:.4f} ms, streamed "
+        f"{out['streamed_device_ms']:.4f} ms")
+    return out
+
+
 def log_moments_times(label, record):
-    log(f"  {label} median of 100: forward kernel {record['ms']:.4f} ms "
-        f"({record['device_ms']:.4f} ms back to back on a full queue), plain "
-        f"{record['plain_ms']:.4f} ms, torch.var_mean (half the work) "
-        f"{record['library_ms']:.4f} ms, bound {record['bound_ms']:.5f} ms; backward kernel "
-        f"{record['bwd_ms']:.4f} ms ({record['bwd_device_ms']:.4f} ms back to back), plain "
-        f"{record['plain_bwd_ms']:.4f} ms, bound {record['bwd_bound_ms']:.5f} ms")
+    for arrangement in ("cluster", "blocks"):
+        t = record[arrangement]
+        log(f"  {label} {arrangement}: forward median of 100 {t['ms']:.4f} ms "
+            f"(runs {t['ms_runs']}), back to back {t['device_ms']:.4f} ms "
+            f"({t['device_ms_runs']}); backward {t['bwd_ms']:.4f} ms ({t['bwd_ms_runs']}), "
+            f"back to back {t['bwd_device_ms']:.4f} ms ({t['bwd_device_ms_runs']})")
+    log(f"  {label} plain {record['plain_ms']:.4f} ms, backward {record['plain_bwd_ms']:.4f} ms; "
+        f"library (half the forward) {record['library_ms']:.4f} ms; bound "
+        f"{record['bound_ms']:.5f} ms, backward {record['bwd_bound_ms']:.5f} ms")
 
 
-def moments_entries(kind, record, launches, bwd_launches):
-    """The two lines of the kernels' JSON (forward, backward) of one moments
-    kernel pair. No one PyTorch call computes the analytic backward."""
+def moments_entries(kind, record, arrangements):
+    """The kernels' JSON lines (forward, backward of each arrangement) of one moments kernel
+    pair; ``arrangements``: the launches by operation and arrangement on the main path. No
+    one PyTorch call computes the analytic backward."""
     fwd_line, bwd_line = MOMENTS_KERNELS[kind]
-    forward = dict(MOMENTS_SOURCE, name=f"moments_{kind}_forward", replaces=fwd_line,
-                   launches=launches,
-                   **{k: record[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms", "device_ms")})
-    backward = dict(MOMENTS_SOURCE, name=f"moments_{kind}_backward", replaces=bwd_line,
-                    launches=bwd_launches, max_abs_err=record["bwd_max_abs_err"],
-                    ms=record["bwd_ms"], plain_ms=record["plain_bwd_ms"],
-                    bound_ms=record["bwd_bound_ms"], bound_by=record["bwd_bound_by"],
-                    library_ms=None, device_ms=record["bwd_device_ms"])
-    return [forward, backward]
+    entries = []
+    for arrangement, source in MOMENTS_SOURCES.items():
+        t = record[arrangement]
+        prefix = "moments_cluster" if arrangement == "cluster" else "moments"
+        entries.append(dict(
+            source, name=f"{prefix}_{kind}_forward", replaces=fwd_line,
+            launches=arrangements[f"{kind}_forward"][arrangement],
+            max_abs_err=record["errors"][arrangement], ms=t["ms"], plain_ms=record["plain_ms"],
+            bound_ms=record["bound_ms"], bound_by=record["bound_by"],
+            library_ms=record["library_ms"], device_ms=t["device_ms"]))
+        entries.append(dict(
+            source, name=f"{prefix}_{kind}_backward", replaces=bwd_line,
+            launches=arrangements[f"{kind}_backward"][arrangement],
+            max_abs_err=record["bwd_errors"][arrangement], ms=t["bwd_ms"],
+            plain_ms=record["plain_bwd_ms"], bound_ms=record["bwd_bound_ms"],
+            bound_by=record["bwd_bound_by"], library_ms=None, device_ms=t["bwd_device_ms"]))
+    return entries
 
 
 def scorer_bound(k, h, w, c):
@@ -688,30 +759,77 @@ def expect_raises(fn, error, what):
     raise AssertionError(f"{what} did not raise {error.__name__}")
 
 
+def moments_operand(dev, shape, dtype, offset=0, seed=0):
+    """z of shape and dtype (a name), ``offset`` elements into its allocation."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows, cols = shape
+    flat = torch.randn(rows * cols + offset, device=dev, generator=gen) * 1.3 + 0.4
+    return flat.to(getattr(torch, dtype))[offset:].view(rows, cols)
+
+
+def close_moments(got, ref):
+    """rtol 1e-5 on mean and variance, 1e-4 on skew and kurtosis (the order of the sums
+    differs), with an absolute floor of 1e-6 for values that are small differences of large
+    sums (the skew of a near-symmetric sample); rows or elements 0-1 and 2-3."""
+    import torch
+
+    torch.testing.assert_close(got[:2], ref[:2], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2:], ref[2:], rtol=1e-4, atol=1e-6)
+
+
+def moments_resources(mo, kinds):
+    """The cluster source's registers, shared memory and stack (cuobjdump), its ptxas
+    report, and cudaOccupancyMaxActiveClusters of the flagship's arrangements."""
+    import torch
+
+    lines = resource_usage("moments_cluster")
+    assert lines, "cuobjdump found no kernel in moments_cluster"
+    for line in lines + ptxas_report("moments_cluster"):
+        log(f"  moments_cluster: {line}")
+    occupancy = {}
+    for kind in kinds:
+        for dtype in (torch.float32, torch.bfloat16):
+            arrangement = mo.moments_arrangement(kind, (256, 2000), dtype, True)
+            active = mo.cluster_occupancy(arrangement, dtype)
+            assert active >= 1, (kind, dtype, arrangement)
+            occupancy[f"{kind} {dtype}"] = active
+            log(f"  {kind} (256, 2000) {dtype}: {arrangement}, cudaOccupancyMaxActiveClusters "
+                f"{active}")
+    return {"resources": lines, "occupancy": occupancy}
+
+
 def phase_f(dev):
-    """The moments kernels vs their plain versions on the card; returns the
-    kernel's record at the flagship's (256, 2000) float32."""
+    """The global moments kernels of both arrangements vs their plain versions on the card;
+    returns the record at the flagship's (256, 2000) float32."""
     import torch
 
     from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
 
     gout = torch.tensor(GRAD_WEIGHTS, device=dev)
     record = {}
-    for shape, dtype in MOMENT_SHAPES:
-        gen = torch.Generator(device=dev).manual_seed(shape[0])
-        z = (torch.randn(shape, device=dev, generator=gen) * 1.3 + 0.4).to(getattr(torch, dtype))
+    for shape, dtype, offset in MOMENT_SHAPES:
+        z = moments_operand(dev, shape, dtype, offset, seed=shape[0])
+        rule = mo.moments_arrangement("global", z.shape, z.dtype, z.data_ptr() % 16 == 0)
         out = mo.global_moments_packed(z)
+        blocks = mo.global_moments_packed(z, arrangement="blocks")
         ref = torch.stack(mo.global_moments_reference(z))
         torch.cuda.synchronize()
-        # mean and variance; then skew and kurtosis, where the skew of a
-        # near-symmetric sample is a small difference of large sums
-        torch.testing.assert_close(out[:2], ref[:2], rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(out[2:], ref[2:], rtol=1e-4, atol=1e-6)
+        close_moments(out, ref)
+        close_moments(blocks, ref)
         assert torch.equal(out, mo.global_moments_packed(z)), "two runs differ"
+        other = rule._replace(staged=not rule.staged)
+        forced = rule.vector and other.slice * z.element_size() <= mo.STAGE_BUDGET_BYTES
+        if forced:  # the other of staged and streamed on the same operands: the same bits
+            assert torch.equal(out, mo._launch("global_forward", other, z)), (
+                "staged and streamed differ")
         grad = mo.global_moments_backward(z, out, gout)
+        grad_blocks = mo.global_moments_backward(z, out, gout, arrangement="blocks")
         grad_ref = mo.global_moments_backward_reference(z, out, gout)
         assert grad.dtype == z.dtype and grad.shape == z.shape
         assert torch.equal(grad, mo.global_moments_backward(z, out, gout)), "two runs differ"
+        assert torch.equal(grad, grad_blocks), "the backward differs from moments.cu's"
         scale = float(grad_ref.float().abs().max())
         torch.testing.assert_close(grad.float(), grad_ref.float(), rtol=1e-4, atol=1e-6 * scale)
         # through autograd, with one output unused
@@ -723,32 +841,48 @@ def phase_f(dev):
         # bfloat16 gradients are rounded to 8 bits
         rtol = 1e-4 if dtype == "float32" else 2.0 ** -7
         torch.testing.assert_close(za.grad.float(), zb.grad, rtol=rtol, atol=rtol * gscale)
-        err = float((out - ref).abs().max())
+        errors = {"cluster": float((out - ref).abs().max()),
+                  "blocks": float((blocks - ref).abs().max())}
         gerr = float((grad.float() - grad_ref.float()).abs().max())
-        log(f"  {shape} {dtype}: moments {[round(v, 6) for v in out.tolist()]}, "
-            f"max_abs_err {err:.3g}, gradient max_abs_err {gerr:.3g} of {scale:.3g}")
-        if (shape, dtype) == MOMENT_SHAPES[0]:
-            record.update(max_abs_err=err, bwd_max_abs_err=gerr)
+        log(f"  {shape} {dtype} at +{offset}: {rule}; moments "
+            f"{[round(v, 6) for v in out.tolist()]}, max_abs_err cluster {errors['cluster']:.3g}, "
+            f"blocks {errors['blocks']:.3g}; gradient max_abs_err {gerr:.3g} of {scale:.3g}, "
+            f"equal to moments.cu's; {'staged = streamed, ' if forced else ''}two runs equal")
+        if (shape, dtype, offset) == MOMENT_SHAPES[0]:
+            record.update(errors=errors, bwd_errors={"cluster": gerr, "blocks": gerr},
+                          arrangement=rule._asdict())
             # torch.var_mean gives two of the four moments: half the work
             record.update(time_moments(
                 z, out, gout, mo.global_moments_packed, mo.global_moments_reference,
                 mo.global_moments_backward, mo.global_moments_backward_reference,
                 lambda t: torch.var_mean(t, correction=0)))
+            record.update(moments_fixed_costs(mo, "global", z, dev))
     const = torch.full((16, 128), 0.5, device=dev)
-    out = mo.global_moments_packed(const)
-    assert out.tolist() == [0.5, 0.0, 0.0, 0.0], out.tolist()
-    assert torch.isfinite(mo.global_moments_backward(const, out, gout)).all()
+    for arrangement in ("cluster", "blocks"):
+        out = mo.global_moments_packed(const, arrangement=arrangement)
+        assert out.tolist() == [0.5, 0.0, 0.0, 0.0], (arrangement, out.tolist())
+        assert torch.isfinite(mo.global_moments_backward(const, out, gout,
+                                                         arrangement=arrangement)).all()
     for bad, error in ((const.double(), TypeError), (const[0], ValueError),
                        (const.t(), ValueError)):
         expect_raises(lambda: mo.global_moments(bad), error,
                       f"global_moments of a {bad.dtype} tensor of shape {tuple(bad.shape)}")
+    z = moments_operand(dev, (256, 2000), "float32")
+    flagship = mo.moments_arrangement("global", z.shape, z.dtype, True)
+    for bad in (flagship._replace(cluster=17, slice=30124),  # past Hopper's largest cluster
+                flagship._replace(slice=flagship.slice - 4),  # slices that miss elements
+                flagship._replace(cluster=2, slice=256000)):  # a staged slice past the budget
+        expect_raises(lambda: mo._launch("global_forward", bad, z), RuntimeError,
+                      f"a global forward in {bad}")
+    torch.cuda.synchronize()
+    record.update(moments_resources(mo, ("global",)))
     log_moments_times("(256, 2000) float32", record)
     return record
 
 
 def phase_i(dev):
-    """The per-dimension moments kernels vs their plain versions on the card,
-    column by column; returns the record at the flagship's (256, 2000)
+    """The per-dimension moments kernels of both arrangements vs their plain versions on
+    the card, column by column; returns the record at the flagship's (256, 2000)
     float32."""
     import torch
 
@@ -762,18 +896,25 @@ def phase_i(dev):
         cols = z.shape[1]
         gen = torch.Generator(device=dev).manual_seed(cols)
         gout = torch.randn((4, cols), device=dev, generator=gen)
+        rule = mo.moments_arrangement("perdim", z.shape, z.dtype, z.data_ptr() % 16 == 0)
         out = mo.perdim_moments_packed(z)
+        blocks = mo.perdim_moments_packed(z, arrangement="blocks")
         ref = torch.stack(mo.perdim_moments_reference(z))
         torch.cuda.synchronize()
         assert out.shape == (4, cols) and out.dtype == torch.float32
-        torch.testing.assert_close(out[:2], ref[:2], rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(out[2:], ref[2:], rtol=1e-4, atol=1e-6)
+        close_moments(out, ref)
+        close_moments(blocks, ref)
         assert torch.equal(out, mo.perdim_moments_packed(z)), "two runs differ"
+        if rule.staged:  # pass 2 reading z again instead of the staged rows: the same bits
+            assert torch.equal(out, mo._launch("perdim_forward", rule._replace(staged=False),
+                                               z)), "staged and streamed differ"
         grad = mo.perdim_moments_backward(z, out, gout)
         grad_ref = mo.perdim_moments_backward_reference(z, out, gout)
         assert grad.dtype == z.dtype and grad.shape == z.shape
         assert bool(torch.isfinite(grad.float()).all())
         assert torch.equal(grad, mo.perdim_moments_backward(z, out, gout)), "two runs differ"
+        assert torch.equal(grad, mo.perdim_moments_backward(z, out, gout, arrangement="blocks")), (
+            "the backward differs from moments.cu's")
         scale = float(grad_ref.float().abs().max())
         torch.testing.assert_close(grad.float(), grad_ref.float(), rtol=1e-4, atol=1e-6 * scale)
         if autograd:  # against autograd of the plain forward, in float32
@@ -785,11 +926,13 @@ def phase_i(dev):
             # bfloat16 gradients are rounded to 8 bits
             rtol = 1e-4 if z.dtype == torch.float32 else 2.0 ** -7
             torch.testing.assert_close(za.grad.float(), zb.grad, rtol=rtol, atol=rtol * gscale)
-        err = float((out - ref).abs().max())
+        errors = {"cluster": float((out - ref).abs().max()),
+                  "blocks": float((blocks - ref).abs().max())}
         gerr = float((grad.float() - grad_ref.float()).abs().max())
-        log(f"  {label}: max_abs_err {err:.3g} over {4 * cols} moments, gradient max_abs_err "
-            f"{gerr:.3g} of {scale:.3g}")
-        return out, gout, err, gerr
+        log(f"  {label}: {rule}; max_abs_err cluster {errors['cluster']:.3g}, blocks "
+            f"{errors['blocks']:.3g} over {4 * cols} moments; gradient max_abs_err {gerr:.3g} of "
+            f"{scale:.3g}, equal to moments.cu's; two runs equal")
+        return out, gout, errors, gerr
 
     def randn(shape, dtype, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -800,27 +943,41 @@ def phase_i(dev):
     for shape, dtype in PERDIM_SHAPES:
         z = randn(shape, getattr(torch, dtype), shape[0])
         # one row has no spread: the plain forward's autograd is 0/0 there
-        out, gout, err, gerr = check(z, f"{shape} {dtype}", autograd=shape[0] > 1)
+        out, gout, errors, gerr = check(z, f"{shape} {dtype}", autograd=shape[0] > 1)
         if shape[0] == 1:
             assert float(out[1:].abs().max()) == 0.0, "a batch of one has var = skew = kurt = 0"
         if (shape, dtype) == PERDIM_SHAPES[0]:
-            record.update(max_abs_err=err, bwd_max_abs_err=gerr)
+            record.update(errors=errors, bwd_errors={"cluster": gerr, "blocks": gerr},
+                          arrangement=mo.moments_arrangement("perdim", z.shape, z.dtype,
+                                                             True)._asdict())
             record.update(time_moments(
                 z, out, gout, mo.perdim_moments_packed, mo.perdim_moments_reference,
                 mo.perdim_moments_backward, mo.perdim_moments_backward_reference,
                 lambda t: torch.var_mean(t, dim=0, correction=0)))
+            record.update(moments_fixed_costs(mo, "perdim", z, dev))
     for dtype in (torch.float32, torch.bfloat16):
         z = randn((64, 40), dtype, 7)
         z[:, 5] = 2.0  # exact in both types, so the column's variance is exactly 0
         out, _gout, _err, _gerr = check(z, f"(64, 40) {dtype} with a constant column",
                                         autograd=False)
         assert out[:, 5].tolist() == [2.0, 0.0, 0.0, 0.0], out[:, 5].tolist()
-    # contiguous views that start one element into an allocation: 4 bytes
-    # (float32) and 2 bytes (bfloat16, which then takes one column a thread)
+    # contiguous views that start one element into an allocation: 4 bytes (float32) and 2
+    # bytes (bfloat16); an odd bfloat16 width; every cluster size the rule can take
     check(randn((37 * 53 + 1,), torch.float32, 8)[1:].view(37, 53), "(37, 53) float32 view at +4 B")
     check(randn((10 * 100 + 1,), torch.bfloat16, 9)[1:].view(10, 100),
           "(10, 100) bfloat16 view at +2 B")
+    check(randn((9, 301), torch.bfloat16, 11), "(9, 301) bfloat16")
+    z = randn((256, 2000), torch.float32, 12)
+    ref = torch.stack(mo.perdim_moments_reference(z))
+    rule = mo.moments_arrangement("perdim", z.shape, z.dtype, True)
+    for cluster in (1, 2, 4):
+        close_moments(mo._launch("perdim_forward",
+                                 rule._replace(cluster=cluster, slice=256 // cluster), z), ref)
     assert (mo.launches, mo.bwd_launches) == before, "the global kernels ran"
+    for bad in (rule._replace(cluster=3, slice=86), rule._replace(cluster=16, slice=16),
+                rule._replace(slice=16)):
+        expect_raises(lambda: mo._launch("perdim_forward", bad, z), RuntimeError,
+                      f"a per-dimension forward in {bad}")
     z = randn((8, 16), torch.float32, 10)
     for bad, error in ((z.double(), TypeError), (z.half(), TypeError), (z[0], ValueError),
                        (z.t(), ValueError), (z[:0], ValueError)):
@@ -831,6 +988,8 @@ def phase_i(dev):
                   "perdim_moments_backward with moments of another width")
     expect_raises(lambda: mo.perdim_moments_backward(z, out, out.double()), ValueError,
                   "perdim_moments_backward with a float64 gout")
+    torch.cuda.synchronize()
+    record.update(moments_resources(mo, ("perdim",)))
     log_moments_times("(256, 2000) float32", record)
     return record
 
@@ -872,8 +1031,9 @@ def phase_h(model_type="KurtosisGlobal", train_steps=2, loss_update=None, bf16_s
     """The flagship with ``model.type`` set to ``model_type`` trains on the
     card through load_data and train_model, reloads its checkpoint, then
     takes the bfloat16 train + score steps. Returns the float32 run's launches
-    of the moments kernels: (global forward, global backward, per-dimension
-    forward, per-dimension backward)."""
+    of the moments kernels: {"launched": (global forward, global backward,
+    per-dimension forward, per-dimension backward), "arrangements": those by
+    operation and arrangement}, all on the cluster kernels."""
     import torch
 
     from trustedai_cl_vae_ad_tpu_torch.config import load_config, save_config, validate_config
@@ -913,13 +1073,13 @@ def phase_h(model_type="KurtosisGlobal", train_steps=2, loss_update=None, bf16_s
         data = load_data(config)
         model = load_model_from_config(config, seed=0)
         assert model.device.type == "cuda" and type(model.core).__name__ == f"{model_type}CVAE"
-        moments.launches = moments.bwd_launches = 0
-        moments.perdim_launches = moments.perdim_bwd_launches = 0
+        moments.reset_counts()
         t0 = time.perf_counter()
         train_model(config, model, data, log_every=1)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launched = counts()
+        arrangements = {op: dict(c) for op, c in moments.moments_arrangements.items()}
         peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(logdir, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
@@ -932,6 +1092,9 @@ def phase_h(model_type="KurtosisGlobal", train_steps=2, loss_update=None, bf16_s
         if model_type == "KurtosisGlobal":
             assert losses[-1] < losses[0], losses
         assert launched == expected, (model_type, launched, expected)
+        # every launch on the cluster kernels, none on moments.cu
+        assert arrangements == {op: {"cluster": n, "blocks": 0}
+                                for op, n in zip(moments.OPS, expected)}, arrangements
         assert model.optimizer.count == train_steps
         assert load_train_state(logdir) == {"epochs_completed": 1, "step": train_steps,
                                             "beta": model.beta}
@@ -946,7 +1109,8 @@ def phase_h(model_type="KurtosisGlobal", train_steps=2, loss_update=None, bf16_s
             f"{[round(v, 1) for v in step_ms]}, "
             f"{[round(BATCH / v * 1e3, 1) for v in step_ms]} frames/s; max_memory_allocated "
             f"{peak / 2**30:.2f} GiB; moments launches: global {launched[0]} forward, "
-            f"{launched[1]} backward; per dimension {launched[2]} forward, {launched[3]} backward")
+            f"{launched[1]} backward; per dimension {launched[2]} forward, {launched[3]} backward "
+            f"(by arrangement {arrangements})")
         del model
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -961,8 +1125,9 @@ def phase_h(model_type="KurtosisGlobal", train_steps=2, loss_update=None, bf16_s
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
+    result = {"launched": launched, "arrangements": arrangements}
     if not bf16_steps:
-        return launched
+        return result
 
     # the combined step as the JAX package's bench.py runs it
     bench = flagship_config()
@@ -986,6 +1151,8 @@ def phase_h(model_type="KurtosisGlobal", train_steps=2, loss_update=None, bf16_s
     ms = (time.perf_counter() - t0) * 1e3 / 10
     timed = tuple(b - a for a, b in zip(before, counts()))
     assert timed == tuple(10 * (e > 0) for e in expected), (model_type, timed)
+    assert all(c["blocks"] == 0 for c in moments.moments_arrangements.values()), (
+        moments.moments_arrangements)
     assert z_scores.shape == (BATCH,) and bool(torch.isfinite(z_scores).all())
     assert bool(torch.isfinite(loss))
     peak = torch.cuda.max_memory_allocated()
@@ -994,7 +1161,7 @@ def phase_h(model_type="KurtosisGlobal", train_steps=2, loss_update=None, bf16_s
         f"synchronized); loss {float(loss):.6f}; max_memory_allocated {peak / 2**30:.2f} GiB")
     del model, x_u8
     torch.cuda.empty_cache()
-    return launched
+    return result
 
 
 def write_replay_file(directory, n=CL_REPLAY):
@@ -2498,7 +2665,7 @@ def phase_t(dev):
     torch.cuda.reset_peak_memory_stats()
     cdw.launches = 0
     cdw.conv_dw_arrangements.update(wgmma=0, cuda_core=0)
-    moments.launches = moments.bwd_launches = 0
+    moments.reset_counts()
     rows = r18.bench(batch=R18_BATCH, steps=R18_STEPS, warmup=R18_WARMUP, device=dev, seed=0)
     launches, arrangements = cdw.launches, dict(cdw.conv_dw_arrangements)
     peak = torch.cuda.max_memory_allocated()
@@ -2523,6 +2690,8 @@ def phase_t(dev):
     assert launches == (2 + steps) * 3, launches
     assert arrangements == {"cuda_core": (2 + steps) * 2, "wgmma": 2 + steps}, arrangements
     assert moments.launches == moments.bwd_launches == (2 + steps) * 3
+    assert moments.moments_arrangements["global_forward"] == {"cluster": (2 + steps) * 3,
+                                                             "blocks": 0}
     log(f"  kernel launches on this path {launches} {arrangements}; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
     return {"launches": launches, "arrangements": arrangements, "rows": rows}
@@ -2678,12 +2847,12 @@ def main(argv=None):
     with ThreadPoolExecutor() as pool:  # one nvcc for each source, started together
         list(pool.map(lambda build: build(),
                       (stream_score.build, stream_score.build_cluster, moments.build,
-                       int8_gemm.build, int8_gemm.build_mma, dense_grad_adam.build,
+                       moments.build_blocks, int8_gemm.build, int8_gemm.build_mma, dense_grad_adam.build,
                        dense_grad_adam.build_wgmma, conv_dw.build, conv_dw.build_wgmma)))
-    log(f"  stream_score, stream_score_cluster, moments, int8_gemm, int8_gemm_mma, "
+    log(f"  stream_score, stream_score_cluster, moments_cluster, moments, int8_gemm, int8_gemm_mma, "
         f"dense_grad_adam, dense_grad_wgmma, conv_dw and conv_dw_wgmma built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-    for kernel in ("stream_score", "stream_score_cluster", "moments", "int8_gemm",
+    for kernel in ("stream_score", "stream_score_cluster", "moments_cluster", "moments", "int8_gemm",
                    "int8_gemm_mma", "dense_grad_adam", "dense_grad_wgmma", "conv_dw",
                    "conv_dw_wgmma"):
         for line in _build.build_log.get(kernel, "").splitlines():
@@ -2740,7 +2909,7 @@ def main(argv=None):
     # (r) for the six dense-update kernels, (t) for the convolution weight gradient: its
     # CUDA-core kernel with conv1's times, its tensor-core kernel with conv2's (and the
     # CUDA-core kernel's on the same operands beside them)
-    global_launches, perdim_launches = out["h"], out["k"][0]
+    global_launches, perdim_launches = out["h"]["arrangements"], out["k"][0]["arrangements"]
     _, _, fleet_int8 = out["p"]["launches"]
     frame_int8 = out["p"]["frame_int8_arrangements"]
 
@@ -2759,8 +2928,8 @@ def main(argv=None):
              **out["m"]["mma"]),
         dict(INT8_KERNEL, launches=tiny_int8["cuda_core"], launches_fleet_ticks=fleet_int8[
             "cuda_core"], launches_frames=frame_int8["cuda_core"], **out["m"]["cuda_core"]),
-        *moments_entries("global", out["f"], global_launches[0], global_launches[1]),
-        *moments_entries("perdim", out["i"], perdim_launches[2], perdim_launches[3]),
+        *moments_entries("global", out["f"], global_launches),
+        *moments_entries("perdim", out["i"], perdim_launches),
         *(dict(source, name=name, replaces=replaces, launches=out["r"]["launches"][counter],
                **out["q"][counter]) for name, (counter, replaces, source) in DGA_KERNELS.items()),
         dict(CONV_DW_KERNEL, launches=out["t"]["arrangements"]["cuda_core"],

@@ -126,11 +126,14 @@ def main(argv=None):
           f"busy {tr['busy_share']:.1%}, idle {tr['idle_share']:.1%}")
     for r in tr["kernels"][:25]:
         print(f"  {r['ms_per_frame']:9.4f} ms  x{r['launches_per_frame']:<5g} {r['kernel']}")
-    print("the moments kernels (csrc/moments.cu) in the traced steps:")
-    for r in tr["kernels"]:
-        if any(k in r["kernel"] for k in ("sum_kernel", "centred_kernel", "finalize_kernel",
-                                          "backward_kernel", "perdim_")):
-            print(f"  {r['ms_per_frame']:9.4f} ms  x{r['launches_per_frame']:<5g} {r['kernel']}")
+    print("the moments kernels (csrc/moments_cluster.cu) in the traced steps:")
+    names = ("global_forward_kernel", "perdim_forward_kernel", "global_backward_kernel",
+             "perdim_backward_kernel")
+    rows = [r for r in tr["kernels"] if any(k in r["kernel"] for k in names)]
+    for r in rows:
+        print(f"  {r['ms_per_frame']:9.4f} ms  x{r['launches_per_frame']:<5g} {r['kernel']}")
+    summary["moments_kernels_ms"] = sum(r["ms_per_frame"] for r in rows)
+    print(f"  together {summary['moments_kernels_ms']:.4f} ms a step")
     print(f"{summary['optimizer']} update alone: {summary['optimizer_alone_ms']:.3f} ms")
     print(f"peak device memory {summary['peak_device_GiB']:.2f} GiB")
     with open(args.out, "w") as f:

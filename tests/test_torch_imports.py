@@ -85,3 +85,16 @@ def test_port_sources_have_no_jax_import():
                 if name.split(".")[0] in FORBIDDEN:
                     found.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
     assert not found, found
+
+
+def test_kernel_sources_include_nothing_of_the_jax_package():
+    """The CUDA sources the port builds (csrc/moments_cluster.cu among them) include only
+    the toolkit's headers and their own."""
+    csrc = os.path.join(REPO, PACKAGE, "csrc")
+    sources = sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
+    assert "moments_cluster.cu" in sources
+    for name in sources:
+        with open(os.path.join(csrc, name)) as f:
+            includes = [line for line in f if line.lstrip().startswith("#include")]
+        for line in includes:
+            assert not any(word in line for word in FORBIDDEN), (name, line)

@@ -301,6 +301,165 @@ def test_training_step_on_the_card_launches_the_moments_kernels(cuda_device):
     assert all(np.isfinite(o["loss"]) for o in outs)
 
 
+# -- the moments on thread-block clusters (csrc/moments_cluster.cu) ----------------------
+
+def _moments_operand(shape, dtype, dev, offset=0, seed=3):
+    """z of shape and dtype, starting ``offset`` elements into its allocation."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows, cols = shape
+    flat = torch.randn(rows * cols + offset, device=dev, generator=gen) * 1.3 + 0.4
+    return flat.to(getattr(torch, dtype))[offset:].view(rows, cols)
+
+
+CLUSTER_GLOBAL_CASES = [((256, 2000), "float32", 0), ((256, 2000), "bfloat16", 0),
+                        ((768, 2000), "float32", 0), ((7, 13), "float32", 0),
+                        ((7, 13), "bfloat16", 0), ((10, 100), "float32", 1),
+                        ((37, 53), "bfloat16", 1), ((1, 1), "float32", 0)]
+
+
+@pytest.mark.parametrize("shape, dtype, offset", CLUSTER_GLOBAL_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{d}-at{o}" for s, d, o in CLUSTER_GLOBAL_CASES])
+def test_global_cluster_kernel_against_plain_and_blocks(cuda_device, shape, dtype, offset):
+    """One launch a forward, within the tolerances of the plain version, the same bits from
+    run to run and staged or streamed; the backward equals csrc/moments.cu's bit for bit."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+
+    z = _moments_operand(shape, dtype, cuda_device, offset)
+    rule = mo.moments_arrangement("global", z.shape, z.dtype, z.data_ptr() % 16 == 0)
+    before = {op: dict(c) for op, c in mo.moments_arrangements.items()}
+    out = mo.global_moments_packed(z)
+    assert mo.moments_arrangements["global_forward"]["cluster"] == \
+        before["global_forward"]["cluster"] + 1
+    ref = torch.stack(mo.global_moments_reference(z))
+    torch.testing.assert_close(out[:2], ref[:2], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out[2:], ref[2:], rtol=1e-4, atol=1e-6)
+    assert torch.equal(out, mo.global_moments_packed(z))
+    other = rule._replace(staged=not rule.staged)
+    if rule.vector and other.slice * z.element_size() <= mo.STAGE_BUDGET_BYTES:
+        assert torch.equal(out, mo._launch("global_forward", other, z)), "staged != streamed"
+    gout = torch.tensor([0.3, -0.7, 1.1, 0.9], device=cuda_device)
+    grad = mo.global_moments_backward(z, out, gout)
+    assert grad.dtype == z.dtype and grad.shape == z.shape
+    assert torch.equal(grad, mo.global_moments_backward(z, out, gout, arrangement="blocks"))
+    grad_ref = mo.global_moments_backward_reference(z, out, gout)
+    scale = float(grad_ref.float().abs().max())
+    torch.testing.assert_close(grad.float(), grad_ref.float(), rtol=1e-4,
+                               atol=max(1e-6 * scale, 1e-30))
+    blocks = mo.global_moments_packed(z, arrangement="blocks")
+    torch.testing.assert_close(out, blocks, rtol=1e-4, atol=1e-6)
+    after = mo.moments_arrangements
+    assert after["global_forward"]["blocks"] == before["global_forward"]["blocks"] + 1
+    assert after["global_backward"] == {"cluster": before["global_backward"]["cluster"] + 1,
+                                        "blocks": before["global_backward"]["blocks"] + 1}
+
+
+CLUSTER_PERDIM_CASES = [((256, 2000), "float32", 0), ((256, 2000), "bfloat16", 0),
+                        ((768, 2000), "float32", 0), ((37, 53), "float32", 0),
+                        ((37, 53), "bfloat16", 0), ((1, 53), "float32", 0),
+                        ((1, 64), "bfloat16", 0), ((10, 100), "float32", 1),
+                        ((10, 100), "bfloat16", 1), ((9, 300), "bfloat16", 0),
+                        ((3000, 130), "float32", 0)]
+
+
+@pytest.mark.parametrize("shape, dtype, offset", CLUSTER_PERDIM_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{d}-at{o}" for s, d, o in CLUSTER_PERDIM_CASES])
+def test_perdim_cluster_kernel_against_plain_and_blocks(cuda_device, shape, dtype, offset):
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+
+    z = _moments_operand(shape, dtype, cuda_device, offset)
+    rule = mo.moments_arrangement("perdim", z.shape, z.dtype, z.data_ptr() % 16 == 0)
+    before = mo.moments_arrangements["perdim_forward"]["cluster"]
+    out = mo.perdim_moments_packed(z)
+    assert mo.moments_arrangements["perdim_forward"]["cluster"] == before + 1
+    ref = torch.stack(mo.perdim_moments_reference(z))
+    torch.testing.assert_close(out[:2], ref[:2], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out[2:], ref[2:], rtol=1e-4, atol=1e-6)
+    assert torch.equal(out, mo.perdim_moments_packed(z))
+    if rule.staged:  # the same sums, with pass 2 reading z again
+        assert torch.equal(out, mo._launch("perdim_forward", rule._replace(staged=False), z))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    gout = torch.randn((4, shape[1]), device=cuda_device, generator=gen)
+    grad = mo.perdim_moments_backward(z, out, gout)
+    assert grad.dtype == z.dtype and grad.shape == z.shape
+    assert torch.equal(grad, mo.perdim_moments_backward(z, out, gout, arrangement="blocks"))
+    grad_ref = mo.perdim_moments_backward_reference(z, out, gout)
+    scale = float(grad_ref.float().abs().max())
+    torch.testing.assert_close(grad.float(), grad_ref.float(), rtol=1e-4, atol=1e-6 * scale)
+    blocks = mo.perdim_moments_packed(z, arrangement="blocks")
+    torch.testing.assert_close(out, blocks, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_perdim_cluster_sizes_the_rule_may_take_agree(cuda_device, cluster):
+    """Every cluster size gives the plain version's moments at the flagship's shape."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+
+    z = _moments_operand((256, 2000), "float32", cuda_device)
+    rule = mo.moments_arrangement("perdim", z.shape, z.dtype, True)
+    arrangement = rule._replace(cluster=cluster, slice=-(-256 // cluster))
+    out = mo._launch("perdim_forward", arrangement, z)
+    ref = torch.stack(mo.perdim_moments_reference(z))
+    torch.testing.assert_close(out[:2], ref[:2], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out[2:], ref[2:], rtol=1e-4, atol=1e-6)
+
+
+def test_moments_cluster_launches_the_card_refuses_raise(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+
+    z = _moments_operand((256, 2000), "float32", cuda_device)
+    rule = mo.moments_arrangement("global", z.shape, z.dtype, True)
+    for bad in (rule._replace(cluster=17, slice=-(-512000 // 17 // 4) * 4 + 4),
+                rule._replace(slice=rule.slice - 4),  # the slices miss elements
+                rule._replace(cluster=2, slice=256000)):  # staged past the budget
+        with pytest.raises(RuntimeError):
+            mo._launch("global_forward", bad, z)
+    view = _moments_operand((10, 100), "float32", cuda_device, offset=1)
+    staged = mo.moments_arrangement("global", view.shape, view.dtype, True)
+    with pytest.raises(RuntimeError):  # a staged slice off 16 bytes
+        mo._launch("global_forward", staged, view)
+    rule = mo.moments_arrangement("perdim", z.shape, z.dtype, True)
+    for bad in (rule._replace(cluster=3, slice=86), rule._replace(cluster=16, slice=16),
+                rule._replace(slice=16)):
+        with pytest.raises(RuntimeError):
+            mo._launch("perdim_forward", bad, z)
+    with pytest.raises(ValueError):
+        mo.global_moments_packed(z, arrangement="warp")
+    torch.cuda.synchronize()  # nothing was launched that faulted
+
+
+def test_moments_cluster_occupancy_at_the_flagship(cuda_device):
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+
+    for kind in ("global", "perdim"):
+        for dtype in (torch.float32, torch.bfloat16):
+            arrangement = mo.moments_arrangement(kind, (256, 2000), dtype, True)
+            assert arrangement.staged
+            assert mo.cluster_occupancy(arrangement, dtype) >= 1
+
+
+@pytest.mark.parametrize("model_type, op", [("KurtosisGlobal", "global"),
+                                            ("KurtosisSingle", "perdim")])
+def test_training_steps_take_only_the_cluster_kernels(cuda_device, model_type, op):
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+    from trustedai_cl_vae_ad_tpu_torch.testing import run_train_steps, train_inputs
+
+    config = {
+        "data": {"image_size": [32, 48, 3]},
+        "loss": {"kurtosis": 1.8, "w_kl_divergence": 0.0, "w_kurtosis": 1e-2, "w_mse": 1.0,
+                 "w_skew": 5e-3, "w_z_l1_reg": 1e-3},
+        "model": {"type": model_type, "latent_dimensions": 8, "layers": [4, 8],
+                  "decoder_dense_filters": 4},
+        "training": {"batch_size": 8, "beta": 1e-6, "learning_rate": 1e-3, "max_epochs": 1},
+    }
+    model = load_model_from_config(config, seed=0)
+    model.compile()
+    mo.reset_counts()
+    run_train_steps(model, train_inputs(config, n_steps=2, batch=8))
+    assert mo.moments_arrangements[f"{op}_forward"] == {"cluster": 2, "blocks": 0}
+    assert mo.moments_arrangements[f"{op}_backward"] == {"cluster": 2, "blocks": 0}
+
+
 # -- the int8 GEMM ------------------------------------------------------------------------
 
 def _rand_i8(shape, seed, dev):
