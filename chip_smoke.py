@@ -5,7 +5,8 @@ Runs the port's main paths (trustedai_cl_vae_ad_tpu_torch) on the card, in
 phases: live-stream scoring, training of the three model types, continual
 learning in the live engine, int8 serving with the multi-camera tick, and the
 dense-kernel update probes, the convolution weight-gradient kernel with its probe,
-and crash-atomic checkpoints; any failure raises and the script exits non-zero
+crash-atomic checkpoints, and the live application's autosave, recording and fleet
+continual learning; any failure raises and the script exits non-zero
 without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
@@ -190,6 +191,27 @@ without printing its final line.
       the same validation loss, then one AsyncSaver round with a training
       step taken between save and wait: the reloaded weights equal the state
       at save, not after the step. Seconds of each are logged.
+  (v) the live application's persistence, recording and fleet CL at the
+      flagship (float32 + adam): the seeded weights saved to a temporary log
+      directory, then, as camera_streamer_torch.py runs ``-m <it> -c
+      --model-cache-dir <cache> --async-autosave --record-dir <rec>``
+      (stream/run.py, a replayed 20 frames/s clock, CL period 1 s), 64
+      synthetic 240x320 frames: CL steps in frames 20, 41, 62, one async
+      autosave in frame 39, recordings every 500 ms; the five PNG streams hold
+      equal counts and labels.json annotates each recorded frame; the cache's
+      round is committed after the drain, and load_engine_from_directory
+      restores parameters and Adam moments equal bit for bit to clones taken
+      at the autosave and scores a fixed frame from a copied scorer state with
+      the original's bits; one synchronous autosave (the override, on the
+      frame it blocks); the scorer once a frame on the cluster kernel. Then 16
+      cameras (one dropping every 4th tick), a ring of 4 ticks, CL period 1 s,
+      recording on, 32 ticks at 20 ticks/s through run_all_cameras: a fleet CL
+      step with a finite loss, changed parameters and reconstruction,
+      per-camera recordings, one fleet snapshot, the scorer once a tick.
+      Logged: the seconds of the frames that carried each autosave, the frame
+      p50 without either, the recording ticks' added ms, the fleet CL step's
+      ms and max_memory_allocated. Four synchronous flagship saves: the seed
+      directory (weights alone), the two recording snapshots and the override.
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -325,6 +347,11 @@ PERDIM_SHAPES = [((256, 2000), "float32"), ((256, 2000), "bfloat16"), ((768, 200
                  ((37, 53), "float32"), ((37, 53), "bfloat16"), ((1, 53), "float32")]
 VAL_STEPS, BATCH = 1, 256
 CL_FRAMES, CL_FPS, CL_PERIOD_MS, CL_REPLAY = 64, 20.0, 1000.0, 8
+# phase (v): on CL_FPS's replayed clock the first frame seeds the autosave clock at 0.05 s, so
+# the period fires once, at frame 39 (2.0 s), after the CL step of frame 20 and before those of
+# frames 41 and 62; recordings every 500 ms (frames 9, 19, ..., 59)
+PERSIST_AUTOSAVE_S = 1.92
+FLEET_CL_TICKS, FLEET_CL_RING = 32, 4
 # phases (d) and (g); every optimized loss term takes part
 TINY_CONFIG = {
     "data": {"image_size": [32, 48, 3]},
@@ -2796,10 +2823,331 @@ def phase_u(dev):
             "async_total_s": async_total_s, "state_gb": state_bytes / 1e9}
 
 
+def persistence_single(tmp, cam_config):
+    """Phase (v)'s single stream, as camera_streamer_torch.main_single_stream runs
+    ``-m <seed logdir> -c --model-cache-dir <cache> --async-autosave --record-dir <rec>``, with
+    a replayed clock. Returns (the model, its config, the record of the run)."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score
+    from trustedai_cl_vae_ad_tpu_torch.ops.stream_score import StreamScoreState
+    from trustedai_cl_vae_ad_tpu_torch.stream.capture import SyntheticSource
+    from trustedai_cl_vae_ad_tpu_torch.stream.engine import (
+        RECORD_STREAMS,
+        load_engine_from_directory,
+        record_frame_artifacts,
+    )
+    from trustedai_cl_vae_ad_tpu_torch.stream.run import (
+        build_engine,
+        configure_continual_learning,
+        load_serving_model,
+        resolve_camera,
+        run_stream,
+    )
+    from trustedai_cl_vae_ad_tpu_torch.train import checkpoint
+    from trustedai_cl_vae_ad_tpu_torch.utils.metrics import MetricsWriter
+
+    seed_dir, cache, rec = (os.path.join(tmp, name) for name in ("seed", "cache", "rec"))
+    model, config, qparams = load_serving_model(seed_dir, None, "cuda", continual_learning=True)
+    assert qparams is None and model.optimizer is None  # the seed logdir holds no moments
+    shutil.rmtree(seed_dir)  # disk: at most one round of the cache and one snapshot at a time
+    anomaly_settings, cam_info, _fps, _spec = resolve_camera(cam_config)
+    metrics = MetricsWriter(os.path.join(cache, "metrics"), use_tensorboard=False)
+    engine = build_engine(model, config, anomaly_settings=anomaly_settings, cam_info=cam_info,
+                          metrics=metrics, continuous_learning_period_ms=CL_PERIOD_MS,
+                          model_cache_dir=cache, autosave_period_s=PERSIST_AUTOSAVE_S,
+                          async_autosave=True)
+    configure_continual_learning(engine, continual_learning=True, model_dir=None,
+                                 log=lambda m: None)
+    os.makedirs(rec)
+    engine.begin_recording(rec)
+
+    at = {"frame": None}
+    saves = []
+    save = engine.save_model_to_dir
+
+    def spy(model_dir, saver=None):
+        """Clones of the state at each autosave (on the card), then the save, timed."""
+        if model_dir == cache:
+            saves.clear()
+            opt = model.optimizer.state_dict()
+            with torch.no_grad():
+                saves.append({"frame": at["frame"], "count": opt["count"],
+                              "params": {k: v.clone() for k, v in model.params.items()},
+                              "mu": {k: v.clone() for k, v in opt["mu"].items()},
+                              "nu": {k: v.clone() for k, v in opt["nu"].items()}})
+        t0 = time.perf_counter()
+        out = save(model_dir, saver=saver)
+        if model_dir == cache:
+            saves[-1]["s"] = time.perf_counter() - t0
+        return out
+
+    engine.save_model_to_dir = spy
+
+    def clock(n):
+        at["frame"] = n
+        return (n + 1) / CL_FPS
+
+    rows = []
+    reset_scorer_counts(stream_score)
+    t0 = time.perf_counter()
+    summary = run_stream(
+        engine, SyntheticSource(n_frames=CL_FRAMES, anomaly_frames=range(40, 44), seed=0),
+        on_result=lambda r: rows.append((r.tag, r.cl_stepped, len(engine.anomaly_score_map),
+                                         dict(engine.timings))),
+        clock=clock, log=lambda m: None)
+    run_s = time.perf_counter() - t0  # the loop, the recording snapshot and the drain
+    metrics.close()
+    launches = scorer_counts(stream_score, CL_FRAMES)
+    assert summary["frames"] == CL_FRAMES == len(rows), summary
+    stepped = [tag for tag, cl, _n, _t in rows if cl]
+    assert stepped == [20, 41, 62] and engine.cl_epochs == 3, stepped
+    assert len(saves) == 1 and saves[0]["frame"] == 39 and saves[0]["count"] == 1, [
+        (s["frame"], s["count"]) for s in saves]
+    assert not engine.recording_flag and engine._async_saver is None
+
+    # the recording: five streams of equal counts, every recorded frame annotated
+    (inst,) = os.listdir(rec)
+    inst = os.path.join(rec, inst)
+    counts = {sub: len(os.listdir(os.path.join(inst, sub))) for sub in RECORD_STREAMS}
+    recorded = [tag for (tag, _cl, n, _t), prev in zip(rows, [(0, 0, 0, 0)] + rows) if n > prev[2]]
+    assert set(counts.values()) == {len(recorded)} and recorded == [9, 19, 29, 39, 49, 59], (
+        counts, recorded)
+    with open(os.path.join(inst, "labels.json")) as f:
+        labels = json.load(f)
+    names = {im["file_name"] for im in labels["images"]}
+    assert len(names) == len(labels["annotations"]) == len(recorded)
+    assert {list(a)[0] for a in labels["annotations"]} == names
+    assert checkpoint.has_optimizer(os.path.join(inst, "model"))  # the synchronous snapshot
+    shutil.rmtree(os.path.join(inst, "model"))
+
+    # the cache: one committed round after the drain, the state at the autosave bit for bit
+    assert [n for n, _ in checkpoint._complete_rounds(os.path.join(cache, "rounds"))] == [1]
+    assert checkpoint.resolve_round_dir(cache).endswith(os.path.join("rounds", "00000001"))
+    t0 = time.perf_counter()
+    reloaded = load_engine_from_directory(cache, device="cuda", anomaly_settings=anomaly_settings)
+    reload_s = time.perf_counter() - t0
+    saved = saves[0]
+    opt = reloaded.model.optimizer.state_dict()
+    assert opt["count"] == saved["count"] and reloaded.cam_info == cam_info
+    for key, v in saved["params"].items():
+        assert torch.equal(reloaded.model.params[key], v), key
+        assert torch.equal(opt["mu"][key], saved["mu"][key]), key
+        assert torch.equal(opt["nu"][key], saved["nu"][key]), key
+    moved = sum(not torch.equal(model.params[k], v) for k, v in saved["params"].items())
+    assert moved > 0, "the CL steps after the autosave moved nothing"
+
+    # the reloaded engine scores a fixed frame as the original does at the saved state
+    with torch.no_grad():
+        for key, v in saved["params"].items():
+            model.params[key].copy_(v)
+    del saves[:], saved, opt
+    engine.enable_cont_learning = False
+    engine.model_cache_dir = None
+    maps, scalars = engine.score_state.maps.clone(), engine.score_state.scalars.clone()
+    fixed = SyntheticSource(n_frames=1, anomaly_frames=range(1), seed=9).read()
+    scored = []
+    for e in (engine, reloaded):
+        e.score_state = StreamScoreState(maps.clone(), scalars.clone())
+        r = e.process_frame(fixed, now=1000.0)
+        scored.append((r.score, r.pixel_count, r.norm_err_u8, r.reconstruction_u8))
+    (s0, c0, n0, r0), (s1, c1, n1, r1) = scored
+    assert (s0 == s1 or (np.isnan(s0) and np.isnan(s1))) and c0 == c1, scored
+    assert np.array_equal(n0, n1) and np.array_equal(r0, r1)
+    del reloaded
+    torch.cuda.empty_cache()
+
+    # one synchronous autosave (the override on a clean model), timed on its frame
+    del engine.save_model_to_dir  # the spy: no clones in this timing
+    engine.model_cache_dir = cache
+    engine.async_autosave = False
+    engine.schedule_model_save_override()
+    t0 = time.perf_counter()
+    engine.process_frame(fixed, now=1001.0)
+    sync_s = time.perf_counter() - t0
+    assert not engine.model_changed_flag
+    assert [n for n, _ in checkpoint._complete_rounds(os.path.join(cache, "rounds"))] == [2]
+    shutil.rmtree(cache)
+
+    # the host's share of a recording tick: the five PNGs of host arrays, no device fetch
+    scratch = os.path.join(tmp, "png")
+    for sub in RECORD_STREAMS:
+        os.makedirs(os.path.join(scratch, sub))
+    rng = np.random.RandomState(0)
+    host = (fixed, rng.randint(0, 256, (engine.height, engine.width), dtype=np.uint8),
+            rng.randint(0, 256, (engine.height, engine.width, engine.channels), dtype=np.uint8))
+    png_ms = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        record_frame_artifacts(scratch, f"{i}.png", *host, engine.height, engine.width)
+        png_ms.append((time.perf_counter() - t0) * 1e3)
+    shutil.rmtree(scratch)
+
+    lat = np.array(summary["latencies_ms"])
+    tags = [tag for tag, *_ in rows]
+    is_rec = np.array([t in recorded for t in tags])
+    busy = np.array([t in stepped or t == 39 or t < 2 for t in tags])
+    plain = lat[~busy & ~is_rec]
+    rec_ms = lat[is_rec & ~busy]
+    record_s = np.array([tm["record_s"] for (tag, _c, _n, tm) in rows])
+    result = {
+        "launches": launches, "async_blocking_s": float(lat[tags.index(39)]) / 1e3,
+        "sync_blocking_s": sync_s, "reload_s": reload_s, "run_s": run_s,
+        "frame_p50_ms": float(np.percentile(plain, 50)),
+        "frame_p95_ms": float(np.percentile(plain, 95)),
+        "recording_added_ms": float(np.median(rec_ms) - np.percentile(plain, 50)),
+        "record_s_recording_ms": float(np.median(record_s[is_rec & ~busy]) * 1e3),
+        "record_s_plain_ms": float(np.median(record_s[~busy & ~is_rec]) * 1e3),
+        "cl_frame_ms": [float(lat[tags.index(t)]) for t in stepped],
+        "record_host_ms": float(np.median(png_ms)),
+    }
+    log(f"  {CL_FRAMES} frames at {CL_FPS:g} frames/s on the replayed clock: CL steps in frames "
+        f"{stepped}, one async autosave in frame 39 (of the state after the step of frame 20), "
+        f"recordings in frames {recorded}; kernel launches {launches}")
+    log(f"  the frame that carried the async autosave took {result['async_blocking_s']:.3f} s; "
+        f"one synchronous autosave (override) {sync_s:.3f} s; frames without CL, autosave or "
+        f"recording p50 {result['frame_p50_ms']:.3f} ms, p95 {result['frame_p95_ms']:.3f} ms; "
+        f"recording frames median {float(np.median(rec_ms)):.3f} ms (+"
+        f"{result['recording_added_ms']:.3f} ms; timings['record_s'] "
+        f"{result['record_s_recording_ms']:.3f} vs {result['record_s_plain_ms']:.3f} ms; "
+        f"record_frame_artifacts on host arrays {result['record_host_ms']:.3f} ms); "
+        f"frames with a CL step {[round(v, 1) for v in result['cl_frame_ms']]} ms")
+    log(f"  the loop with the recording snapshot and the drain {run_s:.2f} s; the cache round "
+        f"committed at the drain; load_engine_from_directory {reload_s:.2f} s restored "
+        f"parameters and moments equal bit for bit to the state at the autosave, and scored a "
+        f"fixed frame with the original's bits (score {s0}, count {c0})")
+    del engine
+    return model, config, result
+
+
+def persistence_fleet(tmp, model, config):
+    """Phase (v)'s fleet, as camera_streamer_torch.main_all_cameras runs ``--all-cameras -c
+    --record-dir <rec>`` with FLEET_STREAMS synthetic cameras (the last dropping every
+    DROP_EVERY-th tick), a ring of FLEET_CL_RING ticks and a replayed clock."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score
+    from trustedai_cl_vae_ad_tpu_torch.stream.engine import RECORD_STREAMS
+    from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
+    from trustedai_cl_vae_ad_tpu_torch.stream.run import (
+        configure_continual_learning,
+        run_all_cameras,
+    )
+    from trustedai_cl_vae_ad_tpu_torch.train import checkpoint
+
+    rec = os.path.join(tmp, "fleet_rec")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = MultiCameraEngine(model, config, n_streams=FLEET_STREAMS,
+                               continuous_learning_period_ms=CL_PERIOD_MS,
+                               cl_ring_ticks=FLEET_CL_RING,
+                               model_cache_dir=os.path.join(tmp, "fleet_cache"))
+    configure_continual_learning(engine, continual_learning=True, log=lambda m: None)
+    os.makedirs(rec)
+    names = [f"synthetic{i}" for i in range(FLEET_STREAMS)]
+    inst = engine.begin_recording(rec, names=names)
+    fixed = torch.full((1, engine.height, engine.width, engine.channels), 0.5, device="cuda")
+    watched = ("decoder.layers.ConvTranspose_2.bias", "encoder.layers.Dense_0.weight")
+
+    def snapshot():
+        with torch.inference_mode():
+            out = engine._forward(engine._serve_params, fixed).clone()
+        return out, {k: model.params[k].flatten()[:4096].clone() for k in watched}
+
+    rec0, params0 = snapshot()
+    steps = []
+    do_step = engine._do_cl_step
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = do_step()  # its loss fetch waits for the device
+        steps.append((time.perf_counter() - t0, loss))
+        return loss
+
+    engine._do_cl_step = timed_step
+    reset_scorer_counts(stream_score)
+    t0 = time.perf_counter()
+    summary = run_all_cameras(engine, fleet_readers(FLEET_STREAMS, FLEET_CL_TICKS), names,
+                              clock=lambda n: (n + 1) / CL_FPS, log=lambda m: None)
+    run_s = time.perf_counter() - t0  # the ticks, the fleet snapshot and the drain
+    launches = scorer_counts(stream_score, FLEET_CL_TICKS)
+    peak = torch.cuda.max_memory_allocated()
+    assert summary["ticks"] == FLEET_CL_TICKS, summary
+    assert len(steps) >= 1 and engine.cl_epochs == len(steps), steps
+    assert all(np.isfinite(v) for _s, loss in steps for v in loss.values()), steps
+    rec1, params1 = snapshot()
+    assert all(not torch.equal(params0[k], params1[k]) for k in watched), "parameters unchanged"
+    rec_change = float((rec1 - rec0).abs().max())
+    assert rec_change > 1e-4, rec_change
+    per_camera = {}
+    for name in names:
+        counts = {sub: len(os.listdir(os.path.join(inst, name, sub))) for sub in RECORD_STREAMS}
+        assert len(set(counts.values())) == 1, (name, counts)
+        with open(os.path.join(inst, name, "labels.json")) as f:
+            labels = json.load(f)
+        assert len(labels["images"]) == len(labels["annotations"]) == counts["frames"] > 0, name
+        per_camera[name] = counts["frames"]
+    assert checkpoint.has_optimizer(os.path.join(inst, "model"))  # ONE snapshot for the fleet
+    step_ms = [round(s * 1e3, 1) for s, _ in steps]
+    log(f"  {FLEET_STREAMS} cameras x {FLEET_CL_TICKS} ticks at {CL_FPS:g} ticks/s, ring of "
+        f"{FLEET_CL_RING} ticks ({FLEET_CL_RING * FLEET_STREAMS} rows): {len(steps)} fleet CL "
+        f"step(s) of {step_ms} ms, losses {[round(l['loss'], 6) for _s, l in steps]}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; max |reconstruction change| "
+        f"{rec_change:.3g}; recorded frames per camera {sorted(set(per_camera.values()))}; "
+        f"tick p50 {summary['p50_ms']:.3f} ms; kernel launches {launches}; the run with the "
+        f"fleet snapshot {run_s:.2f} s")
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cl_step_ms": step_ms, "peak_gib": peak / 2**30,
+            "tick_p50_ms": summary["p50_ms"], "run_s": run_s}
+
+
+def phase_v():
+    """The live application's persistence, recording and fleet continual learning at the
+    flagship: the seed log directory (the weights, saved synchronously), the single stream
+    with its async autosave, recording and reload, one synchronous autosave, then the fleet.
+    Every save goes to one temporary directory, which ``TCVAE_CKPT_KEEP_ROUNDS=1`` holds to
+    one round of the cache and one snapshot at a time."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.config import save_config
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config_path
+
+    torch.cuda.empty_cache()
+    keep = os.environ.get("TCVAE_CKPT_KEEP_ROUNDS")
+    os.environ["TCVAE_CKPT_KEEP_ROUNDS"] = "1"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    try:
+        model, config = load_model_from_config_path(os.path.join(REPO, "configs", "config.yml"),
+                                                    seed=0, device="cuda")
+        seed_dir = os.path.join(tmp, "seed")
+        t0 = time.perf_counter()
+        model.save_model(seed_dir)
+        save_config(config, os.path.join(seed_dir, "config.yml"))
+        seed_s = time.perf_counter() - t0
+        log(f"  seed log directory (the weights alone) saved in {seed_s:.2f} s; "
+            f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB free under the temporary directory")
+        del model
+        torch.cuda.empty_cache()
+        model, config, single = persistence_single(
+            tmp, os.path.join(REPO, "configs", "cam_config.yml"))
+        fleet = persistence_fleet(tmp, model, config)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if keep is None:
+            os.environ.pop("TCVAE_CKPT_KEEP_ROUNDS", None)
+        else:
+            os.environ["TCVAE_CKPT_KEEP_ROUNDS"] = keep
+    return {"single": single, "fleet": fleet, "seed_save_s": seed_s}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..u to run after the build (for "
+                        help="comma-separated subset of c..v to run after the build (for "
                              "finding a fault); the final line is then not printed")
     args = parser.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
@@ -2894,6 +3242,8 @@ def main(argv=None):
     run("t", "the convolution weight-gradient probe through the flagship train step",
         lambda: phase_t(dev))
     run("u", "crash-atomic checkpoint rounds and the background saver", lambda: phase_u(dev))
+    run("v", "the live application's persistence, recording and fleet CL at the flagship",
+        phase_v)
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -2901,7 +3251,8 @@ def main(argv=None):
 
     # launches of each kernel on the path that runs it, counted from zero
     # just before that path: (e) for the scorer by arrangement (and (l)'s CL stream and
-    # (p)'s w8a8 ticks and frames beside it), (h) for the global moments,
+    # (p)'s w8a8 ticks and frames and (v)'s persistence stream and fleet CL ticks beside it),
+    # (h) for the global moments,
     # (k) with KurtosisSingle for the per-dimension moments, (p)'s w8a8
     # multi-camera run for the int8 GEMM's tensor-core arrangement (and the scorer's
     # batched launches; the single-stream w8a8 run's beside it), (o)'s tiny w8a8
@@ -2919,6 +3270,8 @@ def main(argv=None):
                     launches_cl_stream=out["l"][arrangement],
                     launches_fleet_ticks=out["p"]["tick_scorer"][1][arrangement],
                     launches_frames=out["p"]["frame_scorer"][1][arrangement],
+                    launches_persistence=out["v"]["single"]["launches"][arrangement],
+                    launches_fleet_cl_ticks=out["v"]["fleet"]["launches"][arrangement],
                     batched=out["n"][arrangement], **out["c"][arrangement])
     tiny_int8 = out["o"]["int8_arrangements"]
     print(json.dumps({"kernels": [

@@ -155,10 +155,11 @@ def test_hold_off_and_state_machine(models):
     assert not t.anomalous_state
 
 
-def test_unported_options_raise(models):
-    """What stays unported raises and names its ROADMAP item: autosave and
-    recording. int8 serving, which used to raise, is an engine option now
-    (tests/test_torch_quant.py holds it to the JAX package)."""
+def test_unported_options_raise(models, tmp_path):
+    """The options that used to raise NotImplementedError are engine options
+    now: int8 serving, the model cache (autosave) and recording.
+    tests/test_torch_quant.py and tests/test_torch_engine_persistence.py hold
+    them to the JAX package; here they are accepted and work on the CPU."""
     from trustedai_cl_vae_ad_tpu_torch.ops.quant import serving_forward
     from trustedai_cl_vae_ad_tpu_torch.stream.engine import StreamingEngine
 
@@ -166,12 +167,16 @@ def test_unported_options_raise(models):
     assert StreamingEngine(tmodel, config, quantize=True).quantized
     _, tree = serving_forward(tmodel.core, tmodel.params, quantize=True)
     assert set(tree) == {"encoder", "decoder"}
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        StreamingEngine(tmodel, config, model_cache_dir="model_cache")
+    cached = StreamingEngine(tmodel, config, model_cache_dir=str(tmp_path / "cache"))
+    assert cached.model_cache_dir == str(tmp_path / "cache") and cached.autosave_period_s == 300.0
+    assert cached.schedule_model_save_flag and not cached.async_autosave
     t = StreamingEngine(tmodel, config)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        t.begin_recording("rec")
-    assert not hasattr(t, "terminate_recording") and not hasattr(t, "save_model_to_dir")
+    (tmp_path / "rec").mkdir()
+    inst = t.begin_recording(str(tmp_path / "rec"))
+    assert t.recording_flag and sorted(os.listdir(inst)) == ["err", "frames", "heatmap",
+                                                             "overlay", "rec"]
+    assert callable(t.terminate_recording) and callable(t.save_model_to_dir)
+    t.recording_flag = False
     t.warmup(frame_shape=(40, 64, 3))  # the scratch run leaves the state untouched
     assert t.ring_filled == 0 and float(t.score_state.scalars.abs().sum()) == 0.0
 

@@ -328,8 +328,9 @@ def test_cli_continual_learning_flags(tmp_path, monkeypatch, capsys):
     with open(os.path.join(logdir, "replay_buffer_paths.csv"), "w") as f:
         f.write("".join(f"{p}\n" for p in images[:3]))
     captured = []
+    # the stand-in returns an empty summary, as run_stream returns one
     monkeypatch.setattr(cli, "run_stream", lambda engine, source, **kw: captured.append(
-        (engine, kw)))
+        (engine, kw)) or {})
     base = ["-m", logdir, "--device", "cpu", "--source", "synthetic", "--max-frames", "2"]
 
     cli.main(base + ["--learning-rate", "1e-5"])

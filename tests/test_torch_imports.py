@@ -54,8 +54,8 @@ print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!
 
 
 def test_the_slices_new_modules_are_in_the_walk():
-    """The walk above covers the package by directory; the training slice's
-    modules are where it expects them."""
+    """The walk above covers the package by directory; the slices' modules
+    (the recorder's viz/plots.py among them) are where it expects them."""
     sources = {os.path.relpath(p, REPO) for p in _port_sources()}
     for rel in ("ops/moments.py", "ops/adam.py", "models/batch_stats.py",
                 "models/kurtosis_global.py", "data/loader.py", "data/saved_dataset.py",
@@ -64,7 +64,7 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "models/kl_gaussian.py", "data/pipeline.py", "stream/engine.py",
                 "stream/run.py", "ops/quant.py", "ops/int8_gemm.py", "stream/multicam.py",
                 "ops/dense_grad_adam.py", "probes/__init__.py", "probes/r11.py",
-                "ops/conv_dw.py", "probes/r18.py"):
+                "ops/conv_dw.py", "probes/r18.py", "viz/__init__.py", "viz/plots.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
     assert {"train_torch.py", "profile_train_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
             os.path.join("tools", "quantize_checkpoint_torch.py")} <= sources

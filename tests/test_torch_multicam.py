@@ -5,6 +5,7 @@ multi-camera run loop and CLI on the CPU."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from unittest import mock
@@ -444,25 +445,27 @@ def test_multicam_serves_a_prequantized_tree(setup, tmp_path):
     np.testing.assert_array_equal(a[0].reconstruction_u8, b[0].reconstruction_u8)
 
 
-# -- what is not ported ---------------------------------------------------------------------
+# -- the surfaces that used to raise -----------------------------------------------------
 
 def test_unported_surfaces_raise_and_name_their_item(setup, tmp_path):
+    """Fleet continual learning, its replay buffer, recording and autosave,
+    which raised NotImplementedError before, are ported
+    (tests/test_torch_multicam_cl.py holds them to the JAX engine); the
+    device mesh still raises with its ROADMAP item. An engine that never
+    uses a CL control allocates no optimizer."""
     _, model, config = setup
     multi = MultiCameraEngine(model, config, n_streams=2)
     assert multi.enable_cont_learning is False
     multi.enable_cont_learning = False  # the CLI's default assignment is accepted
-    for call in (lambda: setattr(multi, "enable_cont_learning", True),
-                 lambda: multi.set_learning_rate(1e-4),
-                 lambda: multi.load_replay_buffer_from_file("replay.txt"),
-                 lambda: multi.warmup(cl=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            call()
-    with pytest.raises(NotImplementedError, match="recording.*queue 1 item 14"):
-        multi.begin_recording(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="autosave.*queue 1 item 14"):
-        multi.save_model_to_dir(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="autosave"):
-        MultiCameraEngine(model, config, n_streams=2, model_cache_dir=str(tmp_path))
+    assert multi._cl_ring is None and model.optimizer is None
+    (tmp_path / "rec").mkdir()
+    inst = multi.begin_recording(str(tmp_path / "rec"), names=["a", "a"])
+    assert multi._stream_names == ["a", "a_1"] and sorted(os.listdir(inst)) == ["a", "a_1"]
+    multi.recording_flag = False
+    assert multi.load_replay_buffer_from_filelist([str(tmp_path / "missing.png")]) == 0
+    cached = MultiCameraEngine(model, config, n_streams=2, model_cache_dir=str(tmp_path / "c"))
+    assert cached.model_cache_dir == str(tmp_path / "c") and not cached.schedule_model_save_flag
+    assert cached.cl_ring_ticks == 4 and cached.continuous_learning_period_ms == 500.0
     with pytest.raises(NotImplementedError, match="queue 1 item 17"):
         MultiCameraEngine(model, config, n_streams=2, mesh=object())
     assert model.optimizer is None
@@ -585,8 +588,9 @@ def test_run_all_cameras_loop(setup, tmp_path, pipelined):
 
 def test_camera_streamer_torch_all_cameras_cli(tmp_path):
     """camera_streamer_torch.py --all-cameras --n-streams 3 --quantize on the
-    CPU: three synthetic cameras through one int8 tick; -c is refused with
-    the ROADMAP item."""
+    CPU: three synthetic cameras through one int8 tick; with -c (refused
+    before fleet CL was ported) the fleet takes CL steps, re-quantizing its
+    serving copy, and writes their metrics under the model cache."""
     cfg = tmp_path / "tiny.yml"
     cfg.write_text(
         "data:\n  image_size: [32, 48, 3]\n"
@@ -611,4 +615,8 @@ def test_camera_streamer_torch_all_cameras_cli(tmp_path):
     assert "jax" not in proc.stderr.lower()
     proc = subprocess.run(base + ["-c"], capture_output=True, text=True, timeout=180,
                           cwd=str(tmp_path), env=env)
-    assert proc.returncode != 0 and "queue 1 item 14" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    # the CL clock starts at 0, so the first tick steps; later ones on the wall clock
+    steps = int(re.search(r"fleet continual learning: (\d+) steps", proc.stdout).group(1))
+    records = (tmp_path / "model_cache" / "metrics" / "metrics.jsonl").read_text().splitlines()
+    assert steps >= 1 and len(records) == steps and "cl/loss" in json.loads(records[0])

@@ -1,7 +1,6 @@
 """Headless single-stream inference and continual-learning engine.
 
-Counterpart of ``trustedai_cl_vae_ad_tpu/stream/engine.py::StreamingEngine``
-without its recording and autosave:
+Counterpart of ``trustedai_cl_vae_ad_tpu/stream/engine.py::StreamingEngine``:
 
   * a device ring of 16 frames; the first frame seeds every slot;
   * per frame: upload the uint8 frame, normalize it, resize it on the device
@@ -29,18 +28,31 @@ without its recording and autosave:
     again after each step. ``qparams=`` serves a tree that is already
     quantized (an int8-checkpoint boot, where the model holds no float
     parameters and continual learning raises);
+  * recording: every ``record_period_ms`` a tick writes five PNG streams
+    (frames, err, heatmap, overlay, rec) into a ``data_<timestamp>``
+    instance directory, and ``terminate_recording`` closes it with a COCO
+    ``labels.json`` of the frames' anomaly scores and a model snapshot;
+  * autosave into ``model_cache_dir``: the period only SETS a schedule flag,
+    each frame consumes the flag and saves iff continual learning dirtied the
+    model (``autosave_cycle``); ``async_autosave`` writes the round in the
+    background after the copy off the device (``train/checkpoint.py::
+    AsyncSaver``). A save writes the checkpoint round, ``config.yml`` with
+    ``cam_info`` embedded and ``replay_buffer_paths.csv``;
+    ``load_engine_from_directory`` boots an engine from such a directory,
+    Adam's moments included, and ``combine_datasets`` merges recordings;
   * the per-phase ``timings`` dict.
-
-Recording and autosave are not ported yet: asking for them raises
-NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import csv
+import datetime
+import json
 import os
+import shutil
 import time
 from collections import deque
+from copy import deepcopy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -48,16 +60,15 @@ import numpy as np
 import torch
 
 from trustedai_cl_vae_ad_tpu_torch.anomaly.cdf import CDFObject, threshold_from_cdf
-from trustedai_cl_vae_ad_tpu_torch.config import load_config
+from trustedai_cl_vae_ad_tpu_torch.config import load_config, save_config
 from trustedai_cl_vae_ad_tpu_torch.data.ingest import preprocess_batch, resize_images
 from trustedai_cl_vae_ad_tpu_torch.data.pipeline import ParallelDecodeIterable
 from trustedai_cl_vae_ad_tpu_torch.ops import moments, stream_score
-from trustedai_cl_vae_ad_tpu_torch.ops.quant import serving_forward
+from trustedai_cl_vae_ad_tpu_torch.ops.quant import QuantizedServingModel, serving_forward
 from trustedai_cl_vae_ad_tpu_torch.ops.stream_score import StreamScoreState
 from trustedai_cl_vae_ad_tpu_torch.utils.profiling import defer_signals
 
-_RECORD_ITEM = "recording is not ported yet (ROADMAP.md queue 1 item 12)"
-_AUTOSAVE_ITEM = "model autosave is not ported yet (ROADMAP.md queue 1 item 8)"
+RECORD_STREAMS = ("frames", "err", "heatmap", "overlay", "rec")
 
 
 def validate_anomaly_settings(anomaly_settings: dict) -> dict:
@@ -122,7 +133,53 @@ def _to_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(255.0 * x), 0, 255).to(torch.uint8)
 
 
-class StreamingEngine:
+class AutosaveControls:
+    """The autosave controls both live engines share. The engine provides
+    ``model``, ``model_cache_dir``, ``autosave_period_s``, ``async_autosave``,
+    ``_async_saver``, ``_last_autosave_t``, ``schedule_model_save_flag``,
+    ``model_changed_flag`` and ``save_model_to_dir(model_dir, saver=None)``."""
+
+    def _get_async_saver(self):
+        """The engine's AsyncSaver when ``async_autosave`` is on, made at the
+        first autosave (an engine that never autosaves starts no writer)."""
+        if not self.async_autosave:
+            return None
+        if self._async_saver is None:
+            from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import AsyncSaver
+
+            self._async_saver = AsyncSaver()
+        return self._async_saver
+
+    def drain_autosaves(self) -> None:
+        """Wait until the background autosave in flight (if any) is written
+        and committed, and release the saver. Call before the process exits:
+        a write cut off by the interpreter's teardown is a lost round. When
+        the write failed, the model is marked dirty again before the error is
+        raised, so the caller can still save it synchronously."""
+        saver, self._async_saver = self._async_saver, None
+        if saver is None:
+            return
+        try:
+            saver.close()
+        except Exception:
+            self.model_changed_flag = True  # the failed round is not on disk
+            raise
+
+    def schedule_model_save(self) -> None:
+        """Save to the cache at the next tick IF the model is dirty (the flag
+        is consumed either way)."""
+        self.schedule_model_save_flag = True
+
+    def schedule_model_save_override(self) -> None:
+        """Save to the cache at the next tick even if the model is clean."""
+        self.schedule_model_save_flag = True
+        self.model_changed_flag = True
+
+    def _maybe_autosave(self, now: float) -> None:
+        autosave_cycle(self, now)
+
+
+class StreamingEngine(AutosaveControls):
     RING_SIZE = 16
 
     def __init__(
@@ -142,10 +199,11 @@ class StreamingEngine:
         quantize: bool = False,
         model_cache_dir: Optional[str] = None,
         qparams: Optional[dict] = None,
+        autosave_period_s: float = 5 * 60.0,
+        async_autosave: bool = False,
     ):
-        if model_cache_dir is not None:
-            raise NotImplementedError(_AUTOSAVE_ITEM)
         self.model = model
+        self.config = config
         # int8 Dense kernels for the inference dispatch (ops/quant.py): the
         # frame's forward streams its weights, so fewer weight bytes are less
         # device time. ``qparams`` is a tree that is already quantized
@@ -213,15 +271,31 @@ class StreamingEngine:
         self._last_inference_t = 0.0
         self._last_cl_t = 0.0
 
+        # autosave (AutosaveControls): the period sets the schedule flag,
+        # which starts set; its clock is seeded from the first frame's (wall
+        # or injected) time. ``async_autosave`` backgrounds the periodic
+        # cache write after the copy off the device; explicit saves and the
+        # recording snapshot stay synchronous. drain_autosaves() before exit.
+        self.model_cache_dir = model_cache_dir
+        self.autosave_period_s = float(autosave_period_s)
+        self.async_autosave = bool(async_autosave)
+        self._async_saver = None
+        self.schedule_model_save_flag = True
+        self._last_autosave_t: Optional[float] = None
+
+        # recording
+        self.record_dir: Optional[str] = None
+        self.record_instance_dir: Optional[str] = None
+        self.recording_flag = False
+        self.anomaly_score_map: dict = {}
+        self._last_record_t = 0.0
+        self.record_period_ms = 500.0
+
         self.process_rate = 0.0
         self.timings: dict = {}
 
         self._forward, self._serve_params = serving_forward(
             model.core, model.params, quantize=self.quantized, qparams=qparams)
-
-    # ----------------------------------------------------- unported controls
-    def begin_recording(self, record_dir: str) -> str:
-        raise NotImplementedError(_RECORD_ITEM)
 
     # -------------------------------------------------------- the dispatch
     def _infer_score(self, ring, idx, frame_u8, state, seed_ring):
@@ -267,18 +341,8 @@ class StreamingEngine:
             score_count.cpu()
         if cl:
             self._ensure_cl()
-            if self.device.type == "cuda":
-                moments.build()
             n = self.RING_SIZE + (0 if self.replay_buffer is None else self.replay_buffer.shape[0])
-            # mid-grey, not zeros: an all-zero latent has no z_l2 gradient
-            stacked = torch.full((n, self.height, self.width, self.channels), 0.5,
-                                 dtype=self.ring.dtype, device=self.device)
-            eps = torch.zeros((n, self.model.latent_size), device=self.device)
-            loss = self.model.core.compute_loss(
-                stacked, training=True, eps=eps,
-                weights=torch.ones(n, device=self.device))["loss"]
-            grads = torch.autograd.grad(loss, self.model.optimizer.params)
-            float(grads[0].flatten()[0])  # wait for the backward
+            warm_cl_backward(self.model, n, (self.height, self.width, self.channels))
 
     def _ensure_cl(self) -> None:
         """Attach the optimizer (allocating Adam's moments on the device) at
@@ -324,11 +388,14 @@ class StreamingEngine:
         with defer_signals(), torch.inference_mode():
             self.score_state, norm_u8, rec_u8, score_count = self._infer_score(
                 self.ring, idx, frame_u8, self.score_state, self.ring_filled == 1)
+        record_frame = frame_u8
         if self.pipelined:
-            pending, self._pending = self._pending, (score_count, norm_u8, rec_u8, tag)
+            # the raw frame and its tag travel with the frame's result, so a
+            # recording pairs frame N-1's image with frame N-1's score
+            pending, self._pending = self._pending, (score_count, norm_u8, rec_u8, frame_u8, tag)
             if pending is None:
                 return None  # the first frame's result arrives next call
-            score_count, norm_u8, rec_u8, tag = pending
+            score_count, norm_u8, rec_u8, record_frame, tag = pending
         score, count = score_count.cpu().numpy()  # single small device->host fetch
         t_infer = time.perf_counter()
 
@@ -347,6 +414,8 @@ class StreamingEngine:
 
         result = self._finish(float(score), float(count), norm_u8, rec_u8, tag, now,
                               cl_stepped=cl_stepped, loss=loss)
+        self._maybe_record(record_frame, result, now)
+        self._maybe_autosave(now)
 
         t_end = time.perf_counter()
         self.timings = {
@@ -363,10 +432,12 @@ class StreamingEngine:
         if not self.pipelined or self._pending is None:
             return None
         now = time.monotonic() if now is None else now
-        score_count, norm_u8, rec_u8, tag = self._pending
+        score_count, norm_u8, rec_u8, record_frame, tag = self._pending
         self._pending = None
         score, count = score_count.cpu().numpy()
-        return self._finish(float(score), float(count), norm_u8, rec_u8, tag, now)
+        result = self._finish(float(score), float(count), norm_u8, rec_u8, tag, now)
+        self._maybe_record(record_frame, result, now)
+        return result
 
     def _finish(self, score_f, count_f, norm_u8, rec_u8, tag, now, cl_stepped=False,
                 loss=None) -> FrameResult:
@@ -392,12 +463,8 @@ class StreamingEngine:
     def _cl_batch(self):
         """(stacked frames, row weights) of one CL step: the ring, then the
         capacity-padded replay buffer, whose padding rows weigh 0."""
-        if self.replay_buffer is None:
-            return self.ring, torch.ones(self.RING_SIZE, device=self.device)
-        stacked = torch.cat([self.ring, self.replay_buffer], dim=0)
-        weights = torch.zeros(stacked.shape[0], device=self.device)
-        weights[: self.RING_SIZE + self.replay_n] = 1.0
-        return stacked, weights
+        return cl_batch(self.ring, torch.ones(self.RING_SIZE, device=self.device),
+                        self.replay_buffer, self.replay_n)
 
     def _do_cl_step(self) -> dict:
         """One gradient step on ring [+ replay]; returns the loss dict as
@@ -541,6 +608,179 @@ class StreamingEngine:
         else:
             self.toggle_anomalous_state(False, now)
 
+    # -------------------------------------------------------------- recording
+    def begin_recording(self, record_dir: str) -> str:
+        """Open a ``data_<timestamp>`` instance directory under ``record_dir``
+        (which must exist) with the five PNG streams; returns its path."""
+        if not os.path.isdir(record_dir):
+            raise NotADirectoryError(f"record directory not found: {record_dir}")
+        self.record_dir = record_dir
+        start_time = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        self.record_instance_dir = os.path.join(record_dir, f"data_{start_time}")
+        for sub in RECORD_STREAMS:
+            os.makedirs(os.path.join(self.record_instance_dir, sub))
+        self.anomaly_score_map = {}
+        self.recording_flag = True
+        print(f"Recording to: {self.record_instance_dir}")
+        return self.record_instance_dir
+
+    def _maybe_record(self, frame_u8: np.ndarray, result: FrameResult, now: float) -> None:
+        """Every ``record_period_ms``: write the frame's five PNGs. Only a tick
+        that records fetches the error map and the reconstruction."""
+        if not self.recording_flag:
+            return
+        if (now - self._last_record_t) * 1000.0 < self.record_period_ms:
+            return
+        self._last_record_t = now
+        basename = datetime.datetime.now().strftime("%Y%m%d-%H%M%S-%f") + ".png"
+        self.anomaly_score_map[basename] = result.score
+        record_frame_artifacts(self.record_instance_dir, basename, frame_u8,
+                               result.norm_err_u8, result.reconstruction_u8,
+                               self.height, self.width)
+
+    def terminate_recording(self) -> Optional[str]:
+        """Close the recording: a COCO ``labels.json`` with the recorded
+        frames' anomaly scores, and a synchronous model snapshot in
+        ``<instance>/model``. Returns the labels' path (None if nothing was
+        opened)."""
+        self.recording_flag = False
+        d = self.record_instance_dir
+        if d is None or not os.path.isdir(d):
+            return None
+        labels_filename = write_coco_labels(d, self.anomaly_score_map)
+        self.save_model_to_dir(os.path.join(d, "model"))
+        return labels_filename
+
+    # ------------------------------------------------------------ model save
+    def save_model_to_dir(self, model_dir: str, saver=None) -> str:
+        """Checkpoint round + ``config.yml`` with ``cam_info`` embedded +
+        ``replay_buffer_paths.csv``. ``saver`` (an AsyncSaver) writes the
+        round in the background; ``autosave_cycle`` passes the engine's."""
+        return save_model_dir(self.model, self.config, model_dir, cam_info=self.cam_info,
+                              replay_paths=self.replay_buffer_paths, saver=saver)
+
+    def save_model_to_dir_by_date(self, model_dir: str) -> str:
+        stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        return self.save_model_to_dir(os.path.join(os.path.abspath(model_dir), f"date_{stamp}"))
+
+
+def record_frame_artifacts(instance_dir: str, basename: str, frame_u8: np.ndarray,
+                           norm_err_u8: np.ndarray, reconstruction_u8: np.ndarray,
+                           height: int, width: int) -> None:
+    """Write one tick's five PNG streams into an instance directory. The
+    overlay blends the heatmap with the model-size INPUT frame (resized on
+    the host, PIL bilinear, when the camera delivers another size), not the
+    reconstruction. Shared by the single-stream and multi-camera engines."""
+    from trustedai_cl_vae_ad_tpu_torch.viz.plots import jet_heatmap, overlay_heatmap, save_rgb
+
+    heatmap = jet_heatmap(norm_err_u8)
+    base_img = frame_u8
+    if base_img.shape[:2] != (height, width):
+        from PIL import Image
+
+        # PIL makes no image of (H, W, 1): squeeze, resize, restore the axis
+        single = base_img.ndim == 3 and base_img.shape[-1] == 1
+        base_img = np.asarray(
+            Image.fromarray(base_img[..., 0] if single else base_img)
+            .resize((width, height), Image.BILINEAR), np.uint8)
+        if single:
+            base_img = base_img[..., None]
+    overlay = overlay_heatmap(norm_err_u8, base_img)
+    for sub, arr in zip(RECORD_STREAMS,
+                        (frame_u8, norm_err_u8, heatmap, overlay, reconstruction_u8)):
+        save_rgb(arr, os.path.join(instance_dir, sub, basename))
+
+
+def write_coco_labels(instance_dir: str, anomaly_score_map: dict) -> str:
+    """COCO ``labels.json`` over ``instance_dir/frames`` with one anomaly-score
+    annotation per recorded frame; returns its path. Shared by both engines."""
+    from PIL import Image
+
+    img_filelist = []
+    for dirpath, _, filenames in os.walk(os.path.join(instance_dir, "frames")):
+        for f in sorted(filenames):
+            if os.path.splitext(f)[1].lower() == ".png":
+                img_filelist.append(os.path.join(dirpath, f))
+    output_dict = {
+        "info": {
+            "year": datetime.datetime.now().year,
+            "version": "1.0",
+            "description": "custom",
+            # the JAX recorder's contributor: both packages' recordings merge alike
+            "contributor": "trustedai_cl_vae_ad_tpu",
+        },
+        "categories": [],
+        "images": [],
+        "annotations": [],
+    }
+    for idx, img_filepath in enumerate(img_filelist):
+        with Image.open(img_filepath) as img:
+            width, height = img.size
+        img_basename = os.path.basename(img_filepath)
+        output_dict["images"].append(
+            {"id": idx, "width": width, "height": height, "file_name": img_basename})
+        score = anomaly_score_map.get(img_basename)
+        if score is not None:
+            output_dict["annotations"].append({img_basename: score})
+    labels_filename = os.path.join(instance_dir, "labels.json")
+    with open(labels_filename, "w") as f:
+        json.dump(output_dict, f)
+    return labels_filename
+
+
+def save_model_dir(model, config: dict, model_dir: str, cam_info=None, replay_paths=None,
+                   saver=None) -> str:
+    """The log-directory save both engines share: the checkpoint round, then
+    ``config.yml`` (with ``cam_info`` embedded) and the replay provenance
+    ``replay_buffer_paths.csv``. With ``saver`` the round is written in the
+    background (the sidecars are small host writes and stay synchronous).
+    An int8-boot ``QuantizedServingModel`` takes the plain save, which
+    persists its quantized tree."""
+    os.makedirs(model_dir, exist_ok=True)
+    if saver is not None and not isinstance(model, QuantizedServingModel):
+        model.save_model(model_dir, saver=saver)
+    else:
+        model.save_model(model_dir)
+    output_config = deepcopy(config)
+    if cam_info:
+        output_config["cam_info"] = cam_info
+    save_config(output_config, os.path.join(model_dir, "config.yml"))
+    if replay_paths:
+        with open(os.path.join(model_dir, "replay_buffer_paths.csv"), "w", newline="") as f:
+            writer = csv.writer(f)
+            for row in replay_paths:
+                writer.writerow([row])
+    print(f"Saved Model to {model_dir}")
+    return model_dir
+
+
+def autosave_cycle(eng, now: float) -> None:
+    """The autosave state machine both engines share (``AutosaveControls``):
+    the period only SETS the schedule flag; each tick consumes the flag and
+    saves iff the model is dirty. A failed save (a full disk, or a background
+    write of the previous round that failed, which the saver raises at this
+    save) is reported, leaves the model DIRTY so that the next schedule
+    retries, and never stops the frame loop."""
+    if eng.model_cache_dir is None:
+        return
+    if eng._last_autosave_t is None:
+        eng._last_autosave_t = now
+    if now - eng._last_autosave_t >= eng.autosave_period_s:
+        eng._last_autosave_t = now
+        eng.schedule_model_save_flag = True
+    if not eng.schedule_model_save_flag:
+        return
+    eng.schedule_model_save_flag = False
+    if not eng.model_changed_flag:
+        return
+    try:
+        eng.save_model_to_dir(eng.model_cache_dir, saver=eng._get_async_saver())
+    except Exception as e:  # noqa: BLE001: the frame loop must keep running
+        print(f"autosave failed (will retry at the next schedule): {e!r}")
+        eng.model_changed_flag = True
+        return
+    eng.model_changed_flag = False
+
 
 def parse_replay_file(input_filename: str) -> list:
     """Replay-buffer file -> the image paths in it that exist. txt (one path
@@ -581,3 +821,116 @@ def decode_filelist_to_model_res(filelist: list, height: int, width: int, channe
             out[torch.as_tensor(block, device=device)] = preprocess_batch(
                 stack, [height, width, channels], device)
     return out, [p for _img, p in decoded]
+
+
+def cl_batch(rows: torch.Tensor, row_weights: torch.Tensor, replay_buffer: Optional[torch.Tensor],
+             replay_n: int):
+    """(stacked frames, row weights) of one continual-learning step: the
+    engine's recent frames with their weights, then the capacity-padded
+    replay buffer, whose first ``replay_n`` rows weigh 1 and the padding 0.
+    Shared by the single-stream ring and the fleet ring."""
+    if replay_buffer is None:
+        return rows, row_weights
+    replay_weights = torch.zeros(replay_buffer.shape[0], device=row_weights.device)
+    replay_weights[:replay_n] = 1.0
+    return (torch.cat([rows, replay_buffer], dim=0),
+            torch.cat([row_weights, replay_weights], dim=0))
+
+
+def warm_cl_backward(model, n: int, shape) -> None:
+    """Build the moments kernels and run a continual-learning step's loss
+    and backward once on a scratch batch of n rows at ``shape`` (H, W, C),
+    so that the first real step pays neither the builds nor the first-call
+    costs. The gradients are dropped: parameters, moments and the model's
+    generator stay as they were. Mid-grey rows, not zeros: an all-zero
+    latent has no z_l2 gradient."""
+    if model.device.type == "cuda":
+        moments.build()
+    stacked = torch.full((n, *shape), 0.5, dtype=torch.float32, device=model.device)
+    eps = torch.zeros((n, model.latent_size), device=model.device)
+    loss = model.core.compute_loss(stacked, training=True, eps=eps,
+                                   weights=torch.ones(n, device=model.device))["loss"]
+    grads = torch.autograd.grad(loss, model.optimizer.params)
+    float(grads[0].flatten()[0])  # wait for the backward
+
+
+def boot_serving_model(log_dir: str, device="cuda", quantize: bool = False,
+                       int8_checkpoint_boot: bool = False, restore_optimizer: bool = True,
+                       log=print):
+    """(model, config, qparams) of a serving surface booted from a log
+    directory; the one place that holds the boot rules. With ``quantize``
+    and ``int8_checkpoint_boot``, a ``<log_dir>/quantized`` sidecar
+    (tools/quantize_checkpoint_torch.py) boots the model from the int8 tree:
+    the float parameters are neither read nor put on the device (a
+    ``QuantizedServingModel``, inference only), ``qparams`` is that tree, and
+    a sidecar older than the float checkpoint beside it is reported
+    (``quantized_staleness``). Otherwise the float model is loaded, with its
+    Adam moments when ``restore_optimizer`` and the directory holds them (a
+    continual-learning resume), and ``qparams`` is None."""
+    from trustedai_cl_vae_ad_tpu_torch.ops.quant import (
+        has_quantized_checkpoint,
+        load_int8_serving_model,
+    )
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_directory
+
+    if quantize and int8_checkpoint_boot:
+        if has_quantized_checkpoint(log_dir):
+            model, config = load_int8_serving_model(log_dir, device=device, log=log)
+            return model, config, model.qparams
+        log(f"no quantized checkpoint under {log_dir}: float boot "
+            "(tools/quantize_checkpoint_torch.py writes one)")
+    model, config = load_model_from_directory(log_dir, device=device,
+                                              restore_optimizer=restore_optimizer)
+    return model, config, None
+
+
+def load_engine_from_directory(log_dir: str, int8_checkpoint_boot: bool = False, device="cuda",
+                               **kwargs) -> StreamingEngine:
+    """A StreamingEngine over the model of a log directory
+    (``boot_serving_model``: the weights and, when saved, Adam's moments in
+    one read; an int8 boot with ``quantize=True`` and
+    ``int8_checkpoint_boot``), with the ``cam_info`` of its ``config.yml``
+    and its ``replay_buffer_paths.csv`` loaded when present. ``kwargs`` go to
+    the engine."""
+    model, config, qparams = boot_serving_model(
+        log_dir, device, quantize=bool(kwargs.get("quantize")),
+        int8_checkpoint_boot=int8_checkpoint_boot)
+    kwargs.setdefault("cam_info", config.get("cam_info"))
+    engine = StreamingEngine(model, config, qparams=qparams, **kwargs)
+    replay_csv = os.path.join(log_dir, "replay_buffer_paths.csv")
+    if os.path.exists(replay_csv):
+        engine.load_replay_buffer_from_file(replay_csv)
+    return engine
+
+
+def combine_datasets(src_dirs: list, dest_dir: str) -> str:
+    """Merge recorded datasets into ``dest_dir`` (which must exist): copy
+    every source tree that holds a ``labels.json``, and write one
+    ``labels.json`` whose images are all the sources' in order. Returns its
+    path."""
+    if not os.path.isdir(dest_dir):
+        raise NotADirectoryError(f"destination not found: {dest_dir}")
+    labels = []
+    for src_dir in src_dirs:
+        label_filepath = os.path.join(src_dir, "labels.json")
+        if not os.path.exists(label_filepath):
+            continue
+        with open(label_filepath) as f:
+            labels.append(json.load(f))
+        for root_path, _dirs, files in os.walk(src_dir):
+            d_dir = root_path.replace(src_dir, dest_dir, 1)
+            os.makedirs(d_dir, exist_ok=True)
+            for f in files:
+                dst_file = os.path.join(d_dir, f)
+                if os.path.exists(dst_file):
+                    os.remove(dst_file)
+                shutil.copy(os.path.join(root_path, f), d_dir)
+    if not labels:
+        raise FileNotFoundError("no labels.json found in any source directory")
+    output_label = deepcopy(labels[0])
+    for label_obj in labels[1:]:
+        output_label["images"].extend(label_obj["images"])
+    out_path = os.path.join(dest_dir, "labels.json")
+    with open(out_path, "w") as f:
+        json.dump(output_label, f)
+    return out_path

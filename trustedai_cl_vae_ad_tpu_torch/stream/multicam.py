@@ -1,30 +1,42 @@
-"""Multi-camera batched streaming inference and anomaly scoring.
+"""Multi-camera batched streaming inference, scoring and fleet continual learning.
 
-Counterpart of the inference half of ``trustedai_cl_vae_ad_tpu/stream/
-multicam.py::MultiCameraEngine``. One model serves K camera streams: a tick
-uploads the K uint8 frames as one batch, normalizes and resizes them on the
-device, runs ONE forward for all of them (float, or int8 through
-``ops/quant.py``: the weights are read once per tick, whatever K is) and one
-launch of the stream-scorer kernel over a grid of K frames
-(``ops/stream_score.py::stream_score_step_batched``; the JAX engine runs a
-vmapped jnp reference there), then fetches the K [score, count] pairs in one
-copy and advances K host-side state machines. The scorer state is batched:
-maps (K, 2, H, W), scalars (K, 6).
+Counterpart of ``trustedai_cl_vae_ad_tpu/stream/multicam.py::MultiCameraEngine``.
+One model serves K camera streams: a tick uploads the K uint8 frames as one
+batch, normalizes and resizes them on the device, runs ONE forward for all of
+them (float, or int8 through ``ops/quant.py``: the weights are read once per
+tick, whatever K is) and one launch of the stream-scorer kernel over a grid of
+K frames (``ops/stream_score.py::stream_score_step_batched``; the JAX engine
+runs a vmapped jnp reference there), then fetches the K [score, count] pairs
+in one copy and advances K host-side state machines. The scorer state is
+batched: maps (K, 2, H, W), scalars (K, 6).
 
 A camera that drops a tick is handled with a validity mask: that stream's
 EMA state is left untouched, its result is None and its score would be NaN.
 
-Ported: scoring, the per-stream state machines with fixed and per-stream CDF
+Also: the per-stream state machines with fixed and per-stream CDF
 thresholds, ``new_task`` / ``reset_stream``, mixed camera resolutions (host
 resize onto the pinned batch shape), the provisional warm-up pin, pipelined
-mode with ``flush``, int8 serving (``quantize=`` / ``qparams=``). Not ported
-yet, each raising NotImplementedError that names its ROADMAP item: fleet
-continual learning and its replay buffer, recording, autosave, and a device
-mesh.
+mode with ``flush``, int8 serving (``quantize=`` / ``qparams=``), and what the
+single-stream engine (``stream/engine.py``) does for one camera, lifted to the
+fleet:
+
+  * fleet continual learning: every tick stores its model-size float batch in
+    slot ``tick % T`` of a (T, K, H, W, C) device ring, with the validity
+    mask as that slot's row weights; at its cadence ONE gradient step on the
+    T·K rows (plus a shared capacity-padded replay buffer) trains the shared
+    weights on every camera's scene at once; dropped frames and padding weigh
+    0. The ring and Adam's moments are allocated at the first enabled tick;
+  * per-camera recording: one subtree of five PNG streams and one
+    ``labels.json`` per camera, one model snapshot for the fleet;
+  * autosave into ``model_cache_dir`` on the single-stream engine's schedule.
+
+A device mesh is not ported (ROADMAP queue 1 item 17).
 """
 
 from __future__ import annotations
 
+import datetime
+import os
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -37,15 +49,21 @@ from trustedai_cl_vae_ad_tpu_torch.anomaly.cdf import CDFObject, threshold_from_
 from trustedai_cl_vae_ad_tpu_torch.data.ingest import resize_images
 from trustedai_cl_vae_ad_tpu_torch.ops import stream_score
 from trustedai_cl_vae_ad_tpu_torch.ops.quant import serving_forward
-from trustedai_cl_vae_ad_tpu_torch.stream.engine import _to_u8, validate_anomaly_settings
+from trustedai_cl_vae_ad_tpu_torch.stream.engine import (
+    RECORD_STREAMS,
+    AutosaveControls,
+    _to_u8,
+    cl_batch,
+    decode_filelist_to_model_res,
+    parse_replay_file,
+    record_frame_artifacts,
+    save_model_dir,
+    validate_anomaly_settings,
+    warm_cl_backward,
+    write_coco_labels,
+)
 from trustedai_cl_vae_ad_tpu_torch.utils.profiling import defer_signals
 
-_FLEET_CL_ITEM = ("fleet continual learning is not ported yet (ROADMAP.md queue 1 item 14: "
-                  "the fleet ring, the shared replay buffer and the fleet CL step)")
-_RECORD_ITEM = ("multi-camera recording is not ported yet (ROADMAP.md queue 1 item 14, "
-                "after item 12's recording)")
-_AUTOSAVE_ITEM = ("multi-camera autosave is not ported yet (ROADMAP.md queue 1 item 14, "
-                  "after item 8's checkpoint layout)")
 _MESH_ITEM = "device meshes are not ported yet (ROADMAP.md queue 1 item 17)"
 
 
@@ -75,7 +93,7 @@ class StreamStatus:
         return self._rec_np
 
 
-class MultiCameraEngine:
+class MultiCameraEngine(AutosaveControls):
     def __init__(
         self,
         model,
@@ -89,18 +107,22 @@ class MultiCameraEngine:
         pipelined: bool = False,
         mesh=None,
         qparams: Optional[dict] = None,
+        continuous_learning_period_ms: float = 500.0,
+        cl_ring_ticks: int = 4,
+        metrics=None,
+        autosave_period_s: float = 5 * 60.0,
+        replay_capacity: int = 64,
+        async_autosave: bool = False,
     ):
         if n_streams < 1:
             raise ValueError(f"n_streams must be at least 1, got {n_streams}")
         if mesh is not None:
             raise NotImplementedError(_MESH_ITEM)
-        if model_cache_dir is not None:
-            raise NotImplementedError(_AUTOSAVE_ITEM)
         self.model = model
         self.device = model.device
         # ``qparams`` is a tree that is already quantized
         # (load_quantized_checkpoint): the int8-checkpoint boot, where
-        # model.params may be None
+        # model.params may be None and fleet continual learning raises
         self.quantized = bool(quantize) or qparams is not None
         self.config = config
         self.n_streams = int(n_streams)
@@ -140,30 +162,205 @@ class MultiCameraEngine:
         self._pending = None
         self.last_emitted_tag = None
 
+        # fleet continual learning: ONE step on the union of every stream's
+        # last ``cl_ring_ticks`` ticks; the ring and the optimizer's moments
+        # are allocated at the first enabled tick (_ensure_cl)
+        self.enable_cont_learning = False
+        self.continuous_learning_period_ms = float(continuous_learning_period_ms)
+        self.cl_ring_ticks = int(cl_ring_ticks)
+        self.metrics = metrics
+        self.cl_epochs = 0
+        self.last_epoch_loss: Optional[dict] = None
+        self.model_changed_flag = False
+        self._last_cl_t = 0.0
+        self._cl_ring: Optional[torch.Tensor] = None  # (T, K, H, W, C) float32
+        self._cl_valid: Optional[np.ndarray] = None  # (T, K) row weights
+        self._cl_tick = 0
+
+        # the replay buffer the fleet shares, capacity-padded as the
+        # single-stream engine's: padding rows weigh 0
+        self.replay_capacity = int(replay_capacity)
+        self.replay_buffer: Optional[torch.Tensor] = None
+        self.replay_n = 0
+        self.replay_buffer_paths: Optional[list] = None
+
+        # per-stream recording: the single-stream engine's instance layout,
+        # one subtree per stream
+        self.recording_flag = False
+        self.record_dir: Optional[str] = None
+        self.record_instance_dir: Optional[str] = None
+        self.record_period_ms = 500.0
+        self._last_record_t = 0.0
+        self._stream_names: Optional[List[str]] = None
+        self._anomaly_score_maps: Optional[List[dict]] = None
+
+        # autosave (AutosaveControls): fleet CL changes the shared weights,
+        # so the single-stream engine's cycle applies; the schedule flag
+        # starts clear here, as in the JAX fleet engine
+        self.model_cache_dir = model_cache_dir
+        self.autosave_period_s = float(autosave_period_s)
+        self.async_autosave = bool(async_autosave)
+        self._async_saver = None
+        self.schedule_model_save_flag = False
+        self._last_autosave_t: Optional[float] = None
+
         self._forward, self._serve_params = serving_forward(
             model.core, model.params, quantize=self.quantized, qparams=qparams)
 
-    # ----------------------------------------------------- unported controls
-    @property
-    def enable_cont_learning(self) -> bool:
-        return False
+    # ------------------------------------------------------------ fleet CL
+    def _need_float_model(self) -> None:
+        """Attach the optimizer (allocating Adam's moments) if needed; raises
+        on an int8-checkpoint boot, which holds no float parameters."""
+        if self.model.params is None:
+            raise RuntimeError(
+                "fleet continual learning needs float params, but this engine was booted from "
+                "an int8 checkpoint (inference-only). Load the float checkpoint to train.")
+        if self.model.optimizer is None:
+            self.model.compile()
 
-    @enable_cont_learning.setter
-    def enable_cont_learning(self, value: bool) -> None:
-        if value:
-            raise NotImplementedError(_FLEET_CL_ITEM)
+    def _ensure_cl(self) -> None:
+        """Allocate the fleet ring and the optimizer at the first use."""
+        if self._cl_ring is not None:
+            return
+        self._need_float_model()
+        t, k = self.cl_ring_ticks, self.n_streams
+        # made outside inference mode and written in place inside it, so its
+        # rows can enter the CL step's autograd graph
+        self._cl_ring = torch.zeros((t, k, self.height, self.width, self.channels),
+                                    dtype=torch.float32, device=self.device)
+        self._cl_valid = np.zeros((t, k), np.float32)
+
+    def _do_cl_step(self) -> Optional[dict]:
+        """One gradient step on the fleet ring (all streams, weighted rows)
+        plus the replay buffer; None while no row of the ring is valid.
+        Returns the loss dict as floats, fetched in one copy."""
+        if self._cl_valid is None or self._cl_valid.sum() == 0:
+            return None
+        rows = self._cl_ring.reshape((-1,) + self._cl_ring.shape[2:])
+        stacked, weights = cl_batch(
+            rows, torch.from_numpy(self._cl_valid.reshape(-1)).to(self.device),
+            self.replay_buffer, self.replay_n)
+        # parameters and moments update in place, tensor by tensor: defer
+        # signals so an interrupt never leaves a step half applied
+        with defer_signals():
+            loss, _x_hat = self.model.train_step_and_run(stacked, weights=weights)
+            if self.quantized:
+                _, self._serve_params = serving_forward(
+                    self.model.core, self.model.params, quantize=True)
+        self.cl_epochs += 1
+        values = torch.stack([v.to(torch.float32) for v in loss.values()]).cpu().tolist()
+        loss = dict(zip(loss, values))
+        self.last_epoch_loss = loss
+        self.model_changed_flag = True
+        if self.metrics is not None:
+            self.metrics.log(self.cl_epochs, loss, prefix="cl/")
+        return loss
 
     def set_learning_rate(self, lr: float) -> None:
-        raise NotImplementedError(_FLEET_CL_ITEM)
+        # a CL control: dialing it attaches the optimizer if needed
+        self._need_float_model()
+        self.model.set_learning_rate(lr)
 
+    def set_img_noise(self, beta: float) -> None:
+        """The img-noise dial -> model.beta; stored, with no effect on the CL
+        loss, as in the single-stream engine."""
+        self.model.beta = beta
+
+    # ------------------------------------------------------------ replay
     def load_replay_buffer_from_file(self, input_filename: str) -> int:
-        raise NotImplementedError(_FLEET_CL_ITEM)
+        """txt (one path per line) or csv (first column) -> the fleet's replay
+        buffer."""
+        return self.load_replay_buffer_from_filelist(parse_replay_file(input_filename))
 
+    def load_replay_buffer_from_filelist(self, filelist: list) -> int:
+        imgs, ok_paths = decode_filelist_to_model_res(
+            filelist, self.height, self.width, self.channels, self.device)
+        n = len(ok_paths)
+        if n == 0:
+            return 0
+        if n > self.replay_capacity:
+            # grow in fleet-ring buckets, so that repeated oversized loads
+            # converge to few distinct batch shapes
+            ring_rows = self.cl_ring_ticks * self.n_streams
+            self.replay_capacity = -(-n // ring_rows) * ring_rows
+        buf = torch.zeros((self.replay_capacity, self.height, self.width, self.channels),
+                          dtype=torch.float32, device=self.device)
+        buf[:n] = imgs
+        self.replay_buffer = buf
+        self.replay_n = n
+        self.replay_buffer_paths = ok_paths
+        print(f"Replay Buffer Loaded: {n} images (capacity {self.replay_capacity})")
+        return n
+
+    # ------------------------------------------------------------ recording
     def begin_recording(self, record_dir: str, names: Optional[List[str]] = None) -> str:
-        raise NotImplementedError(_RECORD_ITEM)
+        """Open a ``data_<timestamp>`` instance directory with one subtree of
+        five PNG streams per stream, named after ``names`` (default
+        cam<i>); names that collide are made unique (gate, gate_1, gate_2,
+        each candidate checked again). Returns the instance directory."""
+        if not os.path.isdir(record_dir):
+            raise NotADirectoryError(f"record directory not found: {record_dir}")
+        if names is not None and len(names) != self.n_streams:
+            raise ValueError(f"{len(names)} names for {self.n_streams} streams")
+        raw = list(names) if names else [f"cam{i}" for i in range(self.n_streams)]
+        seen: set = set()
+        self._stream_names = []
+        for name in raw:
+            cand, k = name, 0
+            while cand in seen:
+                k += 1
+                cand = f"{name}_{k}"
+            seen.add(cand)
+            self._stream_names.append(cand)
+        self.record_dir = record_dir
+        stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        self.record_instance_dir = os.path.join(record_dir, f"data_{stamp}")
+        for name in self._stream_names:
+            for sub in RECORD_STREAMS:
+                os.makedirs(os.path.join(self.record_instance_dir, name, sub))
+        self._anomaly_score_maps = [{} for _ in range(self.n_streams)]
+        self.recording_flag = True
+        print(f"Recording to: {self.record_instance_dir}")
+        return self.record_instance_dir
 
-    def save_model_to_dir(self, model_dir: str) -> str:
-        raise NotImplementedError(_AUTOSAVE_ITEM)
+    def _maybe_record(self, batch: np.ndarray, valid: np.ndarray,
+                      out: List[Optional[StreamStatus]], now: float) -> None:
+        """Every ``record_period_ms``: each stream's five PNGs; a stream that
+        dropped the tick records nothing."""
+        if not self.recording_flag:
+            return
+        if (now - self._last_record_t) * 1000.0 < self.record_period_ms:
+            return
+        self._last_record_t = now
+        basename = datetime.datetime.now().strftime("%Y%m%d-%H%M%S-%f") + ".png"
+        for i, r in enumerate(out):
+            if r is None or not valid[i]:
+                continue
+            self._anomaly_score_maps[i][basename] = r.score
+            record_frame_artifacts(
+                os.path.join(self.record_instance_dir, self._stream_names[i]), basename,
+                batch[i], r.norm_err_u8, r.reconstruction_u8, self.height, self.width)
+
+    def terminate_recording(self) -> Optional[str]:
+        """Close the recording: one ``labels.json`` per stream and ONE model
+        snapshot for the fleet (the weights are shared). Returns the
+        instance directory (None if nothing was opened)."""
+        self.recording_flag = False
+        root = self.record_instance_dir
+        if root is None or not os.path.isdir(root):
+            return None
+        for i, name in enumerate(self._stream_names):
+            write_coco_labels(os.path.join(root, name), self._anomaly_score_maps[i])
+        self.save_model_to_dir(os.path.join(root, "model"))
+        return root
+
+    # ----------------------------------------------------------- model save
+    def save_model_to_dir(self, model_dir: str, saver=None) -> str:
+        """Checkpoint round + ``config.yml`` + replay provenance (the
+        single-stream engine's save without ``cam_info``, a per-camera
+        notion)."""
+        return save_model_dir(self.model, self.config, model_dir,
+                              replay_paths=self.replay_buffer_paths, saver=saver)
 
     # ------------------------------------------------------------- the tick
     def _host_resize(self, i: int, frame: np.ndarray, ref_shape) -> np.ndarray:
@@ -191,15 +388,16 @@ class MultiCameraEngine:
 
     def _step(self, batch_u8: np.ndarray, valid: np.ndarray):
         """One tick on the device: normalize, resize, one forward for all K
-        frames, one launch of the scorer over them. Returns the new state and
-        the tick's device results; nothing is fetched."""
+        frames, one launch of the scorer over them. Returns the new state,
+        the tick's device results and the model-size float batch (which the
+        fleet CL ring stores); nothing is fetched."""
         x = torch.from_numpy(batch_u8).to(self.device).to(torch.float32) / 255.0
         x = resize_images(x, (self.height, self.width))
         x_hat = self._forward(self._serve_params, x)
         maps, scalars, norm, score_count = stream_score.stream_score_step_batched(
             self.maps, self.scalars, x, x_hat, self.stream_error_ma,
             torch.from_numpy(valid).to(self.device))
-        return maps, scalars, _to_u8(norm), _to_u8(x_hat), score_count
+        return maps, scalars, _to_u8(norm), _to_u8(x_hat), score_count, x
 
     def warmup(self, frame_shape=None, cl: bool = False) -> None:
         """Build the kernels and run the tick once on zero frames BEFORE the
@@ -210,19 +408,28 @@ class MultiCameraEngine:
         resolution), provisionally: if the first real tick delivers another
         resolution, the pin moves to the delivered shape (the device resize
         then runs, as without a warm-up) and a line says so. A wrong
-        ``frame_shape`` wastes the warm-up but never changes the scores."""
-        if cl:
-            raise NotImplementedError(_FLEET_CL_ITEM)
+        ``frame_shape`` wastes the warm-up but never changes the scores.
+
+        ``cl``: also prepare the fleet CL step: allocate the ring and the
+        optimizer, build the moments kernels, and run the step's loss and
+        backward once on a scratch batch of its shape (T·K rows plus the
+        replay buffer's; load the replay buffer first). Parameters, moments,
+        the generator and the ring stay as they were."""
         shape = tuple(frame_shape) if frame_shape is not None else (
             self.height, self.width, self.channels)
         if self._ref_shape is None:
             self._ref_shape = shape
             self._warm_pin = True  # provisional until the first real tick
         with torch.inference_mode():
-            *_state, score_count = self._step(
+            *_state, score_count, _x = self._step(
                 np.zeros((self.n_streams, *self._ref_shape), np.uint8),
                 np.ones(self.n_streams, bool))
             score_count.cpu()
+        if cl:
+            self._ensure_cl()
+            n = self._cl_ring.shape[0] * self.n_streams + (
+                0 if self.replay_buffer is None else self.replay_buffer.shape[0])
+            warm_cl_backward(self.model, n, (self.height, self.width, self.channels))
 
     def process_frames(self, frames: Sequence[Optional[np.ndarray]],
                        now: Optional[float] = None,
@@ -260,33 +467,48 @@ class MultiCameraEngine:
                     f = self._host_resize(i, f, ref_shape)
                 batch[i] = f
 
-        # maps and scalars are re-assigned together: defer signals so an
-        # interrupt never splits the two
+        if self.enable_cont_learning:
+            self._ensure_cl()
+        # maps and scalars are re-assigned together, and the CL ring's slot
+        # is written with its weights: defer signals so an interrupt never
+        # splits them
         with defer_signals(), torch.inference_mode():
-            self.maps, self.scalars, norm_u8, rec_u8, score_count = self._step(batch, valid)
+            self.maps, self.scalars, norm_u8, rec_u8, score_count, x = self._step(batch, valid)
+            if self.enable_cont_learning:
+                slot = self._cl_tick % self.cl_ring_ticks
+                self._cl_ring[slot].copy_(x)
+                self._cl_valid[slot] = valid.astype(np.float32)
+                self._cl_tick += 1
+        if (self.enable_cont_learning
+                and (now - self._last_cl_t) * 1000.0 > self.continuous_learning_period_ms):
+            self._last_cl_t = now
+            self._do_cl_step()
+        self._maybe_autosave(now)
 
         if self.pipelined:
             # return tick N-1's results while tick N computes on the device;
-            # the validity mask and the tag travel with their results
-            pending, self._pending = self._pending, (score_count, norm_u8, rec_u8, valid, tag)
+            # the raw batch, the validity mask and the tag travel with their
+            # results, so a recording pairs tick N-1's frames with its scores
+            pending = self._pending
+            self._pending = (score_count, norm_u8, rec_u8, batch, valid, tag)
             if pending is None:
                 return [None] * self.n_streams  # the first tick's results come next call
-            score_count, norm_u8, rec_u8, valid, tag = pending
-        return self._emit(score_count, norm_u8, rec_u8, valid, now, tag)
+            score_count, norm_u8, rec_u8, batch, valid, tag = pending
+        return self._emit(score_count, norm_u8, rec_u8, batch, valid, now, tag)
 
     def flush(self, now: Optional[float] = None) -> Optional[List[Optional[StreamStatus]]]:
         """Pipelined mode: fetch the last in-flight tick's results."""
         if not self.pipelined or self._pending is None:
             return None
         now = time.monotonic() if now is None else now
-        score_count, norm_u8, rec_u8, valid, tag = self._pending
+        score_count, norm_u8, rec_u8, batch, valid, tag = self._pending
         self._pending = None
-        return self._emit(score_count, norm_u8, rec_u8, valid, now, tag)
+        return self._emit(score_count, norm_u8, rec_u8, batch, valid, now, tag)
 
-    def _emit(self, score_count, norm_u8, rec_u8, valid, now,
+    def _emit(self, score_count, norm_u8, rec_u8, batch, valid, now,
               tag=None) -> List[Optional[StreamStatus]]:
-        """Host side of one tick: the one score fetch, the moving averages and
-        the per-stream state machines."""
+        """Host side of one tick: the one score fetch, the moving averages,
+        the per-stream state machines and the recording."""
         self.last_emitted_tag = tag
         sc = score_count.cpu().numpy()  # (K, 2), one device->host copy
         out: List[Optional[StreamStatus]] = []
@@ -308,6 +530,7 @@ class MultiCameraEngine:
                 _norm_dev=norm_u8[i],
                 _rec_dev=rec_u8[i],
             ))
+        self._maybe_record(batch, valid, out, now)
         return out
 
     # ------------------------------------------------------- state machines

@@ -3,7 +3,10 @@
 Counterpart of ``camera_streamer.py``'s ``main`` (one stream) and
 ``run_all_cameras`` (every camera of a list batched into one tick): build
 the engine, iterate the frame sources, write per-frame or per-tick stats as
-JSON lines, stop at a tick boundary on SIGTERM/SIGINT, and summarize latency.
+JSON lines, stop at a tick boundary on SIGTERM/SIGINT or when the host's
+resident memory passes ``max_rss_mb`` (after saving the continual-learning
+state), and end every run in the same order: flush, close the recording,
+drain the background autosave. Each loop returns a summary of its latencies.
 """
 
 from __future__ import annotations
@@ -18,9 +21,19 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from trustedai_cl_vae_ad_tpu_torch.stream.capture import make_source
-from trustedai_cl_vae_ad_tpu_torch.stream.engine import StreamingEngine, load_cam_config
+from trustedai_cl_vae_ad_tpu_torch.stream.engine import (
+    StreamingEngine,
+    boot_serving_model,
+    load_cam_config,
+)
 from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
 from trustedai_cl_vae_ad_tpu_torch.utils.profiling import rss_mb
+
+#: exit code of a --max-rss-mb stop, apart from the error exits, so that a
+#: supervisor restarts the process instead of treating it as a crash
+RSS_EXIT_CODE = 3
+#: the host's resident memory is read every this many frames or ticks
+RSS_POLL_TICKS = 25
 
 
 class StopRequest:
@@ -82,13 +95,13 @@ def build_engine(model, config: dict, anomaly_settings=None, realtime: bool = Fa
     return engine
 
 
-def configure_continual_learning(engine: StreamingEngine, continual_learning: bool = False,
+def configure_continual_learning(engine, continual_learning: bool = False,
                                  learning_rate: Optional[float] = None,
                                  img_noise: Optional[float] = None,
                                  replay_buffer: Optional[str] = None,
                                  model_dir: Optional[str] = None, log: Callable = print) -> None:
-    """The CLI's continual-learning controls, with ``camera_streamer.py``'s
-    rules: a learning rate without CL is ignored (dialing it would allocate
+    """The CLI's continual-learning controls of either engine (one stream or
+    the fleet), with ``camera_streamer.py``'s rules: a learning rate without CL is ignored (dialing it would allocate
     Adam's moments, which an inference-only stream never uses); a
     ``replay_buffer_paths.csv`` in the model directory is picked up, and an
     explicit replay file replaces it."""
@@ -108,6 +121,55 @@ def configure_continual_learning(engine: StreamingEngine, continual_learning: bo
         engine.load_replay_buffer_from_file(replay_buffer)
 
 
+def drain_then_save(engine, log: Callable = print, save_if_dirty: bool = False) -> None:
+    """Drain the engine's background autosave, then save synchronously to
+    the model cache if the drain failed (the engine has marked the model
+    dirty again: the CL state of the failed round would be lost) or, with
+    ``save_if_dirty``, whenever the model is dirty. The drain comes first:
+    a save must not race the background writer over the same rounds."""
+    try:
+        engine.drain_autosaves()
+        drained = True
+    except Exception as e:  # noqa: BLE001: the save below must still run
+        log(f"autosave drain failed: {e!r}")
+        drained = False
+    if engine.model_cache_dir and engine.model_changed_flag and (save_if_dirty or not drained):
+        try:
+            engine.save_model_to_dir(engine.model_cache_dir)
+            engine.model_changed_flag = False
+        except Exception as e:  # noqa: BLE001: a boundary that reports and ends
+            log(f"saving to the model cache failed: {e!r}")
+
+
+def close_run(engine, log: Callable = print) -> None:
+    """The end of a run after the flush: close the recording (labels and the
+    model snapshot), then drain the background autosave (``drain_then_save``),
+    each guarded so that one failure does not skip the next."""
+    if engine.recording_flag:
+        try:
+            engine.terminate_recording()
+        except Exception as e:  # noqa: BLE001: the drain below must still run
+            log(f"closing the recording failed: {e!r}")
+    drain_then_save(engine, log)
+
+
+def rss_guard_tripped(engine, n: int, max_rss_mb: Optional[float],
+                      log: Callable = print) -> bool:
+    """The --max-rss-mb poll, every ``RSS_POLL_TICKS`` frames or ticks: when
+    the host's resident memory passes the limit, save dirty CL state to the
+    model cache (``drain_then_save``) and report the trip; the caller then
+    ends the run as usual and exits ``RSS_EXIT_CODE``."""
+    if not max_rss_mb or n % RSS_POLL_TICKS != 0:
+        return False
+    rss = rss_mb()
+    if rss <= max_rss_mb:
+        return False
+    log(f"host RSS {rss:.0f} MB exceeded --max-rss-mb {max_rss_mb:.0f}: saving state and "
+        f"exiting {RSS_EXIT_CODE} for a supervisor restart")
+    drain_then_save(engine, log, save_if_dirty=True)
+    return True
+
+
 def _stats_line(result, lat_ms: float) -> dict:
     return {
         "frame": result.tag,
@@ -124,10 +186,13 @@ def run_stream(engine: StreamingEngine, source, max_frames: Optional[int] = None
                stats_jsonl: Optional[str] = None, realtime: bool = False,
                fps: float = 20.0, stop: Optional[StopRequest] = None,
                on_result: Optional[Callable] = None, log: Callable = print,
-               clock: Optional[Callable[[int], float]] = None) -> dict:
+               clock: Optional[Callable[[int], float]] = None,
+               max_rss_mb: Optional[float] = None) -> dict:
     """Feed ``source`` through ``engine`` until it ends, ``max_frames`` frames
-    were submitted, or ``stop`` is requested. ``clock(n)`` gives frame n's
-    time in seconds where a recorded stream is replayed on its own timeline
+    were submitted, ``stop`` is requested or the rss guard trips
+    (``rss_guard_tripped``; the summary's ``rss_tripped``); then flush,
+    close the recording and drain the autosave (``close_run``). ``clock(n)``
+    gives frame n's time in seconds where a recorded stream is replayed on its own timeline
     (the hold-off, the CL cadence and the anomaly hold then follow it, not
     the wall clock). Per-frame latency is host time
     around ``process_frame``, whose host fetch of the score waits for the
@@ -138,10 +203,14 @@ def run_stream(engine: StreamingEngine, source, max_frames: Optional[int] = None
     n = 0
     n_results = 0
     latencies: List[float] = []
+    rss_tripped = False
     try:
         for frame in source:
             if stop is not None and stop.count:
                 raise KeyboardInterrupt
+            if rss_guard_tripped(engine, n, max_rss_mb, log):
+                rss_tripped = True
+                break
             t0 = time.perf_counter()
             result = engine.process_frame(frame, now=None if clock is None else clock(n), tag=n)
             if result is not None:
@@ -175,11 +244,15 @@ def run_stream(engine: StreamingEngine, source, max_frames: Optional[int] = None
                     stats_file.write(json.dumps({"frame": last.tag, "score": last.score,
                                                  "score_ma": last.score_ma,
                                                  "flushed": True}) + "\n")
+        except Exception as e:  # noqa: BLE001: the recording and the drain must still close
+            log(f"flush failed: {e!r}")
+        try:
+            close_run(engine, log)
         finally:
             if stats_file:
                 stats_file.close()
     summary = {"frames": n, "results": n_results, "latencies_ms": latencies,
-               "rss_mb": rss_mb()}
+               "rss_mb": rss_mb(), "rss_tripped": rss_tripped}
     if latencies:
         lat = np.array(latencies[2:] if len(latencies) > 4 else latencies)
         summary.update(p50_ms=float(np.percentile(lat, 50)),
@@ -302,45 +375,33 @@ def resolve_cameras(cam_config_path: Optional[str], n_streams: Optional[int] = N
 def load_serving_model(model_dir: Optional[str], config_path: Optional[str], device,
                        quantize: bool = False, continual_learning: bool = False,
                        init_seed: int = 0, log: Callable = print):
-    """(model, config, qparams) for a serving surface. With ``quantize`` and
-    without continual learning, a ``<model_dir>/quantized`` sidecar
-    (tools/quantize_checkpoint_torch.py) boots the model from the int8 tree:
-    the float parameters are neither read nor put on the device, and
-    ``qparams`` is that tree. Otherwise the float model is loaded (with its
-    Adam moments for a continual-learning resume) or, from ``config_path``,
-    built with seeded random weights, and ``qparams`` is None."""
-    from trustedai_cl_vae_ad_tpu_torch.ops.quant import (
-        has_quantized_checkpoint,
-        load_int8_serving_model,
-    )
-    from trustedai_cl_vae_ad_tpu_torch.registry import (
-        load_model_from_config_path,
-        load_model_from_directory,
-    )
+    """(model, config, qparams) for a serving surface: from ``model_dir``
+    through ``stream/engine.py::boot_serving_model`` (an int8 boot with
+    ``quantize`` and without continual learning; a continual-learning resume
+    restores Adam's moments with the weights), or, from ``config_path``,
+    built with seeded random weights and ``qparams`` None."""
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config_path
 
     if model_dir is None:
         model, config = load_model_from_config_path(config_path, seed=init_seed, device=device)
         return model, config, None
-    if quantize and not continual_learning:
-        if has_quantized_checkpoint(model_dir):
-            model, config = load_int8_serving_model(model_dir, device=device, log=log)
-            return model, config, model.qparams
-        log(f"no quantized checkpoint under {model_dir}: float boot "
-            "(tools/quantize_checkpoint_torch.py writes one)")
-    model, config = load_model_from_directory(model_dir, device=device,
-                                              restore_optimizer=continual_learning)
-    return model, config, None
+    return boot_serving_model(model_dir, device, quantize=quantize,
+                              int8_checkpoint_boot=not continual_learning,
+                              restore_optimizer=continual_learning, log=log)
 
 
 def run_all_cameras(engine: MultiCameraEngine, readers: Sequence, names: Sequence[str],
                     max_frames: Optional[int] = None, stats_jsonl: Optional[str] = None,
                     realtime: bool = False, fps: float = 20.0,
                     stop: Optional[StopRequest] = None, on_tick: Optional[Callable] = None,
-                    log: Callable = print) -> dict:
+                    log: Callable = print, clock: Optional[Callable[[int], float]] = None,
+                    max_rss_mb: Optional[float] = None) -> dict:
     """Batched multi-stream scoring: every tick reads one frame (or None) from
     each of ``readers`` (objects with ``read()`` and ``release()``, e.g.
     ``PacedReader``) and scores them in one dispatch of ``engine``, until a tick
-    on which no reader has a frame, ``max_frames`` ticks ran, or ``stop`` is requested.
+    on which no reader has a frame, ``max_frames`` ticks ran, ``stop`` is requested
+    or the rss guard trips, then ends as ``run_stream`` does; ``clock(n)`` as
+    there.
     Per-tick latency is host time around ``process_frames`` alone (reading the
     cameras is outside it, as in ``run_stream``), whose score fetch waits for
     the device (in pipelined mode, for the previous tick).
@@ -350,16 +411,21 @@ def run_all_cameras(engine: MultiCameraEngine, readers: Sequence, names: Sequenc
     stats_file = open(stats_jsonl, "w") if stats_jsonl else None
     n = 0
     latencies: List[float] = []
+    rss_tripped = False
     try:
         while max_frames is None or n < max_frames:
             if stop is not None and stop.count:
                 raise KeyboardInterrupt
+            if rss_guard_tripped(engine, n, max_rss_mb, log):
+                rss_tripped = True
+                break
             t_tick = time.perf_counter()
             frames = [r.read() for r in readers]
             if all(f is None for f in frames):
                 break
             t0 = time.perf_counter()
-            results = engine.process_frames(frames, tag=n)
+            results = engine.process_frames(frames, now=None if clock is None else clock(n),
+                                            tag=n)
             lat_ms = (time.perf_counter() - t0) * 1000.0
             latencies.append(lat_ms)
             # pipelined mode emits tick N-1's results at tick N: the engine
@@ -396,11 +462,15 @@ def run_all_cameras(engine: MultiCameraEngine, readers: Sequence, names: Sequenc
                         "tick": engine.last_emitted_tag, "flushed": True,
                         "scores": [None if r is None else r.score for r in last],
                     }) + "\n")
+        except Exception as e:  # noqa: BLE001: the recording and the drain must still close
+            log(f"flush failed: {e!r}")
+        try:
+            close_run(engine, log)
         finally:
             if stats_file:
                 stats_file.close()
     summary = {"ticks": n, "streams": len(readers), "latencies_ms": latencies,
-               "rss_mb": rss_mb()}
+               "rss_mb": rss_mb(), "rss_tripped": rss_tripped}
     if latencies:
         lat = np.array(latencies[2:] if len(latencies) > 4 else latencies)
         summary.update(p50_ms=float(np.percentile(lat, 50)),
