@@ -6,7 +6,8 @@ phases: live-stream scoring, training of the three model types, continual
 learning in the live engine, int8 serving with the multi-camera tick, and the
 dense-kernel update probes, the convolution weight-gradient kernel with its probe,
 crash-atomic checkpoints, and the live application's autosave, recording and fleet
-continual learning; any failure raises and the script exits non-zero
+continual learning, and the scoring surfaces (the HTTP server and the offline
+two-pass CLI); any failure raises and the script exits non-zero
 without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
@@ -212,6 +213,30 @@ without printing its final line.
       p50 without either, the recording ticks' added ms, the fleet CL step's
       ms and max_memory_allocated. Four synchronous flagship saves: the seed
       directory (weights alone), the two recording snapshots and the override.
+  (w) the scoring surfaces at the flagship: the seeded weights saved to a
+      temporary log directory with config.yml (its data section pointing at
+      a saved dataset of 512 synthetic 224x300 frames, a second one of 256 for
+      evaluation) and an int8 sidecar. serve_torch.build_server(port=0,
+      max_batch=16) in a thread, in float and booted from the sidecar (w8a8),
+      driven by a client process: 64 /score requests one at a time, 128 from
+      16 client threads at once, 8 /reconstruct; request p50/p95 (client and
+      server side), batch fill and buckets, each batch's dispatch time by
+      bucket under load and with the server idle, peak memory; every float
+      eps against the plain float forward's of the same image at rtol 1e-5,
+      every w8a8 batch again through the same forward
+      with the plain int8 products (asserted equal to the kernel's) at rtol
+      1e-5, w8a8 against float within 2%, float reconstructions within one
+      grey level of the plain forward's; kernel 10 launched twice a w8a8
+      batch, all on the tensor cores, never in float. Then
+      do_anomaly_detection_torch.py's main in float with artifacts and with
+      --quantize --histogram-only (the sidecar boot): each pass's frames/s,
+      peak memory and int8 launches (2 a batch of 256, all mma); w8a8 frames'
+      eps within 2% of float, so meu too, and sigma within the std of the
+      frames' differences; one offline w8a8 batch against the plain int8
+      products at rtol 1e-5. Last, kernel 10 at the offline batch's (256,
+      268800, 4000) and (256, 2000, 134400): equal to the plain version, timed
+      (mma, the CUDA cores, the plain version) beside torch._int_mm and the
+      bound. Prints its own run time.
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -3144,10 +3169,530 @@ def phase_v():
     return {"single": single, "fleet": fleet, "seed_save_s": seed_s}
 
 
+SERVE_IMAGES, SERVE_C1, SERVE_C16, SERVE_CLIENTS, SERVE_RECONSTRUCT = 32, 64, 128, 16, 8
+OFFLINE_TRAIN, OFFLINE_EVAL = 512, 256
+# (M, K, N) of the two quantized Dense layers at the offline batch (training.batch_size)
+OFFLINE_SHAPES = [(256, 268800, 4000), (256, 2000, 134400)]
+# a w8a8 frame's eps against the float one's, relative. At random weights eps is almost all
+# data term, so this is set from the readings, not from a test's tiny model: served and
+# offline frames read below 1e-6 on the H100 (w8a8 moves a reconstruction by about 1e-4,
+# phase (o), and its signs do not follow the frame's residual), while a Dense layer dropped
+# or garbled moves the reconstructions by tenths and eps by tens of percent. The model's part
+# is also checked alone: the w8a8 server's /reconstruct images within one grey level of the
+# float forward's.
+W8A8_EPS_RTOL = 1e-4
+
+
+def reset_int8_counts(int8_gemm):
+    int8_gemm.launches = 0
+    for arrangement in int8_gemm.int8_gemm_arrangements:
+        int8_gemm.int8_gemm_arrangements[arrangement] = 0
+
+
+def plain_int8_partials(quant, int8_gemm, checks):
+    """A stand-in for ``quant._int8_partials``: the kernel's chunk products and the plain
+    version's, asserted equal (counted in ``checks``); returns the plain version's."""
+    import torch
+
+    def partials(x_i8, k_i8):
+        got = int8_gemm.int8_gemm_chunked(x_i8, k_i8, quant._I32_SAFE_K)
+        ref = int8_gemm.int8_gemm_chunked_reference(x_i8, k_i8, quant._I32_SAFE_K)
+        assert torch.equal(got, ref), "the int8 kernel's partials differ from the plain version"
+        checks.append(tuple(x_i8.shape))
+        return list(ref.unbind(0))
+    return partials
+
+
+def smooth_frames(rng, n, h, w, c):
+    """n uint8 frames that compress as camera frames do: a field of 8x8 blocks plus a
+    little noise (uniform noise is the worst case of PNG's zlib)."""
+    import numpy as np
+
+    coarse = rng.uniform(0, 255, (n, h // 8 + 1, w // 8 + 1, c))
+    field = np.repeat(np.repeat(coarse, 8, axis=1), 8, axis=2)[:, :h, :w]
+    return np.clip(field + rng.normal(0, 6, (n, h, w, c)), 0, 255).astype(np.uint8)
+
+
+def serve_images(h, w, c, n, seed=0):
+    """n distinct frames (``smooth_frames``, so their PNGs stay small) and their PNG
+    bytes."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    frames = smooth_frames(np.random.RandomState(seed), n, h, w, c)
+    bodies = []
+    for frame in frames:
+        buf = io.BytesIO()
+        Image.fromarray(frame).save(buf, format="PNG")
+        bodies.append(buf.getvalue())
+    return frames, bodies
+
+
+# the load generator of phase (w): a process of its own, so that its threads do not share the
+# server's interpreter lock. argv[1] is a JSON spec: url, path, clients, per_client, bodies (PNG
+# files); each client thread first reads /healthz untimed (a thread's first urlopen takes
+# hundreds of ms), all wait at a barrier, then client c sends per_client requests one after
+# another, of bodies (c * per_client + j) mod len(bodies). Prints {"results": [[body, ms,
+# answer], ...], "errors": [...]}, answer the eps of /score or the PNG file of /reconstruct.
+SERVE_CLIENT = r"""
+import json, os, sys, threading, time, urllib.request
+spec = json.load(open(sys.argv[1]))
+bodies = [open(p, "rb").read() for p in spec["bodies"]]
+results, errors, lock = [], [], threading.Lock()
+start = threading.Barrier(spec["clients"])
+def client(c):
+    try:
+        with urllib.request.urlopen(spec["url"] + "/healthz", timeout=120) as r:
+            r.read()
+        start.wait(timeout=120)
+        for j in range(spec["per_client"]):
+            i = (c * spec["per_client"] + j) % len(bodies)
+            req = urllib.request.Request(spec["url"] + spec["path"], data=bodies[i], method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                body = r.read()
+            ms = (time.perf_counter() - t0) * 1e3
+            if spec["path"] == "/score":
+                answer = json.loads(body)["reconstruction_error"]
+            else:
+                answer = os.path.join(spec["out_dir"], f"{c}_{j}.png")
+                with open(answer, "wb") as f:
+                    f.write(body)
+            with lock:
+                results.append([i, ms, answer])
+    except Exception as e:
+        errors.append(repr(e))
+threads = [threading.Thread(target=client, args=(c,)) for c in range(spec["clients"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"results": results, "errors": errors}))
+"""
+
+
+def drive_server(srv, body_files, out_dir):
+    """Phase (w)'s requests against a running server from a client process: SERVE_C1
+    /score one at a time, SERVE_C16 from SERVE_CLIENTS threads at once, SERVE_RECONSTRUCT
+    /reconstruct. Per run: the clients' latencies, the server's own (decode, queue, batch),
+    the batches and their fill from the batcher's counters. Returns (record, score answers
+    [(image, eps)], reconstructions [(image, uint8 array)])."""
+    import numpy as np
+    from PIL import Image
+
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    batcher, metrics = srv.batcher, srv.metrics
+
+    def counters():
+        with batcher._stats_lock:
+            return (batcher.batches_dispatched, batcher.items_scored, batcher.batch_errors,
+                    dict(batcher.bucket_counts))
+
+    def run(name, path, clients, per_client):
+        spec_path = os.path.join(out_dir, f"{name}.json")
+        with open(spec_path, "w") as f:
+            json.dump({"url": url, "path": path, "clients": clients, "per_client": per_client,
+                       "bodies": body_files, "out_dir": out_dir}, f)
+        before, server_ms = counters(), len(metrics._lat_ms)
+        proc = subprocess.run([sys.executable, "-c", SERVE_CLIENT, spec_path],
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert not got["errors"] and len(got["results"]) == clients * per_client, got["errors"]
+        after = counters()
+        lat = [ms for _i, ms, _a in got["results"]]
+        handled = list(metrics._lat_ms)[server_ms:]
+        buckets = {k: after[3].get(k, 0) - before[3].get(k, 0) for k in after[3]}
+        record[name] = {
+            "requests": len(lat), "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95)),
+            "server_p50_ms": float(np.percentile(handled, 50)),
+            "server_p95_ms": float(np.percentile(handled, 95)),
+            "batches": after[0] - before[0],
+            "mean_batch_fill": (after[1] - before[1]) / (after[0] - before[0]),
+            "bucket_counts": {k: v for k, v in sorted(buckets.items()) if v}}
+        assert after[2] == before[2], "a batch failed"
+        return got["results"]
+
+    record = {}
+    answers = [(i, a) for i, _ms, a in run("c1", "/score", 1, SERVE_C1)]
+    answers += [(i, a) for i, _ms, a in run("c16", "/score", SERVE_CLIENTS,
+                                            SERVE_C16 // SERVE_CLIENTS)]
+    recs = []
+    for i, _ms, png in run("reconstruct", "/reconstruct", 1, SERVE_RECONSTRUCT):
+        with Image.open(png) as img:
+            recs.append((i, np.asarray(img)))
+    return record, answers, recs
+
+
+def serve_surface(logdir, quantize, body_files, plain_eps, plain_rec, out_dir):
+    """One server of ``logdir`` through serve_torch.build_server on the card, driven by
+    ``drive_server``; every eps against the plain version: the float forward's eps of the
+    same image (float), or the same bucket batch through the w8a8 forward whose int8
+    products are the plain version's and the float forward's eps (w8a8); reconstructions of
+    both within one grey level of the plain float forward's. Returns the record."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    import serve_torch
+    from trustedai_cl_vae_ad_tpu_torch.models.cvae import normalize_image_input
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, quant
+
+    gib = 2.0 ** 30
+    gc.collect()  # the previous server's handler class holds its batcher in a cycle
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    srv = serve_torch.build_server(logdir, port=0, max_batch=16, device="cuda",
+                                   quantize=quantize)
+    boot_s = time.perf_counter() - t0
+    batcher = srv.batcher
+    assert batcher.quantized == quantize and (batcher.model.params is None) == quantize
+    dispatched = []  # (bucket batch, eps, host ms of the dispatch) of every batch
+    dispatch = batcher._dispatch
+
+    def recording(batch, want_rec):
+        t0 = time.perf_counter()
+        eps, rec = dispatch(batch, want_rec)  # ends in the host fetch of eps (and rec)
+        dispatched.append((batch, eps, (time.perf_counter() - t0) * 1e3))
+        return eps, rec
+
+    batcher._dispatch = recording
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_int8_counts(int8_gemm)
+        record, answers, recs = drive_server(srv, body_files, out_dir)
+        torch.cuda.synchronize()
+        launches = dict(int8_gemm.int8_gemm_arrangements)
+        assert int8_gemm.launches == sum(launches.values())
+        peak = torch.cuda.max_memory_allocated() - base
+        assert len(dispatched) == sum(record[run]["batches"] for run in
+                                      ("c1", "c16", "reconstruct"))
+        # 2 launches a w8a8 batch (the encoder's and the decoder's Dense), all on the tensor
+        # cores at the flagship's shapes; none in float
+        assert launches == {"mma": 2 * len(dispatched) if quantize else 0, "cuda_core": 0}, (
+            launches, len(dispatched))
+        # the same dispatch with the server idle, from this thread: what a batch costs when no
+        # handler thread competes for the interpreter lock
+        quiet = {}
+        with batcher._device_context():
+            for b in batcher.BUCKETS:
+                batch = np.zeros((b, *batcher.hwc), np.uint8)
+                times = []
+                for _ in range(6):
+                    t0 = time.perf_counter()
+                    dispatch(batch, False)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                quiet[b] = float(np.median(times[1:]))
+        record["quiet_dispatch_ms_by_bucket"] = quiet
+    finally:
+        srv.shutdown()
+        batcher.close()
+        srv.server_close()
+        thread.join(timeout=60)
+    by_bucket = {}
+    for batch, _eps, ms in dispatched:
+        by_bucket.setdefault(batch.shape[0], []).append(ms)
+    record["dispatch_ms_by_bucket"] = {b: float(np.median(v))
+                                       for b, v in sorted(by_bucket.items())}
+    worst = 0.0
+    if quantize:
+        # every batch again, through the same forward with the plain int8 products (asserted
+        # equal to the kernel's): equal int32 sums, so equal eps up to float32 rounding
+        checks = []
+        partials = quant._int8_partials
+        quant._int8_partials = plain_int8_partials(quant, int8_gemm, checks)
+        try:
+            with torch.inference_mode():
+                for batch, eps, _ms in dispatched:
+                    x = normalize_image_input(torch.from_numpy(batch).to("cuda"))
+                    x_hat = batcher._forward(batcher._serve_params, x)
+                    ref = ((x - x_hat) ** 2).sum(dim=3).sum(dim=(1, 2)).cpu().numpy()
+                    worst = max(worst, float(np.max(np.abs(eps - ref) / ref)))
+                    np.testing.assert_allclose(eps, ref, rtol=1e-5)
+        finally:
+            quant._int8_partials = partials
+        assert len(checks) == 2 * len(dispatched), (len(checks), len(dispatched))
+        record["w8a8_vs_float_max_rel"] = max(abs(e - plain_eps[i]) / plain_eps[i]
+                                              for i, e in answers)
+        assert record["w8a8_vs_float_max_rel"] < W8A8_EPS_RTOL, record["w8a8_vs_float_max_rel"]
+    else:
+        worst = max(abs(e - plain_eps[i]) / plain_eps[i] for i, e in answers)
+        assert worst < 1e-5, worst
+    rec_gap = 0
+    for i, rec in recs:  # rounding at .5 may go either way
+        assert rec.shape == plain_rec[i].shape and rec.dtype == np.uint8
+        rec_gap = max(rec_gap, int(np.abs(rec.astype(np.int16) - plain_rec[i]).max()))
+    assert rec_gap <= 1, rec_gap
+    record["reconstruct_max_grey_levels_off_float"] = rec_gap
+    record.update(boot_s=boot_s, peak_gib=peak / gib, launches=launches,
+                  eps_max_rel_err=worst, batches_checked=len(dispatched))
+    label = "w8a8 (int8 sidecar boot)" if quantize else "float"
+    c1, c16, rc = record["c1"], record["c16"], record["reconstruct"]
+    log(f"  server {label}: booted and warmed in {boot_s:.1f} s; /score at concurrency 1: p50 "
+        f"{c1['p50_ms']:.3f} ms p95 {c1['p95_ms']:.3f} ms (in the server p50 "
+        f"{c1['server_p50_ms']:.3f} ms); at concurrency {SERVE_CLIENTS}: p50 "
+        f"{c16['p50_ms']:.3f} ms p95 {c16['p95_ms']:.3f} ms (in the server p50 "
+        f"{c16['server_p50_ms']:.3f} ms), {c16['batches']} batches, mean batch fill "
+        f"{c16['mean_batch_fill']:.3f}, buckets {c16['bucket_counts']}; /reconstruct p50 "
+        f"{rc['p50_ms']:.3f} ms; a batch's dispatch (upload, forward, fetch), median ms by "
+        f"bucket {record['dispatch_ms_by_bucket']}, with the server idle "
+        f"{record['quiet_dispatch_ms_by_bucket']}; peak {peak / gib:.2f} GiB above the "
+        f"{base / gib:.2f} GiB resident before; int8 launches {launches}; every eps within "
+        f"{worst:.3g} (relative) of the plain version's"
+        + (f", and within {record['w8a8_vs_float_max_rel']:.3g} of the float forward's "
+           f"(allowed {W8A8_EPS_RTOL})" if quantize else "")
+        + f"; /reconstruct within {rec_gap} grey level(s) of the float forward's")
+    return record
+
+
+def offline_surface(logdir, eval_dir, out_dir, quantize):
+    """do_anomaly_detection_torch.py's main on the card: pass 1 over the model's training
+    set, pass 2 over ``eval_dir``; each pass timed (frames/s), its peak memory and its int8
+    launches read. Returns (record, data_scale)."""
+    import numpy as np
+    import torch
+
+    import do_anomaly_detection_torch
+    from trustedai_cl_vae_ad_tpu_torch.anomaly import offline
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm
+
+    gib = 2.0 ** 30
+    record = {}
+
+    def timed(name, fn, frames):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_int8_counts(int8_gemm)
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)  # ends in host fetches of its results
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            record[name] = {"s": seconds, "frames_per_s": frames / seconds,
+                            "peak_gib": torch.cuda.max_memory_allocated() / gib,
+                            "launches": dict(int8_gemm.int8_gemm_arrangements)}
+            return result
+        return run
+
+    scale_fn, eval_fn = offline.get_data_scale, offline.evaluate_anomalies
+    offline.get_data_scale = timed("pass1", scale_fn, OFFLINE_TRAIN)
+    offline.evaluate_anomalies = timed("pass2", eval_fn, OFFLINE_EVAL)
+    argv = ["-m", logdir, "-d", eval_dir, "-o", out_dir, "--device", "cuda"]
+    if quantize:
+        argv += ["--quantize", "--histogram-only"]
+    try:
+        t0 = time.perf_counter()
+        scale, results = do_anomaly_detection_torch.main(argv)
+        record["cli_s"] = time.perf_counter() - t0
+    finally:
+        offline.get_data_scale, offline.evaluate_anomalies = scale_fn, eval_fn
+    assert scale["z_scores"].shape == (OFFLINE_TRAIN,) and np.isfinite(scale["z_scores"]).all()
+    assert results["z_scores"].shape == (OFFLINE_EVAL,)
+    assert np.isfinite(results["z_scores"]).all()
+    batches = {"pass1": OFFLINE_TRAIN // BATCH, "pass2": OFFLINE_EVAL // BATCH}
+    for name, n in batches.items():
+        assert record[name]["launches"] == {"mma": 2 * n if quantize else 0, "cuda_core": 0}, (
+            name, record[name]["launches"])
+    listing = sorted(os.listdir(out_dir))
+    if quantize:
+        assert listing == ["anomaly_fig.png"], listing
+    else:
+        assert listing == ["anomaly_fig.png", "anomaly_list.csv", "err", "heatmap", "orig",
+                           "overlay", "rec"], listing
+        assert len(os.listdir(os.path.join(out_dir, "overlay"))) == OFFLINE_EVAL
+    label = "w8a8 (int8 sidecar boot), --histogram-only" if quantize else "float, with artifacts"
+    log(f"  offline {label}: pass 1 {OFFLINE_TRAIN} frames in {record['pass1']['s']:.2f} s "
+        f"({record['pass1']['frames_per_s']:.1f} frames/s, peak "
+        f"{record['pass1']['peak_gib']:.2f} GiB, int8 launches {record['pass1']['launches']}); "
+        f"pass 2 {OFFLINE_EVAL} frames in {record['pass2']['s']:.2f} s "
+        f"({record['pass2']['frames_per_s']:.1f} frames/s, peak "
+        f"{record['pass2']['peak_gib']:.2f} GiB, int8 launches {record['pass2']['launches']}); "
+        f"the CLI {record['cli_s']:.1f} s; meu {scale['meu']:.6g} sigma {scale['sigma']:.6g}")
+    return record, scale
+
+
+def offline_batch_check(logdir, train_dir, scale_q):
+    """One offline batch of 256 training frames through the w8a8 forward of the int8
+    sidecar with the kernel, then with the plain int8 products (asserted equal): eps at rtol
+    1e-5, and against the CLI's pass-1 eps of those frames."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.anomaly.offline import _score_fns
+    from trustedai_cl_vae_ad_tpu_torch.data.saved_dataset import SavedDataset
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, quant
+
+    model, _config = quant.load_int8_serving_model(logdir, device="cuda", log=lambda m: None)
+    batch_err, _, place, params = _score_fns(model, quantize=True, score_params=model.qparams)
+    x, n = place(next(iter(SavedDataset(train_dir, BATCH)))["image"])
+    got = batch_err(params, x)[0].cpu().numpy()
+    checks = []
+    partials = quant._int8_partials
+    quant._int8_partials = plain_int8_partials(quant, int8_gemm, checks)
+    try:
+        ref = batch_err(params, x)[0].cpu().numpy()
+    finally:
+        quant._int8_partials = partials
+    assert len(checks) == 2 and checks[0][0] == BATCH, checks
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+    cli = scale_q["z_scores"][:n].astype(np.float64) * scale_q["sigma"] + scale_q["meu"]
+    np.testing.assert_allclose(got, cli, rtol=1e-5)
+    err = float(np.max(np.abs(got - ref) / ref))
+    log(f"  one offline w8a8 batch of {n}: the kernel's int32 products equal the plain "
+        f"version's; eps within {err:.3g} (relative) of the plain forward's and within "
+        f"{float(np.max(np.abs(got - cli) / cli)):.3g} of the CLI's pass 1")
+    return err
+
+
+def int8_offline_shapes(dev):
+    """Kernel 10 at the offline batch's two shapes: equal to the plain version, timed (the
+    rule's mma and the CUDA-core arrangement on the same operands) beside torch._int_mm
+    (a call a chunk, the weights as a transposed view) and the bound."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+    from trustedai_cl_vae_ad_tpu_torch.ops.quant import _I32_SAFE_K
+
+    rows = []
+    for m, k, n in OFFLINE_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(m + n)
+        x = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                          dtype=torch.int32).to(torch.int8)
+        w = torch.randint(-127, 128, (n, k), device=dev, generator=gen,
+                          dtype=torch.int32).to(torch.int8)
+        assert ig.int8_gemm_arrangement(x, w, 0, k, _I32_SAFE_K) == "mma", (m, k, n)
+        got = ig._launch("mma", x, w, 0, k, _I32_SAFE_K)
+        ref = ig.int8_gemm_chunked_reference(x, w, _I32_SAFE_K)
+        assert torch.equal(got, ref), (m, k, n)
+        mma = lambda: ig._launch("mma", x, w, 0, k, _I32_SAFE_K)  # noqa: E731
+        cuda_core = lambda: ig._launch("cuda_core", x, w, 0, k, _I32_SAFE_K)  # noqa: E731
+        parts = [(x[:, s:s + _I32_SAFE_K].contiguous(), w[:, s:s + _I32_SAFE_K].contiguous())
+                 for s in range(0, k, _I32_SAFE_K)]
+        lib = lambda: [torch._int_mm(a, b.t()) for a, b in parts]  # noqa: E731
+        assert torch.equal(torch.stack(lib()), got), "torch._int_mm disagrees"
+        bound_ms, bound_by = int8_bound(m, k, n)
+        row = {"shape": [m, k, n], "chunks": len(parts), "ms": median_ms(mma),
+               "device_ms": queued_ms(mma), "cuda_core_device_ms": queued_ms(cuda_core, runs=10),
+               "library_ms": median_ms(lib), "library_device_ms": queued_ms(lib),
+               "plain_ms": median_ms(lambda: ig.int8_gemm_chunked_reference(x, w, _I32_SAFE_K),
+                                     runs=5, warmup=1),
+               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0}
+        rows.append(row)
+        log(f"  kernel 10 at ({m}, {k}, {n}), {len(parts)} chunks: mma {row['ms']:.4f} ms "
+            f"({row['device_ms']:.4f} b2b, {bound_ms / row['device_ms']:.1%} of the bound), "
+            f"cuda_core b2b {row['cuda_core_device_ms']:.4f} ms, torch._int_mm "
+            f"{row['library_ms']:.4f} ms ({row['library_device_ms']:.4f} b2b), plain "
+            f"{row['plain_ms']:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}); equal bits")
+        del x, w, parts, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_w(dev):
+    """The scoring surfaces at the flagship: the seeded weights saved to a temporary log
+    directory with config.yml (its data section pointing at a synthetic saved dataset) and
+    an int8 sidecar; serve_torch.py's server in float and from the sidecar; the offline CLI
+    in float with artifacts and with --quantize --histogram-only; kernel 10 at the offline
+    batch's shapes."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.config import save_config
+    from trustedai_cl_vae_ad_tpu_torch.data.saved_dataset import save_dataset
+    from trustedai_cl_vae_ad_tpu_torch.ops import quant
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config_path
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scoring_")
+    out = {}
+    try:
+        model, config = load_model_from_config_path(os.path.join(REPO, "configs", "config.yml"),
+                                                    seed=0, device="cuda")
+        h, w, c = config["data"]["image_size"]
+        assert int(config["training"]["batch_size"]) == BATCH
+        train_dir, eval_dir = os.path.join(tmp, "train_ds"), os.path.join(tmp, "eval_ds")
+        t0 = time.perf_counter()
+        for path, n, seed in ((train_dir, OFFLINE_TRAIN, 1), (eval_dir, OFFLINE_EVAL, 2)):
+            rng = np.random.RandomState(seed)
+            save_dataset(path, ({"image": smooth_frames(rng, BATCH, h, w, c),
+                                 "filepath": [f"{seed}/{b}/{i}" for i in range(BATCH)]}
+                                for b in range(n // BATCH)))
+        config["data"] = dict(config["data"], dataset_path=train_dir)
+        logdir = os.path.join(tmp, "model")
+        model.save_model(logdir, include_optimizer=False)
+        save_config(config, os.path.join(logdir, "config.yml"))
+        quant.save_quantized_checkpoint(logdir, quant.quantize_params(model.core, model.params))
+        log(f"  log directory (weights, config.yml, int8 sidecar) and saved datasets of "
+            f"{OFFLINE_TRAIN} + {OFFLINE_EVAL} frames written in {time.perf_counter() - t0:.1f} s")
+
+        frames, bodies = serve_images(h, w, c, SERVE_IMAGES)
+        body_files = []
+        for i, body in enumerate(bodies):
+            body_files.append(os.path.join(tmp, f"request_{i}.png"))
+            with open(body_files[-1], "wb") as f:
+                f.write(body)
+        with torch.inference_mode():  # the plain float forward's eps and reconstruction
+            x = torch.from_numpy(frames).to("cuda").to(torch.float32) / 255.0
+            x_hat = model.core(x)
+            plain_eps = ((x - x_hat) ** 2).sum(dim=3).sum(dim=(1, 2)).cpu().numpy()
+            plain_rec = torch.clamp(torch.round(255.0 * x_hat), 0, 255).to(
+                torch.int16).cpu().numpy()
+            del x, x_hat
+        del model
+        for quantize in (False, True):
+            client_dir = os.path.join(tmp, f"client_{int(quantize)}")
+            os.makedirs(client_dir)
+            out["serve_w8a8" if quantize else "serve_float"] = serve_surface(
+                logdir, quantize, body_files, plain_eps, plain_rec, client_dir)
+
+        out["offline_float"], scale_f = offline_surface(logdir, eval_dir,
+                                                        os.path.join(tmp, "out_float"), False)
+        out["offline_w8a8"], scale_q = offline_surface(logdir, eval_dir,
+                                                       os.path.join(tmp, "out_w8a8"), True)
+        eps_f = scale_f["z_scores"].astype(np.float64) * scale_f["sigma"] + scale_f["meu"]
+        eps_q = scale_q["z_scores"].astype(np.float64) * scale_q["sigma"] + scale_q["meu"]
+        # each frame's w8a8 eps within W8A8_EPS_RTOL of its float eps, so meu is too; and
+        # |std(a) - std(b)| <= std(a - b): sigma moves by no more than the frames' differences
+        frame_rel = float(np.max(np.abs(eps_q - eps_f) / eps_f))
+        assert frame_rel < W8A8_EPS_RTOL, frame_rel
+        assert abs(scale_q["meu"] - scale_f["meu"]) <= W8A8_EPS_RTOL * scale_f["meu"]
+        sigma_gap = abs(scale_q["sigma"] - scale_f["sigma"])
+        assert sigma_gap <= float(np.std(eps_q - eps_f)) + 1e-5 * scale_f["meu"], sigma_gap
+        out["offline_w8a8_vs_float"] = {"frame_max_rel": frame_rel, "meu_rel": abs(
+            scale_q["meu"] / scale_f["meu"] - 1), "sigma_rel": sigma_gap / scale_f["sigma"]}
+        log(f"  offline w8a8 vs float: frames' eps within {frame_rel:.3g} (relative; allowed "
+            f"{W8A8_EPS_RTOL}), meu {scale_q['meu']:.6g} vs {scale_f['meu']:.6g}, sigma "
+            f"{scale_q['sigma']:.6g} vs {scale_f['sigma']:.6g} (|difference| "
+            f"{sigma_gap:.4g} <= std of the frames' differences "
+            f"{float(np.std(eps_q - eps_f)):.4g})")
+        out["offline_batch_err"] = offline_batch_check(logdir, train_dir, scale_q)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["offline_shapes"] = int8_offline_shapes(dev)
+    out["launches_serve"] = out["serve_w8a8"]["launches"]["mma"]
+    out["launches_offline"] = sum(out["offline_w8a8"][p]["launches"]["mma"]
+                                  for p in ("pass1", "pass2"))
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  phase (w) ran {out['s']:.1f} s; kernel 10 launches: serve {out['launches_serve']}, "
+        f"offline {out['launches_offline']}, all mma")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..v to run after the build (for "
+                        help="comma-separated subset of c..w to run after the build (for "
                              "finding a fault); the final line is then not printed")
     args = parser.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
@@ -3244,6 +3789,8 @@ def main(argv=None):
     run("u", "crash-atomic checkpoint rounds and the background saver", lambda: phase_u(dev))
     run("v", "the live application's persistence, recording and fleet CL at the flagship",
         phase_v)
+    run("w", "the scoring surfaces at the flagship: serve_torch.py and the offline CLI",
+        lambda: phase_w(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -3259,7 +3806,9 @@ def main(argv=None):
     # multi-camera run for its CUDA-core arrangement (the flagship's beside it),
     # (r) for the six dense-update kernels, (t) for the convolution weight gradient: its
     # CUDA-core kernel with conv1's times, its tensor-core kernel with conv2's (and the
-    # CUDA-core kernel's on the same operands beside them)
+    # CUDA-core kernel's on the same operands beside them); (w)'s w8a8 server and w8a8
+    # offline CLI for the int8 GEMM's launches_serve and launches_offline, with its times at
+    # the offline batch's shapes
     global_launches, perdim_launches = out["h"]["arrangements"], out["k"][0]["arrangements"]
     _, _, fleet_int8 = out["p"]["launches"]
     frame_int8 = out["p"]["frame_int8_arrangements"]
@@ -3278,7 +3827,9 @@ def main(argv=None):
         scorer_entry(STREAM_CLUSTER_KERNEL, "cluster"),
         scorer_entry(STREAM_KERNEL, "block"),
         dict(INT8_MMA_KERNEL, launches=fleet_int8["mma"], launches_frames=frame_int8["mma"],
-             **out["m"]["mma"]),
+             launches_serve=out["w"]["launches_serve"],
+             launches_offline=out["w"]["launches_offline"],
+             offline_shapes=out["w"]["offline_shapes"], **out["m"]["mma"]),
         dict(INT8_KERNEL, launches=tiny_int8["cuda_core"], launches_fleet_ticks=fleet_int8[
             "cuda_core"], launches_frames=frame_int8["cuda_core"], **out["m"]["cuda_core"]),
         *moments_entries("global", out["f"], global_launches),

@@ -12,7 +12,8 @@ a device: the numbers follow from the shapes and NVIDIA's data sheet (H100 SXM:
 outside the tensor cores). Rows 1-3 count the bytes and operations that
 ``chip_smoke.py`` counts for them (row 1 at one frame and at a tick of 16
 cameras of the flagship's 224x300x3); row 10 also at the shapes of the two
-quantized Dense layers of the serving path (1 and 16 frames); rows 4, 6 and 9
+quantized Dense layers of the serving path (1 and 16 frames) and of the
+offline scoring path (a batch of 256); rows 4, 6 and 9
 also at the flagship's two dense shapes and rows 4 and 6 in the port's own
 (out, in) layout of the encoder Dense.
 
@@ -127,6 +128,10 @@ def rows():
          *int8_gemm(16, 2000, 134400), "int8"),
         (10, "the same on the serving path, decoder Dense", "M=1 K=2000 N=134400",
          *int8_gemm(1, 2000, 134400), "int8"),
+        (10, "the same on the offline path, encoder Dense", "M=256 K=268800 N=4000",
+         *int8_gemm(256, 268800, 4000), "int8"),
+        (10, "the same on the offline path, decoder Dense", "M=256 K=2000 N=134400",
+         *int8_gemm(256, 2000, 134400), "int8"),
         (11, "r18_conv_dw.py:53 _dw_kernel, conv1", "x (768, 224, 300, 3), dy (768, 112, 150, 32)",
          cw1[0], cw1[1], "bf16"),
         (11, "r18_conv_dw.py:53 _dw_kernel, conv2", "x (768, 112, 150, 32), dy (768, 56, 75, 64)",

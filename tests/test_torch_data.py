@@ -131,3 +131,19 @@ def test_load_data_sources(tmp_path):
         with pytest.raises(error):
             loader.load_data({"data": {"image_size": [8, 12, 3], **bad},
                               "training": {"batch_size": 4}}, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["uint8-array", "uint8-tensor", "float-array"])
+def test_host_images_normalizes_raw_pixels_only(kind):
+    """uint8 frames come back as float32 in [0, 1]; float frames as they are."""
+    raw = np.random.RandomState(3).randint(0, 256, (2, 4, 5, 3), dtype=np.uint8)
+    given = {"uint8-array": raw, "uint8-tensor": torch.from_numpy(raw),
+             "float-array": raw / 255.0}[kind]
+    got = loader.host_images(given)
+    assert isinstance(got, np.ndarray) and got.shape == raw.shape
+    if kind == "float-array":
+        assert got.dtype == np.float64
+        np.testing.assert_array_equal(got, given)
+    else:
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, raw.astype(np.float32) / 255.0)

@@ -11,12 +11,15 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "trustedai_cl_vae_ad_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "trustedai_cl_vae_ad_tpu", "camera_streamer",
+             # the JAX package's scoring CLIs, which serve_torch.py and
+             # do_anomaly_detection_torch.py carry over
+             "serve", "do_anomaly_detection",
              # the archived JAX probes under benchmarks/, which the port copies and never imports
              "benchmarks", "r11_kernel", "r11_diag", "r11_fused_dense_adam", "r4_int8_gemm",
              "r18_conv_dw")
-ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "kernel_bounds_torch.py",
-                "probe_r11_torch.py", "probe_r18_torch.py", "profile_stream_torch.py",
-                "profile_train_torch.py",
+ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "do_anomaly_detection_torch.py",
+                "kernel_bounds_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
+                "profile_stream_torch.py", "profile_train_torch.py", "serve_torch.py",
                 "train_torch.py",
                 os.path.join("tools", "quantize_checkpoint_torch.py"))
 
@@ -42,6 +45,7 @@ for m in pkgutil.walk_packages({PACKAGE}.__path__, "{PACKAGE}."):
 sys.path.insert(0, {REPO!r})
 import camera_streamer_torch, chip_smoke, kernel_bounds_torch, profile_stream_torch
 import probe_r11_torch, probe_r18_torch, profile_train_torch, train_torch
+import serve_torch, do_anomaly_detection_torch
 sys.path.insert(0, {os.path.join(REPO, "tools")!r})
 import quantize_checkpoint_torch
 print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
@@ -64,9 +68,11 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "models/kl_gaussian.py", "data/pipeline.py", "stream/engine.py",
                 "stream/run.py", "ops/quant.py", "ops/int8_gemm.py", "stream/multicam.py",
                 "ops/dense_grad_adam.py", "probes/__init__.py", "probes/r11.py",
-                "ops/conv_dw.py", "probes/r18.py", "viz/__init__.py", "viz/plots.py"):
+                "ops/conv_dw.py", "probes/r18.py", "viz/__init__.py", "viz/plots.py",
+                "anomaly/offline.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
     assert {"train_torch.py", "profile_train_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
+            "serve_torch.py", "do_anomaly_detection_torch.py",
             os.path.join("tools", "quantize_checkpoint_torch.py")} <= sources
 
 

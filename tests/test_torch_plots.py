@@ -1,7 +1,7 @@
 """The port's viz/plots.py against the JAX package's viz/plots.py: the same
 random uint8 maps give the same heatmaps, overlays and PNG bytes, bit for
-bit; the matplotlib figures are written, and matplotlib stays unloaded on the
-recording path when cv2 is present."""
+bit; the figures are drawn with PIL and written, and matplotlib stays unloaded
+on the recording path when cv2 is present."""
 
 import os
 import subprocess
@@ -94,3 +94,36 @@ print("matplotlib" in sys.modules)
                           timeout=120, env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "False"
+
+
+def test_figures_without_matplotlib(tmp_path, monkeypatch):
+    """Both figures are drawn with PIL, with matplotlib unimportable (a GPU
+    host may lack it): the grid holds every image, scaled by a whole factor;
+    the histogram has the series' bars and the red threshold line."""
+    for name in [m for m in sys.modules if m == "matplotlib" or m.startswith("matplotlib.")]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import matplotlib raises ImportError
+    rng = np.random.RandomState(7)
+    images = [rng.rand(16, 12, 3) for _ in range(6)] + [rng.rand(16, 12, 1)]
+    plots.image_grid(images, str(tmp_path / "grid.png"), "Original", cols=5)
+    with Image.open(tmp_path / "grid.png") as img:
+        grid = np.asarray(img.convert("RGB"))
+    scale = 8  # ceil(128 / 16)
+    assert grid.shape == (32 + 2 * (16 * scale + 8), 5 * (12 * scale + 8) + 8, 3)
+    first = grid[32:32 + 16 * scale:scale, 8:8 + 12 * scale:scale]
+    np.testing.assert_array_equal(first, np.round(255 * images[0]).astype(np.uint8))
+    last = grid[32 + 16 * scale + 8::scale][:16, 8 + 12 * scale + 8::scale][:, :12]
+    np.testing.assert_array_equal(last[..., 0], np.round(255 * images[6][..., 0]))
+
+    plots.histogram(str(tmp_path / "hist.png"),
+                    {"Still Data": rng.randn(400), "Evaluation Data": rng.randn(200) + 2},
+                    "Error Z-Score Histogram (Per Frame)", density=True, vline=3.0,
+                    xlim=(-3.0, 70.0), log_y=True, xlabel="Z-Score", ylabel="Density")
+    plots.histogram(str(tmp_path / "flat.png"), {"latent": np.zeros((4, 3))}, "Latent", bins=64)
+    with Image.open(tmp_path / "hist.png") as img:
+        hist = np.asarray(img.convert("RGB")).astype(int)
+    assert hist.shape == (480, 640, 3)
+    red = (hist[..., 0] > 180) & (hist[..., 1] < 90) & (hist[..., 2] < 90)
+    bars = (hist[..., 2] > 150) & (hist[..., 0] < 140)  # the first series' blue
+    assert red.sum() > 100 and bars.sum() > 100
+    assert (tmp_path / "flat.png").stat().st_size > 0

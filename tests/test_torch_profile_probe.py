@@ -84,16 +84,21 @@ def test_kernel_bounds_follow_from_the_shapes():
 
 
 def test_kernel_bounds_of_the_int8_gemm_at_the_probe_and_the_serving_shapes():
-    """Row 10 at the probe's shape and at the two quantized Dense layers of
-    the serving path, for 1 and 16 frames: all bound by the weight bytes."""
+    """Row 10 at the probe's shape, at the two quantized Dense layers of the
+    serving path for 1 and 16 frames and of the offline path for a batch of
+    256: all bound by the bytes."""
     import kernel_bounds_torch as kb
 
     rows = [r for r in kb.bounds() if r["row"] == 10]
     assert [r["shapes"] for r in rows] == [
         "M=32 K=268800 N=4096 int8 -> int32", "M=16 K=268800 N=4000", "M=1 K=268800 N=4000",
-        "M=16 K=2000 N=134400", "M=1 K=2000 N=134400"]
+        "M=16 K=2000 N=134400", "M=1 K=2000 N=134400", "M=256 K=268800 N=4000",
+        "M=256 K=2000 N=134400"]
     assert rows[0]["bytes"] == 32 * 268800 + 268800 * 4096 + 4 * 32 * 4096
     assert abs(rows[0]["bound_ms"] - 0.33138) < 1e-5
     assert rows[1]["bytes"] == 16 * 268800 + 268800 * 4000 + 4 * 16 * 4000
     assert rows[4]["bytes"] == 2000 + 2000 * 134400 + 4 * 134400
+    assert rows[5]["bytes"] == 256 * 268800 + 268800 * 4000 + 4 * 256 * 4000
+    assert rows[6]["bytes"] == 256 * 2000 + 2000 * 134400 + 4 * 256 * 134400
+    assert abs(rows[5]["bound_ms"] - 0.34272) < 1e-5 and abs(rows[6]["bound_ms"] - 0.12147) < 1e-5
     assert all(r["bound_by"] == "bytes" for r in rows)

@@ -10,8 +10,10 @@ with a copy of the config, epoch training with per-epoch beta annealing
 crash-atomic rounds under ``<logdir>/rounds``; ``train/checkpoint.py``).
 ``training.checkpoint_every_epochs`` saves during the run, and with
 ``training.async_checkpoint`` those saves are written by a background thread.
-It trains on one CUDA device unless ``--device cpu`` is given. The
-post-training figures of ``train.py`` (``evaluate``) are not ported yet.
+It trains on one CUDA device unless ``--device cpu`` is given. After
+training it writes the figures of ``train.py`` into the log directory
+(``train/loop.py::evaluate``: ``original.png``, ``reconstruction.png``,
+``output_histogram.png``, ``latent_histogram.png``).
 Accepted and ignored config keys: ``training.loss_chunks``,
 ``training.compiler_options``, ``training.zero1``.
 """
@@ -25,7 +27,7 @@ from trustedai_cl_vae_ad_tpu_torch.config import load_config, stamp_logdir, vali
 from trustedai_cl_vae_ad_tpu_torch.data.loader import load_data
 from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
 from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import has_optimizer
-from trustedai_cl_vae_ad_tpu_torch.train.loop import load_train_state, train_model
+from trustedai_cl_vae_ad_tpu_torch.train.loop import evaluate, load_train_state, train_model
 
 
 def get_args(argv=None):
@@ -77,8 +79,8 @@ def main(argv=None):
     if args.dry_run:
         return
     train_model(config, model, data, initial_epoch=initial_epoch, initial_step=initial_step)
-    print(f"Saved: {os.path.join(config['logdir'], 'encoder')} (+ decoder, optimizer); "
-          "the evaluation figures of train.py are not ported yet")
+    print(f"Saved: {os.path.join(config['logdir'], 'encoder')} (+ decoder, optimizer)")
+    evaluate(config, model, data)
 
 
 if __name__ == "__main__":

@@ -81,6 +81,18 @@ def iter_images(dataset):
             yield batch
 
 
+def host_images(images) -> np.ndarray:
+    """Images from ``iter_images`` on the host as a numpy array, whatever the
+    source gave (a tensor on any device, or an array); uint8 frames are raw
+    0-255 pixels and come back as float32 in [0, 1]."""
+    if hasattr(images, "detach"):
+        images = images.detach().cpu().numpy()
+    images = np.asarray(images)
+    if images.dtype == np.uint8:
+        images = images.astype(np.float32) / 255.0
+    return images
+
+
 def load_data(config: dict, device="cuda") -> dict:
     data_config = config["data"]
     dataset_path = data_config.get("dataset_path")

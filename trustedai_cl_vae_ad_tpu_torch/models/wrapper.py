@@ -1,8 +1,9 @@
 """Stateful model wrapper: inference, the training step, save and load.
 
 Counterpart of ``trustedai_cl_vae_ad_tpu/models/wrapper.py::VAEModel``: the
-mutable model API (``encode / call / compute_loss / train_step / test_step /
-train_step_and_run``), with ``beta`` (the input-noise stddev) and the
+mutable model API (``encode / reparameterize / decode / sample / call /
+call_detailed / compute_loss / train_step / test_step / train_step_and_run``),
+with ``beta`` (the input-noise stddev) and the
 optimizer's learning rate mutable at run time. PyTorch runs eagerly, so
 neither needs a rebuild of anything. Parameters and Adam moments are updated
 in place. Device meshes and ZeRO-1 are not ported (ROADMAP queue 1 item 17).
@@ -92,10 +93,45 @@ class VAEModel:
             return self.core.encode(self._as_image_input(x), training=training,
                                     generator=self.generator)
 
-    def call(self, x, training: bool = False) -> torch.Tensor:
+    def _as_latent(self, z) -> torch.Tensor:
+        return torch.as_tensor(z).to(self.device, torch.float32)
+
+    def reparameterize(self, mean, logvar, training: bool = False,
+                       eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """z = mean + 0.5*logvar + eps: eps is zero in eval mode; in training
+        mode it is ``eps`` when given, else drawn from the model's generator."""
+        with torch.no_grad():
+            return self.core.reparameterize(
+                self._as_latent(mean), self._as_latent(logvar), training=training,
+                eps=None if eps is None else self._as_latent(eps), generator=self.generator)
+
+    def decode(self, z, apply_sigmoid: bool = False) -> torch.Tensor:
+        with torch.inference_mode():
+            return self.core.decode(self._as_latent(z), apply_sigmoid=apply_sigmoid)
+
+    def sample(self, eps=None, n: int = 100) -> torch.Tensor:
+        """Decode ``eps`` (or n latents drawn from the model's generator) with sigmoid."""
+        with torch.inference_mode():
+            return self.core.sample(None if eps is None else self._as_latent(eps), n=n,
+                                    generator=self.generator)
+
+    def call(self, x, training: bool = False,
+             eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         with torch.inference_mode():
             return self.core.call(self._as_image_input(x), training=training,
+                                  eps=None if eps is None else self._as_latent(eps),
                                   generator=self.generator)
+
+    def __call__(self, x, training: bool = False, eps: Optional[torch.Tensor] = None):
+        return self.call(x, training, eps=eps)
+
+    def call_detailed(self, x, training: bool = False, eps: Optional[torch.Tensor] = None):
+        """(x_prob, z, mean, logvar), as the JAX model returns them; ``training``
+        gates only the latent eps (the encoder input is not fuzzed)."""
+        with torch.inference_mode():
+            return self.core.call_detailed(self._as_image_input(x), training=training,
+                                           eps=None if eps is None else self._as_latent(eps),
+                                           generator=self.generator)
 
     def predict(self, x) -> np.ndarray:
         return self.call(x).cpu().numpy()

@@ -5,8 +5,8 @@ per-epoch validation, per-epoch beta annealing (x0.98), the opt-in learning
 rate schedules, metric logging, a stop request (SIGTERM / SIGINT) honoured at
 a batch boundary, periodic checkpoints (written in the background with
 ``training.async_checkpoint``) and the final one, and the training-progress
-sidecar that ``--resume`` reads. The post-training figures (``evaluate``)
-are not ported yet.
+sidecar that ``--resume`` reads; then the post-training figures
+(``evaluate``).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Optional
 
 import numpy as np
 
-from trustedai_cl_vae_ad_tpu_torch.data.loader import iter_images
+from trustedai_cl_vae_ad_tpu_torch.data.loader import host_images, iter_images
 from trustedai_cl_vae_ad_tpu_torch.models.wrapper import VAEModel
 from trustedai_cl_vae_ad_tpu_torch.utils.metrics import MetricsWriter
 
@@ -252,3 +252,39 @@ def train_model(
             if owns_writer:
                 writer.close()
     return model
+
+
+def evaluate(config: dict, model: VAEModel, data: dict, n: int = 10) -> None:
+    """Post-training figures of the first ``n`` validation frames (the
+    training frames when there is no validation split), written into
+    ``config["logdir"]``: ``original.png`` and ``reconstruction.png`` (facet
+    grids; the reconstruction min-max scaled to [0, 1]),
+    ``output_histogram.png`` (pixel values of both) and
+    ``latent_histogram.png`` (the latent means). uint8 frames are raw 0-255
+    pixels and are normalized first."""
+    from trustedai_cl_vae_ad_tpu_torch.viz import plots
+
+    logdir = config["logdir"]
+    xs = []
+    for batch in iter_images(data["val"] if data.get("val") is not None else data["train"]):
+        xs.append(host_images(batch))
+        if sum(b.shape[0] for b in xs) >= n:
+            break
+    if not xs:
+        print("evaluate: no validation data")
+        return
+    x_i = np.concatenate(xs, axis=0)[:n].astype(np.float32, copy=False)
+
+    y = model.call(x_i).cpu().numpy()
+    mean, _ = model.encode(x_i)
+    z = mean.cpu().numpy()
+
+    y_rng = np.max(y) - np.min(y)
+    y_i = (y - np.min(y)) / (y_rng if y_rng > 0 else 1.0)
+
+    plots.image_grid(x_i, os.path.join(logdir, "original.png"), "Original")
+    plots.image_grid(y_i, os.path.join(logdir, "reconstruction.png"), "Reconstruction")
+    plots.histogram(os.path.join(logdir, "output_histogram.png"),
+                    {"Original": x_i, "Reconstruction": y_i}, "Flat Image Histogram", bins=64)
+    plots.histogram(os.path.join(logdir, "latent_histogram.png"), {"latent": z},
+                    "Latent Vector Histogram", bins=64)
