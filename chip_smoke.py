@@ -237,6 +237,30 @@ without printing its final line.
       268800, 4000) and (256, 2000, 134400): equal to the plain version, timed
       (mma, the CUDA cores, the plain version) beside torch._int_mm and the
       bound. Prints its own run time.
+  (x) the JAX package's log directories and the RAITE / COCO-JSON data path. (x1) Each
+      committed JAX-written fixture of tests/data/jax_logdirs (global_f32: KurtosisGlobal,
+      float32, adam, a w8a8 sidecar; single_bf16: KurtosisSingle, bfloat16, adam_lean; both
+      with a learning rate dialled away from the config's), read as
+      tools/convert_logdir_torch.py's copy under converted/ (the card's machine has no
+      tensorstore), through load_model_from_directory(restore_optimizer=True), timed: the eval
+      forward against the JAX package's stored CPU outputs (float32 rtol 1e-4 / atol 1e-5,
+      bfloat16 1e-2 / 1e-3); the live engine for 8 frames through kernel 1 from a warm
+      scorer state (counts within 2, scores at rtol 1e-4 while counts agree); the w8a8
+      forward from the sidecar through kernel 10 (both Dense layers on the tensor cores,
+      within 2e-4 of JAX's, and equal to the forward with the plain int8 products); one
+      training step with the JAX step's latent noise through kernel 2 (global_f32) or 3
+      (single_bf16): the loss dict at rtol 1e-4 (bfloat16 1e-3) / atol 1e-6, the parameters
+      within 0.05 lr (bfloat16: one step of the dtype plus 0.5 lr), the Adam moments after
+      the step within 1e-3 (bfloat16 0.25) of the step's own change of each leaf, the step
+      count and the learning rate the saved one; each kernel then against its plain
+      version at the path's shapes. (x2) configs/raite.yml's model at its own widths
+      (224x300x3, layers [32, 64], latent 200, KurtosisGlobal, batch 32) through
+      train_torch.py's main on 1024 + 64 synthetic 300x224 PNG frames with COCO labels.json
+      files, data.device_cache on, 3 epochs of 32 steps (the first decodes and fills the
+      cache, the others read the card): every batch cached on the card and the host source
+      read once, the cache's bytes, each epoch's wall clock over its frames with its first
+      step included, the first epoch's host decode time, kernel 2's launches and a check of
+      it at (32, 200).
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -3689,10 +3713,409 @@ def phase_w(dev):
     return out
 
 
+# phase (x): the JAX-written log directories of tests/data/jax_logdirs. The card's machine has no
+# tensorstore, so the phase reads their copies in the port's layout, which
+# tools/convert_logdir_torch.py wrote and Tier-1 holds equal to the direct reads
+JAX_LOGDIRS = os.path.join(REPO, "tests", "data", "jax_logdirs")
+JAX_FIXTURES = {"global_f32": "global", "single_bf16": "perdim"}  # fixture -> its moments kernel
+JAX_SETTINGS = {"anomaly_score_threshold": 2.0, "anomaly_score_method": "zz_count",
+                "buffer_record_period_s": 1.0, "anomalous_state_period_s": 0.05}
+RAITE_TRAIN, RAITE_VAL, RAITE_EPOCHS = 1024, 64, 3  # 32 training steps an epoch at batch 32
+
+
+def launch_counts(stream_score, moments, int8_gemm):
+    """Every counter of kernels 1, 2, 3 and 10, by the name of its entry in the kernels line."""
+    counts = {"stream_score_cluster": stream_score.stream_score_arrangements["cluster"],
+              "stream_score": stream_score.stream_score_arrangements["block"],
+              "int8_gemm_mma": int8_gemm.int8_gemm_arrangements["mma"],
+              "int8_gemm": int8_gemm.int8_gemm_arrangements["cuda_core"]}
+    for op, by in moments.moments_arrangements.items():
+        kind, direction = op.split("_")
+        counts[f"moments_cluster_{kind}_{direction}"] = by["cluster"]
+        counts[f"moments_{kind}_{direction}"] = by["blocks"]
+    return counts
+
+
+def reset_launch_counts(stream_score, moments, int8_gemm):
+    reset_scorer_counts(stream_score)
+    moments.reset_counts()
+    reset_int8_counts(int8_gemm)
+
+
+def moments_check(mo, kind, shape, dtype, dev):
+    """One forward and backward of a moments kernel at the path's (B, L) against the plain
+    versions (tolerances of phase f); returns the largest error."""
+    import torch
+
+    z = moments_operand(dev, shape, dtype, seed=3)
+    fwd, bwd = ((mo.global_moments_packed, mo.global_moments_backward) if kind == "global" else
+                (mo.perdim_moments_packed, mo.perdim_moments_backward))
+    ref_fwd = (mo.global_moments_reference if kind == "global" else mo.perdim_moments_reference)
+    ref_bwd = (mo.global_moments_backward_reference if kind == "global"
+               else mo.perdim_moments_backward_reference)
+    out = fwd(z)
+    ref = torch.stack(ref_fwd(z))
+    close_moments(out, ref)
+    gout = torch.linspace(-1.0, 1.0, out.numel(), device=dev).view_as(out)
+    grad, grad_ref = bwd(z, out, gout), ref_bwd(z, out, gout)
+    scale = float(grad_ref.float().abs().max())
+    torch.testing.assert_close(grad.float(), grad_ref.float(), rtol=1e-4, atol=1e-6 * scale)
+    return max(float((out - ref).abs().max()), float((grad.float() - grad_ref.float()).abs().max()))
+
+
+def flax_leaves(state):
+    """A state dict of the core (parameters or one Adam moment) as float32 numpy leaves
+    under the JAX package's names, ``<part>/<layer>/<kernel|bias>``."""
+    from trustedai_cl_vae_ad_tpu_torch.bridge import params_to_flax
+
+    return {f"{part}/{layer}/{leaf}": value
+            for part, layers in params_to_flax(state).items()
+            for layer, leaves in layers.items() for leaf, value in leaves.items()}
+
+
+def jax_logdir_phase(name, dev):
+    """One JAX-written fixture on the card: load, eval forward, the live engine, w8a8 from
+    the sidecar, one training step; each against the JAX package's stored CPU outputs.
+    Returns the kernels' launches on that path and what was measured."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, quant, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.ops.stream_score import StreamScoreState
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_directory
+    from trustedai_cl_vae_ad_tpu_torch.stream.engine import StreamingEngine
+    from trustedai_cl_vae_ad_tpu_torch.testing import compare_train_runs
+
+    logdir = os.path.join(JAX_LOGDIRS, "converted", name)
+    with np.load(os.path.join(JAX_LOGDIRS, f"{name}.npz")) as f:
+        ref = dict(f)
+    bf16 = name.endswith("bf16")
+    rec_tol = dict(rtol=1e-2, atol=1e-3) if bf16 else dict(rtol=1e-4, atol=1e-5)
+    load_s = []  # the first load of the process pays cuDNN's and the allocator's set-up
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, config = load_model_from_directory(logdir, device=dev, restore_optimizer=True)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+    assert model.device.type == "cuda" and model.optimizer is not None
+    assert torch.backends.cudnn.allow_tf32 is False  # float32 means float32 (bf16 runs too)
+    x = torch.from_numpy(ref["frames"]).to(dev)
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    rec = model.call(x).float().cpu().numpy()
+    np.testing.assert_allclose(rec, ref["reconstruction"], **rec_tol)
+    rec_err = float(np.abs(rec - ref["reconstruction"]).max())
+
+    # the live engine, 8 frames through kernel 1 from the fixture's warm scorer state
+    engine = StreamingEngine(model, config, anomaly_settings=JAX_SETTINGS)
+    engine.inference_period_ms = 0.0
+    maps = np.stack([np.full((32, 48), 0.1, np.float32), np.full((32, 48), 0.0125, np.float32)])
+    scalars = np.array([0.0, 1.0, 1.0, 2.0, 1.0, 0.0], np.float32)
+    engine.score_state = StreamScoreState(torch.from_numpy(maps).to(dev),
+                                          torch.from_numpy(scalars).to(dev))
+    results = [engine.process_frame(f, now=float(i), tag=i) for i, f in enumerate(ref["frames"])]
+    agreed = True
+    for r, score, count in zip(results, ref["scores"], ref["counts"]):
+        assert abs(r.pixel_count - count) <= 2, (name, r.tag, r.pixel_count, count)
+        agreed = agreed and r.pixel_count == count
+        if agreed:
+            np.testing.assert_allclose(r.score, score, rtol=1e-4)
+    assert agreed, (name, [r.pixel_count for r in results], ref["counts"])
+
+    # w8a8 from the sidecar, through kernel 10 (both Dense layers on the tensor cores)
+    r8_err = None
+    if "reconstruction_w8a8" in ref:
+        qparams = quant.load_quantized_checkpoint(logdir, dev)
+        r8 = quant.call_quantized(model.core, qparams, x).float().cpu().numpy()
+        r8_err = float(np.abs(r8 - ref["reconstruction_w8a8"]).max())
+        assert r8_err <= 2e-4, r8_err
+
+    # one training step from the resumed state, with the JAX step's latent noise
+    lr = float(ref["learning_rate"])
+    if bf16:  # the JAX package restores its injected rate into the parameters' dtype
+        assert float(torch.tensor(model.learning_rate).to(torch.bfloat16)) == lr
+    else:
+        assert model.learning_rate == lr
+    opt = model.optimizer
+    moments_before = {kind: flax_leaves(dict(zip(opt.names, getattr(opt, kind))))
+                      for kind in ("mu", "nu")}
+    loss, _ = model.train_step_and_run(x, eps=torch.from_numpy(ref["step_eps"]).to(dev))
+    got = {k: float(v) for k, v in loss.items()}
+    want = {k[len("loss/"):]: float(v) for k, v in ref.items() if k.startswith("loss/")}
+    compare_train_runs([got], [want], rtol=1e-3 if bf16 else 1e-4, atol=1e-6,
+                       label=f"{name} after resume")
+    assert opt.count == int(ref["count"]), (opt.count, int(ref["count"]))
+    param_err = 0.0
+    for key, value in flax_leaves(model.params).items():
+        expect = ref[f"params/{key}"]
+        if bf16:
+            np.testing.assert_allclose(value, expect, rtol=2.0 ** -7, atol=0.5 * lr, err_msg=key)
+        else:
+            np.testing.assert_allclose(value, expect, rtol=0, atol=0.05 * lr, err_msg=key)
+        param_err = max(param_err, float(np.abs(value - expect).max()))
+    # the moments after the step, within a share of the step's own change of each leaf
+    moment_err = 0.0
+    for kind, before in moments_before.items():
+        for key, value in flax_leaves(dict(zip(opt.names, getattr(opt, kind)))).items():
+            expect = ref[f"{kind}/{key}"]
+            change = float(np.abs(expect - before[key]).max())
+            assert change > 0, (kind, key)
+            err = float(np.abs(value - expect).max())
+            assert err <= (0.25 if bf16 else 1e-3) * change, (kind, key, err, change)
+            moment_err = max(moment_err, err / change)
+    torch.cuda.synchronize()
+    launches = launch_counts(stream_score, moments, int8_gemm)
+    kind = JAX_FIXTURES[name]
+    assert launches["stream_score_cluster"] == len(results) == 8, launches
+    assert launches[f"moments_cluster_{kind}_forward"] == 1, launches
+    assert launches[f"moments_cluster_{kind}_backward"] == 1, launches
+    if r8_err is not None:
+        assert launches["int8_gemm_mma"] == 2 and launches["int8_gemm"] == 0, launches
+
+    # each kernel of the path against its plain version at the path's shapes (not counted)
+    checks = {}
+    state = StreamScoreState(torch.from_numpy(maps).to(dev), torch.from_numpy(scalars).to(dev))
+    img = x[0].float() / 255.0
+    rec0 = model.call(x[:1])[0].float()
+    got_s = stream_score.stream_score_step(state, img, rec0, ALPHA)
+    ref_s = stream_score.stream_score_step_reference(state, img, rec0, ALPHA)
+    torch.testing.assert_close(got_s[0].maps, ref_s[0].maps, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_s[1], ref_s[1], rtol=1e-5, atol=1e-6)
+    assert abs(float(got_s[3]) - float(ref_s[3])) <= 2
+    checks["stream_score_cluster"] = float((got_s[0].maps - ref_s[0].maps).abs().max())
+    checks[f"moments_cluster_{kind}"] = moments_check(
+        moments, kind, (x.shape[0], model.latent_size), "bfloat16" if bf16 else "float32", dev)
+    if r8_err is not None:
+        shapes = []
+        saved = quant._int8_partials
+        quant._int8_partials = plain_int8_partials(quant, int8_gemm, shapes)
+        try:
+            r8_plain = quant.call_quantized(model.core, qparams, x).float().cpu().numpy()
+        finally:
+            quant._int8_partials = saved
+        # the int8 sums were asserted equal; the convolutions around them may take another
+        # cuDNN algorithm in a second forward (phase w holds the same comparison at rtol 1e-5)
+        assert len(shapes) == 2, shapes
+        np.testing.assert_allclose(r8_plain, r8, rtol=1e-5, atol=1e-6)
+        checks["int8_gemm_mma"] = 0.0
+    log(f"  {name}: loaded in {load_s[0]:.4f} s, again in {load_s[1]:.4f} s (learning rate "
+        f"{model.learning_rate:.9g}, Adam step {model.optimizer.count - 1} before this one); "
+        f"eval forward within {rec_err:.3g} "
+        f"of JAX's; counts {[int(r.pixel_count) for r in results]} as JAX's "
+        f"{[int(c) for c in ref['counts']]}; w8a8 within {r8_err} of JAX's; step loss "
+        f"{got['loss']:.6f} (JAX {want['loss']:.6f}), parameters within {param_err:.3g}, "
+        f"moments within {moment_err:.3g} of the step's change; "
+        f"launches {dict((k, v) for k, v in launches.items() if v)}; kernel vs plain {checks}")
+    return {"load_s": load_s, "launches": launches, "rec_err": rec_err, "w8a8_err": r8_err,
+            "param_err": param_err, "moment_err": moment_err, "checks": checks}
+
+
+class EpochClock:
+    """A re-iterable stream that notes the wall clock (``time.time``, as the records of
+    ``metrics.jsonl`` carry) at the start of each of its iterations: an epoch's clock then
+    starts before its first batch is asked for."""
+
+    def __init__(self, stream):
+        self.stream, self.starts = stream, []
+
+    def __len__(self):
+        return len(self.stream)
+
+    def __iter__(self):
+        self.starts.append(time.time())
+        return iter(self.stream)
+
+
+class TimedSource:
+    """A re-iterable host source that adds up the seconds its iterations spend producing
+    items (decode and batching, in the prefetch thread) and counts its passes."""
+
+    def __init__(self, source):
+        self.source, self.seconds, self.passes = source, 0.0, 0
+
+    def __len__(self):
+        return len(self.source)
+
+    def __iter__(self):
+        self.passes += 1
+        it = iter(self.source)
+        while True:
+            t0 = time.perf_counter()
+            item = next(it, None)
+            self.seconds += time.perf_counter() - t0
+            if item is None:
+                return
+            yield item
+
+
+def write_coco_split(root, split, n, h, w, c, rng):
+    """n synthetic PNG frames (``smooth_frames``) and a COCO labels.json under
+    root/split, written on 8 threads a chunk of 64 frames at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from trustedai_cl_vae_ad_tpu_torch.data.coco import new_coco_skeleton, validate_coco_data
+
+    os.makedirs(os.path.join(root, split, "frames"))
+    labels = new_coco_skeleton(f"chip_smoke {split}")
+    labels["categories"].append({"id": 1, "name": "person"})
+    with ThreadPoolExecutor(8) as pool:
+        for lo in range(0, n, 64):
+            chunk = smooth_frames(rng, min(64, n - lo), h, w, c)
+            names = [f"{lo + i:06d}.png" for i in range(len(chunk))]
+            list(pool.map(lambda a: Image.fromarray(a[0]).save(
+                os.path.join(root, split, "frames", a[1])), zip(chunk, names)))
+            for i, name in enumerate(names, lo):
+                labels["images"].append({"id": i, "file_name": name, "width": w, "height": h})
+                labels["annotations"].append({"id": i, "image_id": i, "category_id": 1,
+                                              "bbox": [10, 20, 30, 40], "area": 1200,
+                                              "iscrowd": 0})
+    validate_coco_data(labels)
+    with open(os.path.join(root, split, "labels.json"), "w") as f:
+        json.dump(labels, f)
+
+
+def raite_phase(dev):
+    """configs/raite.yml's model at its own widths on 1024 + 64 synthetic 300x224 PNG
+    frames with a COCO labels.json, data.device_cache on, through train_torch.py's main.
+    Each epoch is timed whole, its first step included: the first decodes on the host and
+    fills the cache, the later ones read the card."""
+    import numpy as np
+    import torch
+
+    import train_torch
+    from trustedai_cl_vae_ad_tpu_torch.config import load_config, save_config
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.train import loop
+
+    config = load_config(os.path.join(REPO, "configs", "raite.yml"))
+    h, w, c = config["data"]["image_size"]
+    batch = int(config["training"]["batch_size"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_raite_")
+    cwd = os.getcwd()
+    captured = {}
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(9)
+        for split, n in ((config["data"]["train_split"], RAITE_TRAIN),
+                         (config["data"]["val_split"], RAITE_VAL)):
+            write_coco_split(os.path.join(tmp, "raite"), split, n, h, w, c, rng)
+        write_s = time.perf_counter() - t0
+        config["data"].update(dataset_path=os.path.join(tmp, "raite"), device_cache=True)
+        config["training"]["max_epochs"] = RAITE_EPOCHS
+        cfg_path = os.path.join(tmp, "raite.yml")
+        save_config(config, cfg_path)
+
+        real_load_data, real_train_model = train_torch.load_data, train_torch.train_model
+
+        def load_data(cfg, device):
+            captured["data"] = data = real_load_data(cfg, device=device)
+            for split in ("train_full", "val_full"):
+                data[split].source = TimedSource(data[split].source)
+            data["train"] = captured["clock"] = EpochClock(data["train"])
+            return data
+
+        def train_model(cfg, model, data, **kwargs):
+            captured["logdir"] = cfg["logdir"]
+            return real_train_model(cfg, model, data, log_every=1, **kwargs)
+
+        train_torch.load_data, train_torch.train_model = load_data, train_model
+        os.chdir(tmp)  # the stamped logs/fit_<time> directory goes under the temporary one
+        reset_launch_counts(stream_score, moments, int8_gemm)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_torch.main([cfg_path])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = launch_counts(stream_score, moments, int8_gemm)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        os.chdir(cwd)
+        train_torch.load_data, train_torch.train_model = real_load_data, real_train_model
+    try:
+        data, logdir = captured["data"], captured["logdir"]
+        train_full, val_full = data["train_full"], data["val_full"]
+        assert train_full.cached and val_full.cached, "the device cache did not fill"
+        assert all(b["image"].device.type == "cuda" for b in list(train_full))
+        cache_bytes = train_full.nbytes + val_full.nbytes
+        assert cache_bytes == (RAITE_TRAIN + RAITE_VAL) * h * w * c * 4 == train_full.budget.used
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        train = [r for r in records if "train/loss" in r]
+        steps_per_epoch = RAITE_TRAIN // batch
+        assert len(train) == RAITE_EPOCHS * steps_per_epoch, len(train)
+        assert all(np.isfinite(r["train/loss"]) for r in train)
+        # an epoch's time: from the start of its iteration (before its first batch is asked
+        # for) to the record of its last step (each record fetches the loss, so it waits
+        # for its step); validation is not in it
+        starts = captured["clock"].starts
+        assert len(starts) == RAITE_EPOCHS, starts
+        times = [r["time"] for r in train]
+        epochs = [times[e * steps_per_epoch:(e + 1) * steps_per_epoch] for e in range(RAITE_EPOCHS)]
+        epoch_s = [ep[-1] - start for ep, start in zip(epochs, starts)]
+        first_step_ms = [(ep[0] - start) * 1e3 for ep, start in zip(epochs, starts)]
+        gap_ms = [sorted((b - a) * 1e3 for a, b in zip(ep, ep[1:])) for ep in epochs]
+        median_gap_ms = [g[len(g) // 2] for g in gap_ms]
+        frames_per_s = [RAITE_TRAIN / s for s in epoch_s]
+        cached_s = sorted(epoch_s[1:])[len(epoch_s[1:]) // 2]
+        val_steps = -(-RAITE_VAL // batch)
+        expected = RAITE_EPOCHS * (steps_per_epoch + val_steps)
+        assert launches["moments_cluster_global_forward"] == expected, launches
+        assert launches["moments_cluster_global_backward"] == RAITE_EPOCHS * steps_per_epoch
+        assert loop.load_train_state(logdir)["epochs_completed"] == RAITE_EPOCHS
+        # the host made each split's batches once, in the first epoch: the later epochs
+        # read the cache on the card
+        assert train_full.source.passes == val_full.source.passes == 1, (
+            train_full.source.passes, val_full.source.passes)
+        decode_s = train_full.source.seconds
+        check = moments_check(moments, "global", (batch, int(config["model"]["latent_dimensions"])),
+                              "float32", dev)
+        log(f"  raite.yml ({h}x{w}x{c}, layers {config['model']['layers']}, latent "
+            f"{config['model']['latent_dimensions']}, batch {batch}): {RAITE_TRAIN} + {RAITE_VAL} "
+            f"PNG frames and labels.json written in {write_s:.1f} s; train_torch.main ran "
+            f"{RAITE_EPOCHS} epochs in {run_s:.1f} s")
+        for e in range(RAITE_EPOCHS):
+            log(f"    epoch {e} ({'decode, upload and cache fill' if e == 0 else 'from the cache'}"
+                f"): {steps_per_epoch} steps in {epoch_s[e]:.4f} s, first step included "
+                f"({frames_per_s[e]:.1f} frames/s); its first step {first_step_ms[e]:.2f} ms, "
+                f"median gap between steps {median_gap_ms[e]:.2f} ms (slowest "
+                f"{gap_ms[e][-1]:.2f})")
+        log(f"    first epoch / cached epoch {epoch_s[0] / cached_s:.3f}; the first epoch's "
+            f"host decode and batching {decode_s:.3f} s of the prefetch thread "
+            f"({RAITE_TRAIN / decode_s:.1f} frames/s, 8 decode threads), the validation "
+            f"split's {val_full.source.seconds:.3f} s, neither read again; device cache "
+            f"{cache_bytes} bytes; peak {peak / 2**30:.2f} GiB; launches "
+            f"{dict((k, v) for k, v in launches.items() if v)}; global moments vs plain "
+            f"{check:.3g}")
+        return {"launches": launches, "epoch_s": epoch_s, "frames_per_s": frames_per_s,
+                "first_step_ms": first_step_ms, "median_gap_ms": median_gap_ms,
+                "decode_s": decode_s, "cache_bytes": cache_bytes, "run_s": run_s,
+                "peak": peak}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_x(dev):
+    """The JAX-written log directories on the card (x1) and configs/raite.yml's COCO-JSON data
+    path with the device cache (x2); returns the launches of each path by kernel entry."""
+    log(f"  x1 reads {os.path.relpath(os.path.join(JAX_LOGDIRS, 'converted'), REPO)}/<name>: "
+        "tools/convert_logdir_torch.py's copies of the JAX-written directories (this machine "
+        "reads orbax only through tensorstore, which the card's machine lacks)")
+    out = {"x1": {name: jax_logdir_phase(name, dev) for name in JAX_FIXTURES}}
+    out["jax_logdir"] = {}
+    for res in out["x1"].values():
+        for key, n in res["launches"].items():
+            out["jax_logdir"][key] = out["jax_logdir"].get(key, 0) + n
+    out["x2"] = raite_phase(dev)
+    out["raite"] = out["x2"]["launches"]
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..w to run after the build (for "
+                        help="comma-separated subset of c..x to run after the build (for "
                              "finding a fault); the final line is then not printed")
     args = parser.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
@@ -3791,6 +4214,8 @@ def main(argv=None):
         phase_v)
     run("w", "the scoring surfaces at the flagship: serve_torch.py and the offline CLI",
         lambda: phase_w(dev))
+    run("x", "JAX-written log directories on the card; configs/raite.yml on COCO-JSON frames "
+        "with the device cache", lambda: phase_x(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -3808,7 +4233,7 @@ def main(argv=None):
     # CUDA-core kernel with conv1's times, its tensor-core kernel with conv2's (and the
     # CUDA-core kernel's on the same operands beside them); (w)'s w8a8 server and w8a8
     # offline CLI for the int8 GEMM's launches_serve and launches_offline, with its times at
-    # the offline batch's shapes
+    # the offline batch's shapes; (x)'s two paths are added to each entry below
     global_launches, perdim_launches = out["h"]["arrangements"], out["k"][0]["arrangements"]
     _, _, fleet_int8 = out["p"]["launches"]
     frame_int8 = out["p"]["frame_int8_arrangements"]
@@ -3823,7 +4248,7 @@ def main(argv=None):
                     launches_fleet_cl_ticks=out["v"]["fleet"]["launches"][arrangement],
                     batched=out["n"][arrangement], **out["c"][arrangement])
     tiny_int8 = out["o"]["int8_arrangements"]
-    print(json.dumps({"kernels": [
+    kernels = [
         scorer_entry(STREAM_CLUSTER_KERNEL, "cluster"),
         scorer_entry(STREAM_KERNEL, "block"),
         dict(INT8_MMA_KERNEL, launches=fleet_int8["mma"], launches_frames=frame_int8["mma"],
@@ -3840,7 +4265,13 @@ def main(argv=None):
              **out["s"]["conv1"]),
         dict(CONV_DW_WGMMA_KERNEL, launches=out["t"]["arrangements"]["wgmma"],
              **out["s"]["conv2"]),
-    ]}))
+    ]
+    # (x)'s two paths, each counted from zero: the JAX-written directories' load, forward,
+    # engine, w8a8 and training step; raite.yml's training on COCO-JSON frames
+    for entry in kernels:
+        entry["launches_jax_logdir"] = out["x"]["jax_logdir"].get(entry["name"], 0)
+        entry["launches_raite"] = out["x"]["raite"].get(entry["name"], 0)
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -124,7 +124,7 @@ def test_load_data_sources(tmp_path):
               "training": {"batch_size": 4}}
     assert loader.load_data(single, device="cpu")["val"] is None
 
-    for bad, error in (({"dataset": "raite"}, NotImplementedError),
+    for bad, error in (({"dataset": "raite"}, ValueError),  # a RAITE root is required
                        ({"dataset": "imagenet2012"}, NotImplementedError),
                        ({"dataset_path": str(tmp_path / "none")}, FileNotFoundError),
                        ({}, ValueError)):

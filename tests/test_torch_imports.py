@@ -21,7 +21,8 @@ ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "do_anomaly_detecti
                 "kernel_bounds_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
                 "profile_stream_torch.py", "profile_train_torch.py", "serve_torch.py",
                 "train_torch.py",
-                os.path.join("tools", "quantize_checkpoint_torch.py"))
+                os.path.join("tools", "quantize_checkpoint_torch.py"),
+                os.path.join("tools", "convert_logdir_torch.py"))
 
 
 def _port_sources():
@@ -47,7 +48,7 @@ import camera_streamer_torch, chip_smoke, kernel_bounds_torch, profile_stream_to
 import probe_r11_torch, probe_r18_torch, profile_train_torch, train_torch
 import serve_torch, do_anomaly_detection_torch
 sys.path.insert(0, {os.path.join(REPO, "tools")!r})
-import quantize_checkpoint_torch
+import quantize_checkpoint_torch, convert_logdir_torch
 print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
 """
     env = dict(os.environ, PYTHONPATH=REPO, TCVAE_PLATFORM="cpu", TCVAE_CPU_DEVICES="1")
@@ -69,11 +70,13 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "stream/run.py", "ops/quant.py", "ops/int8_gemm.py", "stream/multicam.py",
                 "ops/dense_grad_adam.py", "probes/__init__.py", "probes/r11.py",
                 "ops/conv_dw.py", "probes/r18.py", "viz/__init__.py", "viz/plots.py",
-                "anomaly/offline.py"):
+                "anomaly/offline.py", "train/orbax_read.py", "data/coco.py", "data/raite.py",
+                "data/ingest.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
     assert {"train_torch.py", "profile_train_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
             "serve_torch.py", "do_anomaly_detection_torch.py",
-            os.path.join("tools", "quantize_checkpoint_torch.py")} <= sources
+            os.path.join("tools", "quantize_checkpoint_torch.py"),
+            os.path.join("tools", "convert_logdir_torch.py")} <= sources
 
 
 def test_port_sources_have_no_jax_import():
@@ -104,3 +107,32 @@ def test_kernel_sources_include_nothing_of_the_jax_package():
             includes = [line for line in f if line.lstrip().startswith("#include")]
         for line in includes:
             assert not any(word in line for word in FORBIDDEN), (name, line)
+
+
+def test_reading_a_jax_logdir_loads_no_jax():
+    """An orbax read (``train/orbax_read.py`` through tensorstore), the model
+    and sidecar loads built on it, and a conversion leave no jax, flax, optax
+    or orbax module in ``sys.modules``."""
+    data = os.path.join(REPO, "tests", "data", "jax_logdirs")
+    code = f"""
+import json, os, sys, tempfile
+sys.path.insert(0, {os.path.join(REPO, "tools")!r})
+from trustedai_cl_vae_ad_tpu_torch.train import orbax_read
+from trustedai_cl_vae_ad_tpu_torch.ops.quant import load_quantized_checkpoint
+from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_directory
+import convert_logdir_torch
+logdir = os.path.join({data!r}, "global_f32")
+tree = orbax_read.read_subtree(os.path.join(logdir, "optimizer"))
+assert "inner_state" in tree
+load_model_from_directory(logdir, device="cpu", restore_optimizer=True)
+load_quantized_checkpoint(logdir, "cpu")
+convert_logdir_torch.convert(logdir, os.path.join(tempfile.mkdtemp(), "converted"))
+assert "tensorstore" in sys.modules
+print(json.dumps(sorted(k for k in sys.modules
+                        if k.split(".")[0] in {FORBIDDEN!r} + ("jaxlib",))))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO, TCVAE_PLATFORM="cpu", TCVAE_CPU_DEVICES="1")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -4,9 +4,10 @@
 Usage:
   python tools/quantize_checkpoint_torch.py -m <logdir> [--min-elems N] [--device cuda]
 
-Loads the float checkpoint that ``train_torch.py`` wrote, quantizes the large
-Dense kernels (``trustedai_cl_vae_ad_tpu_torch/ops/quant.py``: symmetric int8
-with one scale per output channel) and persists the serving tree under
+Loads the float checkpoint that ``train_torch.py`` (or the JAX package's
+``train.py``) wrote, quantizes the large Dense kernels
+(``trustedai_cl_vae_ad_tpu_torch/ops/quant.py``: symmetric int8 with one
+scale per output channel) and persists the serving tree under
 ``<logdir>/quantized``. After this, ``camera_streamer_torch.py -m <logdir>
 --quantize`` (without ``-c``) boots from the int8 tree: the float weights are
 neither read nor put on the device, and no quantization pass runs at boot.

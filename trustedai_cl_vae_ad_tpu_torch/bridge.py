@@ -14,8 +14,9 @@ Layouts:
     ConvTranspose2d (in, out, kh, kw) = ``permute(3, 2, 0, 1)``, with no
     spatial flip (pinned by tests/test_torch_bridge.py);
   * biases are unchanged.
-bfloat16 leaves are widened to float32; ``load_state_dict`` casts them to
-the model's parameter dtype.
+bfloat16 leaves (ml_dtypes) cross as their uint16 bits, never through float
+arithmetic, and stay bfloat16; ``load_state_dict`` casts every leaf to the
+model's parameter dtype.
 
 The int8 serving tree (``ops/quant.py``) crosses as a tree: a quantized Dense
 ``{kernel_i8 (in, out), scale, bias}`` of the JAX package becomes
@@ -50,6 +51,15 @@ def _inverse(perm):
     return tuple(int(i) for i in np.argsort(perm))
 
 
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of ``a`` in its own dtype; bfloat16 (ml_dtypes) crosses as
+    its uint16 bit patterns."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
 def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
     """flax tree of numpy arrays -> state dict of CPU tensors."""
     out: Dict[str, torch.Tensor] = {}
@@ -57,8 +67,6 @@ def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
         for layer, leaves in tree[part].items():
             for leaf, arr in leaves.items():
                 a = np.asarray(arr)
-                if a.dtype.name == "bfloat16":
-                    a = a.astype(np.float32)
                 if leaf == "kernel":
                     a = a.transpose(_perm(layer))
                     name = "weight"
@@ -66,7 +74,7 @@ def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
                     name = "bias"
                 else:
                     raise KeyError(f"unknown flax leaf {part}/{layer}/{leaf}")
-                out[f"{part}.layers.{layer}.{name}"] = torch.tensor(np.ascontiguousarray(a))
+                out[f"{part}.layers.{layer}.{name}"] = _tensor(a)
     return out
 
 
@@ -87,12 +95,16 @@ def params_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     return tree
 
 
-def opt_state_from_optax(count, mu_tree: dict, nu_tree: dict) -> dict:
+def opt_state_from_optax(count, mu_tree: dict, nu_tree: dict, learning_rate=None) -> dict:
     """optax's Adam state (``count``, ``mu``, ``nu``; the moment trees have
-    the parameters' structure and cross by the same permutations) -> the
-    dict that ``ops.adam.Adam.load_state_dict`` takes."""
-    return {"count": int(count), "mu": params_from_flax(mu_tree),
-            "nu": params_from_flax(nu_tree)}
+    the parameters' structure and cross by the same permutations; the
+    learning rate that ``inject_hyperparams`` keeps, when given) -> the dict
+    that ``ops.adam.Adam.load_state_dict`` takes."""
+    state = {"count": int(count), "mu": params_from_flax(mu_tree),
+             "nu": params_from_flax(nu_tree)}
+    if learning_rate is not None:
+        state["learning_rate"] = float(np.asarray(learning_rate, dtype=np.float64))
+    return state
 
 
 def opt_state_to_optax(state: dict):
@@ -110,14 +122,12 @@ def qparams_from_flax(tree: dict) -> dict:
             entry = {}
             for leaf, arr in leaves.items():
                 a = np.asarray(arr)
-                if a.dtype.name == "bfloat16":
-                    a = a.astype(np.float32)
                 if leaf in ("kernel", "kernel_i8"):
                     a = a.transpose(_perm(layer))
                     leaf = "weight" if leaf == "kernel" else leaf
                 elif leaf not in ("bias", "scale"):
                     raise KeyError(f"unknown leaf {part}/{layer}/{leaf}")
-                entry[leaf] = torch.tensor(np.ascontiguousarray(a))
+                entry[leaf] = _tensor(a)
             out[part][layer] = entry
     return out
 

@@ -1,18 +1,28 @@
 """``load_data(config)``: dataset front end keyed by the config's data section.
 
-Counterpart of ``trustedai_cl_vae_ad_tpu/data/loader.py`` for two of its
-sources:
+Counterpart of ``trustedai_cl_vae_ad_tpu/data/loader.py``:
 
+  * ``dataset: raite`` -> the COCO-JSON ``RaiteDataset`` (data/raite.py) of
+    ``dataset_path``: ``train_split`` (default ``train``) and ``val_split``
+    (default ``validation``) each name a ``labels.json`` or the directory
+    that holds one, with the frames in ``frames/`` beside it; decoded batches
+    are kept in host memory after their first pass (``host_cache``, on by
+    default unless the device cache is);
   * ``dataset_path`` -> a saved dataset directory (data/saved_dataset.py)
     with ``train/`` and ``validation/`` subdirectories, or a single split;
   * ``dataset: synthetic`` -> seeded noise frames (``n_train``, ``n_val``;
     ``synthetic_frame_size: [W, H]`` makes the frames at another size than
-    ``image_size``, so that the device resize runs).
+    ``image_size``, so that the device resize runs);
+  * any other ``dataset`` name is a TensorFlow Datasets catalog entry, which
+    needs ``tensorflow_datasets`` and the dataset downloaded beforehand
+    (``data_dir``): not ported (ROADMAP queue 1 item 1), it raises.
 
-``dataset: raite`` and catalog names raise: RAITE/COCO ingest is ROADMAP
-queue 1 item 1. Returns {'train', 'val'}; each split yields dict batches
-whose 'image' is already on the device: float32, [0, 1], resized to the
-config's image_size (data/ingest.py).
+``device_cache: true`` keeps every split's preprocessed batches in device
+memory after the first epoch (``data/ingest.py::DeviceCachedStream``), within
+``device_cache_max_gb`` (default 4) for the train and validation splits
+together. Returns {'train', 'val', ...}; each split yields batches whose
+'image' is already on the device: float32, [0, 1], resized to the config's
+image_size (data/ingest.py).
 """
 
 from __future__ import annotations
@@ -23,6 +33,9 @@ from typing import Iterator, Optional
 import numpy as np
 
 from trustedai_cl_vae_ad_tpu_torch.data import ingest
+from trustedai_cl_vae_ad_tpu_torch.data.ingest import DeviceCacheBudget, DeviceCachedStream
+from trustedai_cl_vae_ad_tpu_torch.data.pipeline import MappedDataset
+from trustedai_cl_vae_ad_tpu_torch.data.raite import RaiteDataset
 from trustedai_cl_vae_ad_tpu_torch.data.saved_dataset import SavedDataset, is_saved_dataset
 
 
@@ -93,20 +106,59 @@ def host_images(images) -> np.ndarray:
     return images
 
 
+def _raite_split_json(dataset_path: str, split: str) -> str:
+    """A split names its ``labels.json`` or the directory that holds it."""
+    path = os.path.join(dataset_path, split)
+    if os.path.isdir(path):
+        path = os.path.join(path, "labels.json")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"RAITE split not found: {path}")
+    return path
+
+
 def load_data(config: dict, device="cuda") -> dict:
     data_config = config["data"]
     dataset_path = data_config.get("dataset_path")
     dataset_name = data_config.get("dataset")
     img_size = data_config["image_size"]
     batch_size = int(config["training"]["batch_size"])
+    # one budget for the whole call: the train and validation caches share it
+    cache_budget = DeviceCacheBudget(
+        int(float(data_config.get("device_cache_max_gb", 4)) * (1 << 30))
+    ) if data_config.get("device_cache") else None
 
     def _stream(source):
+        if cache_budget is not None:
+            return DeviceCachedStream(source, img_size, device, budget=cache_budget)
         return DeviceStream(source, img_size, device)
 
     if dataset_name == "raite":
-        raise NotImplementedError(
-            "data.dataset: raite is not ported yet (ROADMAP.md queue 1 item 1: RAITE/COCO "
-            "ingest); use dataset_path (a saved dataset directory) or dataset: synthetic")
+        if dataset_path is None:
+            raise ValueError("data.dataset: raite requires data.dataset_path "
+                             "(the RAITE dataset root that holds the splits' labels)")
+        if not os.path.isdir(dataset_path):
+            raise FileNotFoundError(f"data.dataset_path is not a directory: {dataset_path}")
+        print(f"Loading RAITE Dataset from: {dataset_path}")
+        rdb = RaiteDataset(_raite_split_json(dataset_path, data_config.get("train_split", "train")),
+                           _raite_split_json(dataset_path,
+                                             data_config.get("val_split", "validation")),
+                           batchsize=batch_size)
+        # with the device cache, later epochs read device memory only, so a
+        # host copy would hold a dataset-sized allocation nothing reads
+        if bool(data_config.get("host_cache", cache_budget is None)):
+            rdb.cache()
+        train_stream, val_stream = _stream(rdb.train_data), _stream(rdb.test_data)
+        return {
+            "train": MappedDataset(train_stream, lambda b: b["image"]),
+            # the labels come from the host batches: mapping the device
+            # stream would upload and resize every image to drop it
+            "train_labels": MappedDataset(rdb.train_data, lambda b: b["filepath"]),
+            "val": MappedDataset(val_stream, lambda b: b["image"]),
+            "val_labels": MappedDataset(rdb.test_data, lambda b: b["filepath"]),
+            "raite_db": rdb,
+            "train_full": train_stream,
+            "val_full": val_stream,
+        }
 
     if dataset_path is not None:
         print(f"Loading dataset from: {dataset_path}")
@@ -137,11 +189,14 @@ def load_data(config: dict, device="cuda") -> dict:
         }
 
     if dataset_name is not None:
+        where = data_config.get("data_dir") or "tensorflow_datasets' default data_dir"
         raise NotImplementedError(
-            f"catalog dataset {dataset_name!r} is not ported yet (ROADMAP.md queue 1 item 1); "
-            "use dataset_path (a saved dataset directory) or dataset: synthetic")
+            f"catalog dataset {dataset_name!r} needs tensorflow_datasets and the dataset "
+            f"downloaded beforehand into {where} (tfds.load(..., download=False)), and is not "
+            "ported yet (ROADMAP.md queue 1 item 1); use dataset: raite (COCO JSON), "
+            "dataset_path (a saved dataset directory) or dataset: synthetic")
 
     raise ValueError(
-        "No dataset configured: set data.dataset (synthetic) or data.dataset_path "
+        "No dataset configured: set data.dataset (raite / synthetic) or data.dataset_path "
         "(saved dataset directory)."
     )

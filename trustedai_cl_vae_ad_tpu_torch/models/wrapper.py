@@ -184,7 +184,9 @@ class VAEModel:
             save_checkpoint(log_dir, self.params, opt_state=opt_state)
 
     def load_model(self, model_path: str, restore_optimizer: Optional[bool] = None) -> None:
-        """Restore the weights, and the optimizer state if present, in place.
+        """Restore the weights, and the optimizer state if present (the Adam
+        moments, their step count and the learning rate), in place, from a
+        log directory of this package or of the JAX package.
 
         ``restore_optimizer``:
           * None (default): restore the moments only if the model is already

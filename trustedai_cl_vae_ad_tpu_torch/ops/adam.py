@@ -130,13 +130,20 @@ class Adam:
 
     # -- state in and out ---------------------------------------------------------
     def state_dict(self) -> dict:
-        """{'count': int, 'mu': {name: tensor}, 'nu': {name: tensor}} (the
-        tensors are the live moments, not copies)."""
-        return {"count": int(self.count),
+        """{'count': int, 'learning_rate': float, 'mu': {name: tensor}, 'nu':
+        {name: tensor}} (the tensors are the live moments, not copies). The
+        learning rate is part of the state, as optax's injected
+        hyperparameter is in the JAX package: a rate dialled at run time
+        survives a save and a resume."""
+        return {"count": int(self.count), "learning_rate": float(self.learning_rate),
                 "mu": dict(zip(self.names, self.mu)),
                 "nu": dict(zip(self.names, self.nu))}
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore the moments, the step count and, where the state holds
+        one, the learning rate. A state without it (the port's checkpoints
+        written before the rate was saved) keeps the rate this optimizer was
+        made with: it has nothing to restore."""
         for kind, dst in (("mu", self.mu), ("nu", self.nu)):
             src = state[kind]
             if set(src) != set(self.names):
@@ -149,6 +156,8 @@ class Adam:
                                          f"{tuple(src[name].shape)}, expected {tuple(t.shape)}")
                     t.copy_(src[name])
         self.count = int(state["count"])
+        if state.get("learning_rate") is not None:
+            self.learning_rate = float(state["learning_rate"])
 
 
 def make_optimizer(params: Dict[str, torch.Tensor], learning_rate: float,

@@ -37,6 +37,12 @@ belongs to a row, so ``quantize_dense_kernel`` works through independent row
 blocks with one pass for each block's row maxima, and never holds float32
 temporaries of the whole kernel. ``bridge.py`` carries the tree to the JAX
 layout and back.
+
+The JAX package's sidecar (an orbax checkpoint of its quantized tree, with
+``float_provenance.json`` holding orbax commit timestamps) is read too:
+``load_quantized_checkpoint`` through ``train/orbax_read.py`` and
+``bridge.qparams_from_flax``, and ``quantized_staleness`` gives the JAX
+package's verdict on such a directory.
 """
 
 from __future__ import annotations
@@ -54,6 +60,11 @@ import torch.nn.functional as F
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import conv2d_same, normalize_image_input
 from trustedai_cl_vae_ad_tpu_torch.ops.convt import conv_transpose_same
 from trustedai_cl_vae_ad_tpu_torch.ops.int8_gemm import int8_gemm_chunked
+from trustedai_cl_vae_ad_tpu_torch.train.orbax_read import (
+    commit_timestamp_nsecs,
+    is_orbax_subtree,
+    read_subtree,
+)
 
 DEFAULT_MIN_ELEMS = 1 << 25
 
@@ -237,13 +248,19 @@ def float_checkpoint_stamp(log_dir: str) -> dict:
     rsync -a, tar). The files are those of the round that restoring would
     read (``train.checkpoint.resolve_round_dir``), so the stamp holds across
     a commit of the same weights into a new round and after a kill between a
-    round's rename and the swap of ``current``. A missing file maps to None."""
+    round's rename and the swap of ``current``. A part the JAX package wrote
+    (no ``params.pt``) is stamped as that package stamps it: orbax's
+    ``commit_timestamp_nsecs`` in ``<log_dir>/<part>/_CHECKPOINT_METADATA``.
+    A missing file maps to None."""
     from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import resolve_round_dir
 
     base = resolve_round_dir(log_dir)
     stamp = {}
     for part in ("encoder", "decoder"):
         path = os.path.join(base, part, "params.pt")
+        if not os.path.isfile(path):
+            stamp[part] = commit_timestamp_nsecs(os.path.join(log_dir, part))
+            continue
         try:
             size = os.path.getsize(path)
             digest = hashlib.sha256(str(size).encode())
@@ -268,8 +285,12 @@ def _read_json(path: str) -> Optional[dict]:
 
 
 def _commit_time(directory: str) -> Optional[int]:
-    """``commit_timestamp_nsecs`` of a ``commit.json`` in ``directory``."""
-    return (_read_json(os.path.join(directory, COMMIT_FILE)) or {}).get("commit_timestamp_nsecs")
+    """``commit_timestamp_nsecs`` of a ``commit.json`` in ``directory``, else
+    of orbax's ``_CHECKPOINT_METADATA`` there (the JAX package's subtrees)."""
+    stamp = _read_json(os.path.join(directory, COMMIT_FILE))
+    if stamp is None:
+        return commit_timestamp_nsecs(directory)
+    return stamp.get("commit_timestamp_nsecs")
 
 
 def quantized_staleness(log_dir: str):
@@ -278,8 +299,9 @@ def quantized_staleness(log_dir: str):
     Returns None (no evidence of staleness) or ``(code, message)``. Evidence
     is content-based first: the provenance stamp that
     ``save_quantized_checkpoint`` writes (``provenance_mismatch``), then commit
-    timestamps recorded in files (``commit.json`` in ``quantized/`` and, where
-    a writer left one, in ``encoder/`` and ``decoder/``: ``commit_older``);
+    timestamps recorded in files (``commit.json`` or, the JAX package's,
+    ``_CHECKPOINT_METADATA`` in ``quantized/``, ``encoder/`` and
+    ``decoder/``: ``commit_older``);
     filesystem mtimes, which lie under mtime-preserving copies and clock
     skew, are the last resort, with soft wording (``mtime_older``)."""
     qdir = os.path.join(log_dir, QUANTIZED_SUBDIR)
@@ -368,14 +390,30 @@ def _heal_quantized(log_dir: str) -> None:
             os.rename(old, path)
 
 
+def _jax_sidecar(path: str, device) -> dict:
+    """The JAX package's orbax sidecar as the port's serving tree, each leaf
+    in its stored dtype."""
+    from trustedai_cl_vae_ad_tpu_torch.bridge import qparams_from_flax
+
+    return {part: {layer: {leaf: t.to(device) for leaf, t in leaves.items()}
+                   for layer, leaves in layers.items()}
+            for part, layers in qparams_from_flax(read_subtree(path)).items()}
+
+
 def load_quantized_checkpoint(log_dir: str, device="cuda") -> dict:
     """The serving tree of ``<log_dir>/quantized`` on ``device`` (moved there
     once, here); dtypes and structure come from the file: int8 kernels,
-    float32 scales, float biases and convolutions."""
+    float32 scales, float biases and convolutions. The port's sidecar
+    (``params.pt``) or the JAX package's (an orbax checkpoint)."""
     _heal_quantized(log_dir)
-    path = os.path.join(_sidecar_paths(log_dir)[0], QUANTIZED_FILE)
+    qdir = _sidecar_paths(log_dir)[0]
+    path = os.path.join(qdir, QUANTIZED_FILE)
     if not os.path.isfile(path):
-        raise FileNotFoundError(f"no quantized checkpoint at {path}")
+        if is_orbax_subtree(qdir):
+            return _jax_sidecar(qdir, torch.device(device))
+        raise FileNotFoundError(
+            f"no quantized checkpoint at {qdir}: neither this package's {QUANTIZED_FILE} nor "
+            "the JAX package's orbax tree")
     flat = torch.load(path, map_location=torch.device(device), weights_only=True)
     tree: dict = {"encoder": {}, "decoder": {}}
     for key, t in flat.items():

@@ -99,8 +99,9 @@ def load_model_from_config_path(config_path: str, seed: int = 0, device="cuda"):
 
 
 def load_model_from_directory(logdir: str, device="cuda", restore_optimizer=False):
-    """(model, config) from a log directory this package's ``save_model``
-    wrote: ``config.yml`` beside ``encoder/`` and ``decoder/``. The weights
+    """(model, config) from a log directory that this package's ``save_model``
+    or the JAX package's wrote: ``config.yml`` beside ``encoder/`` and
+    ``decoder/`` (``train/checkpoint.py`` reads either layout). The weights
     are restored. ``restore_optimizer=True`` also compiles the model and
     restores checkpointed Adam moments, when the directory holds them (a
     resume of training or of continual learning); the default allocates

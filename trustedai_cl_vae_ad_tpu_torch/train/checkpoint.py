@@ -9,7 +9,8 @@ orbax trees. A log directory holds, beside ``config.yml`` and
     <logdir>/rounds/00000007/            os.rename(.tmp-N, N): the round is durable
         encoder/params.pt                {state-dict key: tensor} of the encoder
         decoder/params.pt                the same for the decoder
-        optimizer/state.pt               {"count", "mu/<key>", "nu/<key>"} (optional)
+        optimizer/state.pt               {"count", "learning_rate", "mu/<key>",
+                                          "nu/<key>"} (optional)
     <logdir>/current -> rounds/00000007          atomic symlink swap: the commit point
     <logdir>/encoder -> current/encoder          stable names, created once
     <logdir>/decoder -> current/decoder
@@ -35,8 +36,20 @@ to the newest complete round, and still reads flat log directories (real
 this package wrote them); the first new save upgrades those, removing the
 flat copy only once a complete round supersedes it.
 
-A kill is survived, a power loss is not promised: nothing is fsynced. Reading
-the JAX package's orbax log directories is not ported (ROADMAP queue 1 item 8).
+A kill is survived, a power loss is not promised: nothing is fsynced.
+
+Log directories of the JAX package. Its rounds, ``current`` and stable names
+are the same; only the subtrees differ: orbax checkpoints (``_METADATA`` and
+an OCDBT store, read by ``train/orbax_read.py`` through tensorstore) in place
+of ``params.pt`` and ``state.pt``. ``restore_params`` and
+``restore_optimizer_state`` read either, choosing by what the subtree holds,
+and carry the JAX trees across ``bridge.py``. The optimizer tree is optax's
+``inject_hyperparams`` state: ``count``, ``hyperparams/{learning_rate, ...}``
+and ``inner_state/0/{count, mu, nu}`` (``adam`` and ``adam_lean``); the
+moments' step count comes from ``inner_state/0/count`` and the learning rate
+from ``hyperparams/learning_rate``. An ``adam_fp8`` tree (moments as lists of
+quantized leaves) is refused: that optimizer is not ported (ROADMAP queue 1
+item 16); ``restore_optimizer=False`` still loads the parameters.
 """
 
 from __future__ import annotations
@@ -48,6 +61,14 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from trustedai_cl_vae_ad_tpu_torch.bridge import opt_state_from_optax, params_from_flax
+from trustedai_cl_vae_ad_tpu_torch.train.orbax_read import (
+    MANIFEST_FILE,
+    METADATA_FILE,
+    is_orbax_subtree,
+    read_subtree,
+)
 
 PARTS = ("encoder", "decoder")
 PARAMS_FILE = "params.pt"
@@ -200,6 +221,10 @@ def _subtrees(params: Dict[str, torch.Tensor], opt_state: Optional[dict]
         trees[part] = sub
     if opt_state is not None:
         flat = {"count": torch.tensor(int(opt_state["count"]), dtype=torch.int64)}
+        if opt_state.get("learning_rate") is not None:
+            # a float32 value, as optax's injected hyperparameter is stored
+            flat["learning_rate"] = torch.tensor(float(opt_state["learning_rate"]),
+                                                 dtype=torch.float32)
         for kind in ("mu", "nu"):
             flat.update({f"{kind}/{k}": v for k, v in opt_state[kind].items()})
         trees[OPTIMIZER_DIR] = flat
@@ -352,35 +377,90 @@ class AsyncSaver:
 
 # -- restoring ----------------------------------------------------------------------------------
 
+def _is_port_subtree(path: str, sub: str) -> bool:
+    return os.path.isfile(os.path.join(path, _payload_file(sub)))
+
+
+def _subtree_layout(path: str, sub: str) -> str:
+    """'port' (``params.pt`` / ``state.pt``) or 'orbax' (the JAX package's
+    ``_METADATA`` and OCDBT store), by what the subtree holds."""
+    if _is_port_subtree(path, sub):
+        return "port"
+    if is_orbax_subtree(path):
+        return "orbax"
+    raise FileNotFoundError(
+        f"{path}: not a log directory written by this package's save_model (no "
+        f"{_payload_file(sub)}) nor by the JAX package's (no orbax subtree: {METADATA_FILE} "
+        f"with {MANIFEST_FILE})")
+
+
 def has_optimizer(logdir: str) -> bool:
-    return os.path.isfile(os.path.join(resolve_round_dir(logdir), OPTIMIZER_DIR, OPTIMIZER_FILE))
+    """Whether the round that restoring reads holds Adam moments, in either
+    layout."""
+    path = os.path.join(resolve_round_dir(logdir), OPTIMIZER_DIR)
+    return _is_port_subtree(path, OPTIMIZER_DIR) or is_orbax_subtree(path)
 
 
 def _load(path: str, map_location) -> dict:
-    if not os.path.isfile(path):
-        raise FileNotFoundError(
-            f"{path} not found: not a log directory written by this package's save_model")
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def _moved(state: Dict[str, torch.Tensor], map_location) -> Dict[str, torch.Tensor]:
+    return {k: v.to(map_location) for k, v in state.items()}
 
 
 def restore_params(logdir: str, map_location="cpu") -> Dict[str, torch.Tensor]:
     """The full state dict of the core from the round ``resolve_round_dir``
-    selects (or from a flat log directory)."""
+    selects (or from a flat log directory), in the port's layout or the JAX
+    package's."""
     base = resolve_round_dir(logdir)
-    out: Dict[str, torch.Tensor] = {}
-    for part in PARTS:
-        out.update(_load(os.path.join(base, part, PARAMS_FILE), map_location))
-    return out
+    paths = {part: os.path.join(base, part) for part in PARTS}
+    layouts = {_subtree_layout(path, part) for part, path in paths.items()}
+    if layouts == {"port"}:
+        out: Dict[str, torch.Tensor] = {}
+        for path in paths.values():
+            out.update(_load(os.path.join(path, PARAMS_FILE), map_location))
+        return out
+    if layouts != {"orbax"}:
+        raise ValueError(f"{base}: encoder and decoder are in different layouts")
+    tree = {part: read_subtree(path) for part, path in paths.items()}
+    return _moved(params_from_flax(tree), map_location)
+
+
+def _optax_adam_state(tree: dict, path: str) -> dict:
+    """The dict ``Adam.load_state_dict`` takes, from the JAX package's
+    optimizer tree (``inject_hyperparams``' layout)."""
+    inner = tree.get("inner_state", {}).get("0", {})
+    mu, nu = inner.get("mu"), inner.get("nu")
+    if not isinstance(mu, dict) or not isinstance(nu, dict) or "count" not in inner:
+        raise ValueError(f"{path}: not an optax Adam state (no inner_state/0/count, mu, nu)")
+    if not set(mu) <= set(PARTS):
+        # adam_fp8 keeps its moments as lists of quantized leaves ('0', '1', ...)
+        raise NotImplementedError(
+            f"{path}: the optimizer state is the JAX package's adam_fp8 (float8 moments), "
+            "which is not ported yet (ROADMAP.md queue 1 item 16); load the parameters "
+            "with restore_optimizer=False")
+    return opt_state_from_optax(inner["count"], mu, nu,
+                                learning_rate=tree.get("hyperparams", {}).get("learning_rate"))
 
 
 def restore_optimizer_state(logdir: str, map_location="cpu") -> dict:
-    """{'count', 'mu', 'nu'} as ``ops.adam.Adam.load_state_dict`` takes it,
-    from the same round as ``restore_params`` reads."""
-    flat = _load(os.path.join(resolve_round_dir(logdir), OPTIMIZER_DIR, OPTIMIZER_FILE),
-                 map_location)
-    state: dict = {"count": int(flat["count"]), "mu": {}, "nu": {}}
+    """{'count', 'learning_rate', 'mu', 'nu'} as ``ops.adam.Adam.load_state_dict``
+    takes it, from the same round as ``restore_params`` reads. The port's
+    checkpoints written before the learning rate was saved give
+    ``learning_rate`` None."""
+    path = os.path.join(resolve_round_dir(logdir), OPTIMIZER_DIR)
+    if _subtree_layout(path, OPTIMIZER_DIR) == "orbax":
+        state = _optax_adam_state(read_subtree(path), path)
+        for kind in ("mu", "nu"):
+            state[kind] = _moved(state[kind], map_location)
+        return state
+    flat = _load(os.path.join(path, OPTIMIZER_FILE), map_location)
+    state: dict = {"count": int(flat["count"]), "learning_rate": None, "mu": {}, "nu": {}}
+    if "learning_rate" in flat:
+        state["learning_rate"] = float(flat["learning_rate"])
     for key, t in flat.items():
-        if key != "count":
+        if key not in ("count", "learning_rate"):
             kind, name = key.split("/", 1)
             state[kind][name] = t
     return state
