@@ -7,7 +7,8 @@ learning in the live engine, int8 serving with the multi-camera tick, and the
 dense-kernel update probes, the convolution weight-gradient kernel with its probe,
 crash-atomic checkpoints, and the live application's autosave, recording and fleet
 continual learning, and the scoring surfaces (the HTTP server and the offline
-two-pass CLI); any failure raises and the script exits non-zero
+two-pass CLI), JAX-written log directories and the COCO-JSON data path, the dataset
+builders and adam_fp8; any failure raises and the script exits non-zero
 without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
@@ -261,6 +262,19 @@ without printing its final line.
       read once, the cache's bytes, each epoch's wall clock over its frames with its first
       step included, the first epoch's host decode time, kernel 2's launches and a check of
       it at (32, 200).
+  (y) the dataset builders and adam_fp8. (y1) 512 + 256 synthetic VeRi-layout crops (JPEG
+      and PNG, six sizes) through build_veri_dataset_torch.py (224x224), then
+      configs/veri.yml at its own widths (224x224x3, layers [32, 64], latent 256, batch
+      256) with training.optimizer adam_fp8 through train_torch.py's main, 2 epochs of 2
+      steps: each epoch's seconds, the losses, kernel 2's launches by arrangement, the
+      encoder's and decoder's Dense moments quantized, the saved state reloaded bit for
+      bit, kernel 2 against its plain version at (256, 256); then two synthetic videos
+      through build_virat_dataset_torch.py --extract-frames 4 and the port's loader onto the
+      card at virat_cl.yml's 224x300. (y2) the flagship's bfloat16 train + score step at
+      batch 256, adam_lean then adam_fp8 from the same seeded weights and batch, 3 + 10
+      steps each, synchronized: ms a step, max_memory_allocated (adam_fp8's no higher), the
+      moments' bytes, each update timed alone, the losses finite, the first equal and the
+      last within Y_LOSS_RTOL of each other; adam_fp8 on the card against the CPU's update.
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -4112,10 +4126,357 @@ def phase_x(dev):
     return out
 
 
+Y_VERI_TRAIN, Y_VERI_VAL, Y_EPOCHS = 512, 256, 2  # 2 training steps an epoch at batch 256
+Y_VERI_SIZES = [(120, 160), (200, 180), (96, 224), (224, 224), (150, 260), (80, 100)]
+Y_VIRAT_VIDEOS = {"VIRAT_S_010204_05_000856_000890": ((240, 320), 24),
+                  "VIRAT_S_040103": ((180, 240), 16)}
+Y_VIRAT_STRIDE = 4
+Y_WARMUP, Y_STEPS = 3, 10
+Y_LOSS_RTOL = 0.05  # the two optimizers' losses after the timed steps, relative
+
+
+def write_veri_split(directory, n, rng):
+    """n synthetic crops (``smooth_frames``) in VeRi's layout and names, JPEG and PNG in
+    the sizes of Y_VERI_SIZES, written on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    os.makedirs(directory)
+    jobs = []
+    for i in range(n):
+        h, w = Y_VERI_SIZES[i % len(Y_VERI_SIZES)]
+        ext = ".png" if i % 4 == 0 else ".jpg"
+        jobs.append((smooth_frames(rng, 1, h, w, 3)[0],
+                     os.path.join(directory, f"{i % 776:04d}_c{i % 20 + 1:03d}_{i:08d}{ext}")))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda a: Image.fromarray(a[0]).save(a[1]), jobs))
+
+
+def write_virat_root(root, rng):
+    """Y_VIRAT_VIDEOS as videos under root/videos_original (each a field of blocks that
+    drifts), the first with its three annotation files; returns the codec used."""
+    import cv2
+
+    os.makedirs(os.path.join(root, "videos_original"))
+    os.makedirs(os.path.join(root, "annotations"))
+    for name, ((h, w), n) in Y_VIRAT_VIDEOS.items():
+        path = os.path.join(root, "videos_original", f"{name}.mp4")
+        for codec in ("mp4v", "MJPG"):  # whichever this machine's OpenCV can write
+            writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*codec), 10, (w, h))
+            if writer.isOpened():
+                break
+        else:
+            raise RuntimeError(f"OpenCV writes neither mp4v nor MJPG into {path}")
+        for frame in smooth_frames(rng, n, h, w, 3):
+            writer.write(frame)
+        writer.release()
+    base = os.path.join(root, "annotations", next(iter(Y_VIRAT_VIDEOS)) + ".viratdata.")
+    for kind, text in (("events", "1 4 10 5 15 2 10 12 30 40\n"),
+                       ("mapping", "1 4 10 5 15 2 1 0 1\n"),
+                       ("objects", "1 9 2 10 12 5 6 1\n")):
+        with open(base + kind + ".txt", "w") as f:
+            f.write(text)
+    return codec
+
+
+def optimizer_bytes(optimizer):
+    """Bytes of an optimizer's moments (every tensor of its state but the count)."""
+    import torch
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from tensors(v)
+
+    state = optimizer.state_dict()
+    return sum(t.numel() * t.element_size() for kind in ("mu", "nu") for t in tensors(state[kind]))
+
+
+def veri_phase(dev):
+    """(y1) configs/veri.yml at its own widths with training.optimizer adam_fp8, on frames
+    that build_veri_dataset_torch.py made from VeRi-layout crops, through train_torch.py's
+    main; then a VIRAT root through build_virat_dataset_torch.py --extract-frames and the
+    port's loader."""
+    import numpy as np
+    import torch
+
+    import build_veri_dataset_torch
+    import build_virat_dataset_torch
+    import train_torch
+    from trustedai_cl_vae_ad_tpu_torch.config import load_config, save_config
+    from trustedai_cl_vae_ad_tpu_torch.data.loader import load_data
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8, QLeaf
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_directory
+    from trustedai_cl_vae_ad_tpu_torch.train import checkpoint, loop
+
+    config = load_config(os.path.join(REPO, "configs", "veri.yml"))
+    h, w, c = config["data"]["image_size"]
+    batch = int(config["training"]["batch_size"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_veri_")
+    cwd = os.getcwd()
+    captured = {}
+    try:
+        rng = np.random.RandomState(18)
+        t0 = time.perf_counter()
+        for split, n in (("image_train", Y_VERI_TRAIN), ("image_test", Y_VERI_VAL)):
+            write_veri_split(os.path.join(tmp, "VeRi", split), n, rng)
+        write_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "datasets", "veri")
+        t0 = time.perf_counter()
+        assert build_veri_dataset_torch.main([os.path.join(tmp, "VeRi", "image_train"),
+                                              os.path.join(tmp, "VeRi", "image_test"),
+                                              "-o", out]) == 0
+        build_s = time.perf_counter() - t0
+        config["data"]["dataset_path"] = out
+        config["training"].update(optimizer="adam_fp8", max_epochs=Y_EPOCHS)
+        cfg_path = os.path.join(tmp, "veri.yml")
+        save_config(config, cfg_path)
+
+        real_load_data, real_train_model = train_torch.load_data, train_torch.train_model
+
+        def wrapped_load_data(cfg, device):
+            data = real_load_data(cfg, device=device)
+            data["train"] = captured["clock"] = EpochClock(data["train"])
+            return data
+
+        def wrapped_train_model(cfg, model, data, **kwargs):
+            captured["logdir"], captured["model"] = cfg["logdir"], model
+            return real_train_model(cfg, model, data, log_every=1, **kwargs)
+
+        train_torch.load_data, train_torch.train_model = wrapped_load_data, wrapped_train_model
+        os.chdir(tmp)  # the stamped logs/fit_<time> directory goes under the temporary one
+        reset_launch_counts(stream_score, moments, int8_gemm)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_torch.main([cfg_path, "--device", str(dev)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = launch_counts(stream_score, moments, int8_gemm)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        os.chdir(cwd)
+        train_torch.load_data, train_torch.train_model = real_load_data, real_train_model
+    try:
+        model, logdir = captured["model"], captured["logdir"]
+        opt = model.optimizer
+        assert isinstance(opt, AdamFp8) and opt.name == "adam_fp8", type(opt)
+        quantized = [n for n, m in zip(opt.names, opt.mu) if isinstance(m, QLeaf)]
+        assert sorted(quantized) == ["decoder.layers.Dense_0.weight",
+                                     "encoder.layers.Dense_0.weight"], quantized
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        train = [r for r in records if "train/loss" in r]
+        val = [r for r in records if "val/loss" in r]
+        steps_per_epoch = Y_VERI_TRAIN // batch
+        val_steps = -(-Y_VERI_VAL // batch)
+        assert len(train) == Y_EPOCHS * steps_per_epoch and len(val) == Y_EPOCHS, records
+        losses = [r["train/loss"] for r in train]
+        assert all(np.isfinite(v) for v in losses + [r["val/loss"] for r in val]), records
+        assert opt.count == Y_EPOCHS * steps_per_epoch
+        starts = captured["clock"].starts
+        assert len(starts) == Y_EPOCHS, starts
+        times = [r["time"] for r in train]
+        epoch_s = [times[(e + 1) * steps_per_epoch - 1] - starts[e] for e in range(Y_EPOCHS)]
+        expected = Y_EPOCHS * (steps_per_epoch + val_steps)
+        assert launches["moments_cluster_global_forward"] == expected, launches
+        assert launches["moments_cluster_global_backward"] == Y_EPOCHS * steps_per_epoch, launches
+        assert launches["moments_global_forward"] == launches["moments_global_backward"] == 0
+        assert loop.load_train_state(logdir)["epochs_completed"] == Y_EPOCHS
+        # the saved adam_fp8 state restores to the trained model's, bit for bit
+        saved = checkpoint.restore_optimizer_state(logdir)
+        assert set(saved["mu"]["encoder.layers.Dense_0.weight"]) == {"q", "scale", "scale_next"}
+        reloaded, _ = load_model_from_directory(logdir, device=dev, restore_optimizer=True)
+        for kind in ("mu", "nu"):
+            for a, b in zip(getattr(opt, kind), getattr(reloaded.optimizer, kind), strict=True):
+                for t, u in (zip(a, b) if isinstance(a, QLeaf) else [(a, b)]):
+                    assert t.dtype == u.dtype and torch.equal(t, u)
+        assert reloaded.optimizer.count == opt.count
+        del reloaded
+        check = moments_check(moments, "global", (batch, int(config["model"]["latent_dimensions"])),
+                              "float32", dev)
+        fp8_bytes = optimizer_bytes(opt)
+        log(f"  veri.yml ({h}x{w}x{c}, layers {config['model']['layers']}, latent "
+            f"{config['model']['latent_dimensions']}, batch {batch}, adam_fp8): "
+            f"{Y_VERI_TRAIN} + {Y_VERI_VAL} crops of {len(Y_VERI_SIZES)} sizes written in "
+            f"{write_s:.1f} s; build_veri_dataset_torch.py resized and saved them in {build_s:.2f} s "
+            f"({(Y_VERI_TRAIN + Y_VERI_VAL) / build_s:.1f} frames/s); train_torch.main ran "
+            f"{Y_EPOCHS} epochs in {run_s:.1f} s")
+        log(f"    epochs: {[round(s, 4) for s in epoch_s]} s ({steps_per_epoch} steps each, first "
+            f"step included); losses {[round(v, 6) for v in losses]}; validation "
+            f"{[round(r['val/loss'], 6) for r in val]}; quantized leaves {quantized}; moments "
+            f"{fp8_bytes} bytes; peak {peak / 2**30:.2f} GiB; kernel 2 launches by arrangement "
+            f"{ {k: v for k, v in launches.items() if v} }; global moments vs plain {check:.3g}")
+        del model, opt
+        captured.clear()
+        torch.cuda.empty_cache()
+
+        # VIRAT: videos into frame records and a saved dataset, loaded onto the card
+        root, vout = os.path.join(tmp, "virat"), os.path.join(tmp, "datasets", "virat")
+        codec = write_virat_root(root, rng)
+        t0 = time.perf_counter()
+        assert build_virat_dataset_torch.main([root, "-o", vout, "--extract-frames",
+                                               str(Y_VIRAT_STRIDE)]) == 0
+        virat_s = time.perf_counter() - t0
+        with open(os.path.join(vout, "index.json")) as f:
+            records_n = json.load(f)["num_items"]
+        assert records_n == sum(n for _hw, n in Y_VIRAT_VIDEOS.values()), records_n
+        vcfg = load_config(os.path.join(REPO, "configs", "virat_cl.yml"))
+        vcfg["data"]["dataset_path"] = vout
+        vcfg["training"]["batch_size"] = 8
+        data = load_data(vcfg, device=dev)
+        frames = 0
+        for b in data["train"]:
+            assert b["image"].device.type == dev.type
+            assert tuple(b["image"].shape[1:]) == tuple(vcfg["data"]["image_size"])
+            frames += b["image"].shape[0]
+        expect = sum(-(-n // Y_VIRAT_STRIDE) for _hw, n in Y_VIRAT_VIDEOS.values())
+        assert frames == expect and data["val"] is None, (frames, expect)
+        log(f"  VIRAT: {len(Y_VIRAT_VIDEOS)} {codec} videos ({records_n} frames) into frame "
+            f"records and every {Y_VIRAT_STRIDE}th frame in {virat_s:.2f} s; {frames} frames "
+            f"loaded onto the card at {vcfg['data']['image_size']}")
+        return {"launches": launches, "epoch_s": epoch_s, "losses": losses, "build_s": build_s,
+                "run_s": run_s, "peak": peak, "moment_bytes": fp8_bytes, "virat_frames": frames}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def time_update(opt, dev):
+    """ms of one optimizer update alone, on gradients of 1e-3 (3 calls after 1, synchronized)."""
+    import torch
+
+    grads = [torch.full_like(p, 1e-3) for p in opt.params]
+    opt.step(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        opt.step(grads)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / 3
+
+
+def fp8_device_check(dev):
+    """adam_fp8 on the card against the same update on the CPU, 3 steps of a big leaf
+    (1024x1024) and small ones, bfloat16 and float32: returns the mismatch counts."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8, QLeaf
+
+    gen = torch.Generator().manual_seed(5)
+    shapes = {"encoder.layers.Dense_0.weight": (1024, 1024), "encoder.layers.Dense_0.bias": (1024,),
+              "decoder.layers.Conv_0.weight": (32, 16, 3, 3)}
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        p0 = {k: (torch.randn(s, generator=gen) * 0.1).to(dtype) for k, s in shapes.items()}
+        grads = [{k: (torch.randn(s, generator=gen) * 1e-2 * (1 + 99 * (i == 1))).to(dtype)
+                  for k, s in shapes.items()} for i in range(3)]
+        runs = {}
+        for where in (dev, torch.device("cpu")):
+            params = {k: v.clone().to(where) for k, v in p0.items()}
+            opt = AdamFp8(params, 1e-3)
+            for g in grads:
+                opt.step([g[k].to(where) for k in opt.names])
+            runs[where.type] = (params, opt)
+        (pd, od), (pc, oc) = runs[dev.type], runs["cpu"]
+        differ = 0
+        for k in shapes:
+            differ += int((pd[k].cpu() != pc[k]).sum())
+        for kind in ("mu", "nu"):
+            for a, b in zip(getattr(od, kind), getattr(oc, kind)):
+                for t, u in (zip(a, b) if isinstance(a, QLeaf) else [(a, b)]):
+                    differ += int((t.cpu() != u).sum())
+        # the bounds of the CPU parity tests: here every bit is expected to agree
+        assert differ <= 1e-4 * sum(t.numel() for t in p0.values()), (dtype, differ)
+        out[str(dtype).split(".")[-1]] = differ
+    return out
+
+
+def fp8_train_step_phase(dev):
+    """(y2) the flagship bfloat16 train + score step at batch 256 with adam_lean, then with
+    adam_fp8, from the same seeded weights and inputs: ms a step, peak memory, the moments'
+    bytes, each update timed alone, the two runs' losses."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8, QLeaf
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+    from trustedai_cl_vae_ad_tpu_torch.train.bench_step import flagship_config, train_score_step
+
+    runs = {}
+    for name in ("adam_lean", "adam_fp8"):
+        bench = flagship_config()
+        bench["training"].update(precision="bfloat16", optimizer=name)
+        model = load_model_from_config(bench, seed=0, device=dev)
+        model.compile()
+        assert model.optimizer.name == name
+        if name == "adam_fp8":
+            assert isinstance(model.optimizer, AdamFp8)
+            assert sum(isinstance(m, QLeaf) for m in model.optimizer.mu) == 2
+        hw, c = bench["data"]["image_size"][:2], bench["data"]["image_size"][2]
+        x_u8 = torch.randint(0, 256, (BATCH, *hw, c), dtype=torch.uint8, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+        reset_launch_counts(stream_score, moments, int8_gemm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for _ in range(Y_WARMUP):
+            loss, z = train_score_step(model, x_u8, 100.0, 10.0)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(Y_STEPS):
+            loss, z = train_score_step(model, x_u8, 100.0, 10.0)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / Y_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        launches = launch_counts(stream_score, moments, int8_gemm)
+        losses = [float(v) for v in losses]
+        assert all(v == v and abs(v) != float("inf") for v in losses), losses
+        assert bool(torch.isfinite(z).all()) and z.shape == (BATCH,)
+        steps = Y_WARMUP + Y_STEPS
+        assert launches["moments_cluster_global_forward"] == steps, launches
+        assert launches["moments_cluster_global_backward"] == steps, launches
+        nbytes = optimizer_bytes(model.optimizer)
+        update_ms = time_update(model.optimizer, dev)
+        runs[name] = {"ms": ms, "peak": peak, "moment_bytes": nbytes, "update_ms": update_ms,
+                      "losses": losses, "launches": launches}
+        log(f"  {name}: bfloat16 train + score step, batch {BATCH}: {ms:.3f} ms a step "
+            f"({BATCH / ms * 1e3:.1f} frames/s; {Y_STEPS} after {Y_WARMUP}, synchronized); "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB; moments {nbytes} bytes; the update "
+            f"alone {update_ms:.3f} ms; losses {[round(v, 6) for v in losses]}")
+        del model, x_u8, loss, z
+        torch.cuda.empty_cache()
+    lean, fp8 = runs["adam_lean"], runs["adam_fp8"]
+    rel = abs(fp8["losses"][-1] - lean["losses"][-1]) / abs(lean["losses"][-1])
+    # the first step's loss comes before any update: the same weights, batch and noise
+    assert abs(fp8["losses"][0] - lean["losses"][0]) <= 1e-5 * abs(lean["losses"][0]), (
+        fp8["losses"][0], lean["losses"][0])
+    assert rel <= Y_LOSS_RTOL, (rel, fp8["losses"], lean["losses"])
+    assert fp8["peak"] <= lean["peak"], (fp8["peak"], lean["peak"])
+    check = fp8_device_check(dev)
+    log(f"  adam_fp8 against adam_lean: step {fp8['ms'] / lean['ms']:.3f}x, peak "
+        f"{(lean['peak'] - fp8['peak']) / 2**30:.3f} GiB lower, moments "
+        f"{lean['moment_bytes'] - fp8['moment_bytes']} bytes fewer, update alone "
+        f"{fp8['update_ms']:.3f} against {lean['update_ms']:.3f} ms; last losses within "
+        f"{rel:.3g} relative (bound {Y_LOSS_RTOL}); the update on the card against the CPU's: "
+        f"{check} elements differ")
+    return {"runs": runs, "loss_rel": rel, "device_check": check}
+
+
+def phase_y(dev):
+    """configs/veri.yml on builder-made frames with adam_fp8 (y1), and the flagship's
+    bfloat16 step with adam_fp8 beside adam_lean (y2)."""
+    return {"y1": veri_phase(dev), "y2": fp8_train_step_phase(dev)}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..x to run after the build (for "
+                        help="comma-separated subset of c..y to run after the build (for "
                              "finding a fault); the final line is then not printed")
     args = parser.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
@@ -4216,6 +4577,8 @@ def main(argv=None):
         lambda: phase_w(dev))
     run("x", "JAX-written log directories on the card; configs/raite.yml on COCO-JSON frames "
         "with the device cache", lambda: phase_x(dev))
+    run("y", "the dataset builders and configs/veri.yml with adam_fp8; the flagship's bf16 step "
+        "with adam_fp8 beside adam_lean", lambda: phase_y(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -4271,6 +4634,12 @@ def main(argv=None):
     for entry in kernels:
         entry["launches_jax_logdir"] = out["x"]["jax_logdir"].get(entry["name"], 0)
         entry["launches_raite"] = out["x"]["raite"].get(entry["name"], 0)
+    # (y)'s two paths, each counted from zero: veri.yml's training on builder-made frames with
+    # adam_fp8, and the flagship's 13 bf16 train + score steps with adam_fp8
+    for entry in kernels:
+        entry["launches_veri"] = out["y"]["y1"]["launches"].get(entry["name"], 0)
+        entry["launches_fp8_step"] = out["y"]["y2"]["runs"]["adam_fp8"]["launches"].get(
+            entry["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

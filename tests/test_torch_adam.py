@@ -19,6 +19,7 @@ import torch
 
 from trustedai_cl_vae_ad_tpu.models.wrapper import make_optimizer as jax_make_optimizer
 from trustedai_cl_vae_ad_tpu_torch.ops.adam import Adam, make_optimizer, stochastic_round_bf16
+from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8
 
 STEPS = 5
 SHAPES = {"w": (5, 7), "b": (7,)}
@@ -121,8 +122,9 @@ def test_make_optimizer_names_and_defaults():
                           param_dtype=torch.bfloat16)
     assert lean.name == "adam_lean" and lean.widen_nu
     assert lean.mu[0].dtype == lean.nu[0].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        make_optimizer(p, 1e-3, name="adam_fp8")
+    fp8 = make_optimizer(p, 1e-3, name="adam_fp8")
+    assert isinstance(fp8, AdamFp8) and fp8.name == "adam_fp8" and fp8.learning_rate == 1e-3
+    assert fp8.mu[0].dtype == fp8.nu[0].dtype == torch.bfloat16  # a small leaf
     with pytest.raises(ValueError) as torch_err:
         make_optimizer(p, 1e-3, name="sgd")
     with pytest.raises(ValueError) as jax_err:

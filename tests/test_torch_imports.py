@@ -16,11 +16,16 @@ FORBIDDEN = ("jax", "flax", "optax", "orbax", "trustedai_cl_vae_ad_tpu", "camera
              "serve", "do_anomaly_detection",
              # the archived JAX probes under benchmarks/, which the port copies and never imports
              "benchmarks", "r11_kernel", "r11_diag", "r11_fused_dense_adam", "r4_int8_gemm",
-             "r18_conv_dw")
+             "r18_conv_dw",
+             # the JAX package's builder CLIs, which the *_torch.py builders carry over
+             "build_raite_json_from_directory", "build_veri_dataset", "build_virat_dataset",
+             "fix_raite_event_data", "coco_validator")
 ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "do_anomaly_detection_torch.py",
                 "kernel_bounds_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
                 "profile_stream_torch.py", "profile_train_torch.py", "serve_torch.py",
-                "train_torch.py",
+                "train_torch.py", "build_raite_json_from_directory_torch.py",
+                "build_veri_dataset_torch.py", "build_virat_dataset_torch.py",
+                "coco_validator_torch.py", "fix_raite_event_data_torch.py",
                 os.path.join("tools", "quantize_checkpoint_torch.py"),
                 os.path.join("tools", "convert_logdir_torch.py"))
 
@@ -47,6 +52,8 @@ sys.path.insert(0, {REPO!r})
 import camera_streamer_torch, chip_smoke, kernel_bounds_torch, profile_stream_torch
 import probe_r11_torch, probe_r18_torch, profile_train_torch, train_torch
 import serve_torch, do_anomaly_detection_torch
+import build_raite_json_from_directory_torch, build_veri_dataset_torch, build_virat_dataset_torch
+import coco_validator_torch, fix_raite_event_data_torch
 sys.path.insert(0, {os.path.join(REPO, "tools")!r})
 import quantize_checkpoint_torch, convert_logdir_torch
 print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
@@ -71,10 +78,15 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "ops/dense_grad_adam.py", "probes/__init__.py", "probes/r11.py",
                 "ops/conv_dw.py", "probes/r18.py", "viz/__init__.py", "viz/plots.py",
                 "anomaly/offline.py", "train/orbax_read.py", "data/coco.py", "data/raite.py",
-                "data/ingest.py"):
+                "data/ingest.py", "ops/adam8.py", "data/builders/__init__.py",
+                "data/builders/raite_json.py", "data/builders/fix_raite.py",
+                "data/builders/veri.py", "data/builders/virat.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
     assert {"train_torch.py", "profile_train_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
             "serve_torch.py", "do_anomaly_detection_torch.py",
+            "build_raite_json_from_directory_torch.py", "build_veri_dataset_torch.py",
+            "build_virat_dataset_torch.py", "coco_validator_torch.py",
+            "fix_raite_event_data_torch.py",
             os.path.join("tools", "quantize_checkpoint_torch.py"),
             os.path.join("tools", "convert_logdir_torch.py")} <= sources
 

@@ -67,9 +67,8 @@ def _port_model(logdir, restore_optimizer=True):
     return load_model_from_directory(logdir, device="cpu", restore_optimizer=restore_optimizer)
 
 
-def _assert_model_equals_jax(tmodel, jmodel):
-    """Parameters and Adam state of the port's model equal the JAX model's
-    bit for bit (the port's layouts, the JAX dtypes)."""
+def _assert_model_params_equal_jax(tmodel, jmodel):
+    """The port's model's parameters equal the JAX model's bit for bit."""
     ref = params_from_flax(jax.device_get(jmodel.params))
     jtree = jax.device_get(jmodel.params)
     for key, t in tmodel.params.items():
@@ -77,6 +76,12 @@ def _assert_model_equals_jax(tmodel, jmodel):
         arr = jtree[part][layer]["kernel" if leaf == "weight" else "bias"]
         assert t.dtype == (torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32)
         assert torch.equal(t, ref[key]), key
+
+
+def _assert_model_equals_jax(tmodel, jmodel):
+    """Parameters and Adam state of the port's model equal the JAX model's
+    bit for bit (the port's layouts, the JAX dtypes)."""
+    _assert_model_params_equal_jax(tmodel, jmodel)
     if jmodel.opt_state is None:
         assert tmodel.optimizer is None
         return
@@ -326,17 +331,151 @@ def test_jax_round_states_load_bit_for_bit(tmp_path, state, optimizer):
                                       err_msg=key)
 
 
-def test_adam_fp8_is_refused_by_name(tmp_path):
-    config = tiny_config(latent=16, precision="bfloat16")
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the adam_fp8 tests, whose many small ops on a
+    2**20-element leaf several test workers with a thread per core slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _fp8_config(precision="float32"):
+    """64x64x3, layers [8, 16], latent 128: the encoder Dense (4096 -> 256 =
+    2**20 elements) is adam_fp8's one quantized leaf."""
+    config = tiny_config(image=(64, 64, 3), layers=(8, 16), latent=128, precision=precision)
     config["training"]["optimizer"] = "adam_fp8"
+    return config
+
+
+def _assert_fp8_state_equals_jax(opt, jmodel):
+    """The port's adam_fp8 state equals the JAX model's bit for bit: each
+    quantized leaf's q, scale and scale_next, each bfloat16 moment, the step
+    count and the learning rate."""
+    from trustedai_cl_vae_ad_tpu.ops.adam8 import QLeaf as JaxQLeaf
+    from trustedai_cl_vae_ad_tpu_torch.bridge import fp8_moments_to_optax
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8, QLeaf
+
+    assert isinstance(opt, AdamFp8)
+    state = jax.device_get(jmodel.opt_state)
+    inner = state.inner_state[0]
+    assert opt.count == int(inner.count)
+    assert opt.learning_rate == float(np.asarray(state.hyperparams["learning_rate"]))
+    assert sum(isinstance(m, QLeaf) for m in opt.mu) == 1
+    for kind in ("mu", "nu"):
+        listed = fp8_moments_to_optax(opt.state_dict()[kind])
+        for i, (got, ref) in enumerate(zip(listed, getattr(inner, kind), strict=True)):
+            if isinstance(ref, JaxQLeaf):
+                for field in ("q", "scale", "scale_next"):
+                    np.testing.assert_array_equal(got[field], np.asarray(getattr(ref, field)),
+                                                  err_msg=f"{kind}/{i}/{field}")
+            else:
+                assert ref.dtype.name == "bfloat16"
+                np.testing.assert_array_equal(got, np.asarray(ref).astype(np.float32),
+                                              err_msg=f"{kind}/{i}")
+
+
+def _fp8_jax_save(logdir, config, seed=4):
+    from trustedai_cl_vae_ad_tpu.models.wrapper import VAEModel
+    from trustedai_cl_vae_ad_tpu.registry import build_core_from_config
+
+    os.makedirs(logdir, exist_ok=True)
+    with open(os.path.join(logdir, "config.yml"), "w") as f:
+        yaml.safe_dump(config, f)
+    model = VAEModel(build_core_from_config(config), seed=seed)
+    model.compile()
+    rs = np.random.RandomState(seed)
+    for _ in range(2):  # two steps: the second quantizes with the first's scale
+        model.train_step(rs.randint(0, 256, (8, 64, 64, 3)).astype(np.uint8))
+    model.set_learning_rate(2.5e-4)
+    model.save_model(logdir)
+    return model
+
+
+def test_adam_fp8_jax_logdir_restores_and_steps_like_jax(tmp_path, monkeypatch, one_torch_thread):
+    """A JAX-written adam_fp8 directory (one quantized leaf) restores bit for
+    bit, directly and through tools/convert_logdir_torch.py, and the step
+    after the resume gives the JAX step's losses within 1e-5."""
+    from torch_port_helpers import next_jax_eps
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import convert_logdir_torch
+
+    config = _fp8_config()
     logdir = str(tmp_path / "log")
-    jmodel = _jax_save(logdir, config, seed=4)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        _port_model(logdir, restore_optimizer=True)
-    tmodel, _ = _port_model(logdir, restore_optimizer=False)
-    assert tmodel.optimizer is None
-    jmodel.opt_state = None
-    _assert_model_equals_jax(tmodel, jmodel)
+    jmodel = _fp8_jax_save(logdir, config)
+    tmodel, _ = _port_model(logdir)
+    _assert_model_params_equal_jax(tmodel, jmodel)
+    _assert_fp8_state_equals_jax(tmodel.optimizer, jmodel)
+    converted = str(tmp_path / "converted")
+    assert convert_logdir_torch.convert(logdir, converted)["optimizer"]
+    monkeypatch.setitem(sys.modules, "tensorstore", None)  # the copy needs torch alone
+    cmodel, _ = _port_model(converted)
+    _assert_fp8_state_equals_jax(cmodel.optimizer, jmodel)
+    monkeypatch.delitem(sys.modules, "tensorstore")
+    x = np.random.RandomState(11).randint(0, 256, (8, 64, 64, 3)).astype(np.uint8)
+    eps = torch.from_numpy(next_jax_eps(jmodel, 8))
+    jloss = jmodel.train_step(x)
+    for model in (tmodel, cmodel):
+        tloss = model.train_step(torch.from_numpy(x), eps=eps)
+        for key, ref in jloss.items():
+            np.testing.assert_allclose(float(tloss[key]), float(ref), rtol=1e-5, atol=1e-5,
+                                       err_msg=key)
+        assert model.optimizer.count == 3
+
+
+def test_adam_fp8_state_survives_a_port_save_and_resume(tmp_path, one_torch_thread):
+    """The port's own save of an adam_fp8 model (``optimizer/state.pt`` with
+    each quantized leaf's three tensors) resumes to the same state and rate,
+    in the rounds layout and in the flat one, and steps on identically."""
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import QLeaf
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+
+    config = _fp8_config("bfloat16")
+    model = load_model_from_config(config, device="cpu")
+    model.compile()
+    x = torch.from_numpy(np.random.RandomState(3).randint(0, 256, (8, 64, 64, 3))
+                         .astype(np.uint8))
+    model.train_step(x)
+    model.train_step(x)
+    model.set_learning_rate(2.5e-4)
+    logdir = str(tmp_path / "log")
+    os.makedirs(logdir)
+    with open(os.path.join(logdir, "config.yml"), "w") as f:
+        yaml.safe_dump(config, f)
+    model.save_model(logdir)
+    flat = torch.load(os.path.join(logdir, "optimizer", "state.pt"), weights_only=True)
+    assert flat["mu/encoder.layers.Dense_0.weight/q"].dtype == torch.int8
+    assert flat["nu/encoder.layers.Dense_0.weight/scale_next"].dtype == torch.float32
+    assert flat["mu/encoder.layers.Dense_0.bias"].dtype == torch.bfloat16
+
+    def assert_same(resumed):
+        assert resumed.learning_rate == float(np.float32(2.5e-4))
+        a, b = model.optimizer, resumed.optimizer
+        assert a.count == b.count == 2
+        for kind in ("mu", "nu"):
+            for m, r in zip(getattr(a, kind), getattr(b, kind), strict=True):
+                pairs = zip(m, r) if isinstance(m, QLeaf) else [(m, r)]
+                assert all(t.dtype == u.dtype and torch.equal(t, u) for t, u in pairs)
+
+    resumed, _ = _port_model(logdir)
+    assert_same(resumed)
+    # the flat layout: real subtrees, no rounds
+    rnd = ckpt.resolve_round_dir(logdir)
+    for name in ("current", "encoder", "decoder", "optimizer"):
+        os.remove(os.path.join(logdir, name))
+    for sub in ("encoder", "decoder", "optimizer"):
+        shutil.move(os.path.join(rnd, sub), os.path.join(logdir, sub))
+    shutil.rmtree(os.path.join(logdir, "rounds"))
+    flat_resumed, _ = _port_model(logdir)
+    assert_same(flat_resumed)
+    eps = torch.zeros(8, 128)
+    model.train_step(x, eps=eps)
+    flat_resumed.train_step(x, eps=eps)
+    for key, t in model.params.items():
+        assert torch.equal(t, flat_resumed.params[key]), key
 
 
 def _staleness_codes(logdir):

@@ -17,7 +17,9 @@ provenance stamp of the new weights, unless the JAX package would call it
 stale (``ops/quant.py::quantized_staleness``): a stale sidecar is left out,
 with a warning, and ``tools/quantize_checkpoint_torch.py`` makes a fresh
 one. The new directory must not lie inside the source, and must be empty or
-absent. An ``adam_fp8`` optimizer state is refused (ROADMAP queue 1 item 16).
+absent. An ``adam_fp8`` optimizer state keeps each quantized moment's int8
+``q`` and float32 ``scale`` and ``scale_next`` (``mu/<key>/q``, ...), in the
+port's layout.
 """
 
 import argparse

@@ -14,8 +14,8 @@ Layer map:
   model core          -> .models.cvae, .models.kurtosis_global, .models.kurtosis_single,
                          .models.kl_gaussian, .models.batch_stats, .models.wrapper
   ops                 -> .ops.convt, .ops.quant, .ops.int8_gemm, .ops.stream_score,
-                         .ops.moments (+ csrc/), .ops.adam
-  data                -> .data.loader, .data.saved_dataset, .data.ingest
+                         .ops.moments (+ csrc/), .ops.adam, .ops.adam8
+  data                -> .data.loader, .data.saved_dataset, .data.ingest, .data.builders
   training            -> .train.loop, .train.checkpoint, .train.bench_step, .utils.metrics
   live stream         -> .stream.engine, .stream.multicam, .stream.run
 """

@@ -18,6 +18,14 @@ bfloat16 leaves (ml_dtypes) cross as their uint16 bits, never through float
 arithmetic, and stay bfloat16; ``load_state_dict`` casts every leaf to the
 model's parameter dtype.
 
+``adam_fp8``'s moments (``ops/adam8.py``) are lists, one entry a leaf of the
+parameters in ``jax.tree_util.tree_flatten`` order: dict keys sorted at each
+level, so ``decoder`` before ``encoder`` and ``ConvTranspose_*`` before
+``Conv_*`` before ``Dense_*`` (``flax_leaf_layout``). An entry is an array or a
+quantized leaf ``{q, scale, scale_next}``; each of its arrays crosses by its
+parameter's permutation (a scale's size-1 axis is flax's last, the port's dim
+0).
+
 The int8 serving tree (``ops/quant.py``) crosses as a tree: a quantized Dense
 ``{kernel_i8 (in, out), scale, bias}`` of the JAX package becomes
 ``{kernel_i8 (out, in), scale, bias}``, every other layer ``{weight, bias}``
@@ -111,6 +119,68 @@ def opt_state_to_optax(state: dict):
     """``ops.adam.Adam.state_dict()`` -> (count, mu tree, nu tree) of numpy
     arrays in the flax layout."""
     return int(state["count"]), params_to_flax(state["mu"]), params_to_flax(state["nu"])
+
+
+def _flax_path(name: str):
+    """(flax path, permutation from the flax leaf to the torch tensor) of a
+    state-dict key; a key that is not the port's ``part.layers.layer.leaf``
+    is a flax leaf of its own name and layout."""
+    parts = name.split(".")
+    if len(parts) == 4 and parts[0] in ("encoder", "decoder") and parts[1] == "layers":
+        part, _layers, layer, leaf = parts
+        if leaf == "weight":
+            return (part, layer, "kernel"), _perm(layer)
+        return (part, layer, leaf), None
+    return (name,), None
+
+
+def flax_leaf_layout(names, ndims=None):
+    """({name: index in the flattened flax tree}, {name: flax axis of each
+    torch dim}) for state-dict keys; ``ndims`` ({name: ndim}) gives the axes
+    of keys whose permutation their name does not fix (default: 1)."""
+    paths = {n: _flax_path(n) for n in names}
+    order = sorted(names, key=lambda n: paths[n][0])
+    axes = {}
+    for n, (_path, perm) in paths.items():
+        axes[n] = tuple(perm) if perm is not None else tuple(range((ndims or {}).get(n, 1)))
+    return {n: i for i, n in enumerate(order)}, axes
+
+
+def fp8_moments_from_optax(entries: dict, names) -> Dict[str, object]:
+    """``adam_fp8``'s moment list (``{'0': array or {q, scale, scale_next}, ...}``,
+    as orbax stores it) -> {state-dict key: tensor or {q, scale, scale_next}}
+    in the port's layout."""
+    index, _ = flax_leaf_layout(names)
+    out: Dict[str, object] = {}
+    for name, i in index.items():
+        perm = _flax_path(name)[1]
+        entry = entries[str(i)]
+
+        def cross(a):
+            a = np.asarray(a)
+            return _tensor(a.transpose(perm) if perm is not None else a)
+
+        out[name] = ({f: cross(entry[f]) for f in ("q", "scale", "scale_next")}
+                     if isinstance(entry, dict) else cross(entry))
+    return out
+
+
+def fp8_moments_to_optax(moments: dict) -> list:
+    """{state-dict key: tensor or {q, scale, scale_next}} -> the list in flax
+    order, each array in the flax layout (bfloat16 widened to float32)."""
+    index, _ = flax_leaf_layout(moments)
+    out = [None] * len(index)
+    for name, i in index.items():
+        perm = _flax_path(name)[1]
+
+        def cross(t):
+            a = t.detach().to("cpu")
+            a = (a.to(torch.float32) if a.dtype == torch.bfloat16 else a).numpy()
+            return np.ascontiguousarray(a.transpose(_inverse(perm)) if perm is not None else a)
+
+        m = moments[name]
+        out[i] = {f: cross(t) for f, t in m.items()} if isinstance(m, dict) else cross(m)
+    return out
 
 
 def qparams_from_flax(tree: dict) -> dict:

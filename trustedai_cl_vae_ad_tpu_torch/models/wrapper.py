@@ -11,13 +11,14 @@ in place. Device meshes and ZeRO-1 are not ported (ROADMAP queue 1 item 17).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import AbstractCVAE
 from trustedai_cl_vae_ad_tpu_torch.ops.adam import Adam, make_optimizer
+from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8
 
 
 class VAEModel:
@@ -34,7 +35,7 @@ class VAEModel:
         #: draws the latent eps of training steps and encode's input noise
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
-        self.optimizer: Optional[Adam] = None
+        self.optimizer: Optional[Union[Adam, AdamFp8]] = None
 
     @property
     def params(self) -> dict:
@@ -50,7 +51,7 @@ class VAEModel:
     def beta(self, value: float) -> None:
         self.core.beta = float(value)
 
-    def _need_optimizer(self) -> Adam:
+    def _need_optimizer(self) -> Union[Adam, AdamFp8]:
         if self.optimizer is None:
             raise RuntimeError("model not compiled: call model.compile() first")
         return self.optimizer
@@ -64,8 +65,9 @@ class VAEModel:
         self._need_optimizer().learning_rate = float(lr)
 
     def compile(self, learning_rate: Optional[float] = None, mesh=None, zero1=None) -> None:
-        """Attach the optimizer named by ``training.optimizer`` (default:
-        ``adam`` for float32 parameters, ``adam_lean`` for bfloat16)."""
+        """Attach the optimizer named by ``training.optimizer`` (``adam``,
+        ``adam_lean`` or ``adam_fp8``; default: ``adam`` for float32
+        parameters, ``adam_lean`` for bfloat16)."""
         if mesh is not None or zero1:
             raise NotImplementedError(
                 "device meshes and ZeRO-1 are not ported yet (ROADMAP.md queue 1 item 17)")

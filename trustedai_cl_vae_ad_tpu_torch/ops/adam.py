@@ -163,7 +163,7 @@ class Adam:
 def make_optimizer(params: Dict[str, torch.Tensor], learning_rate: float,
                    param_dtype: torch.dtype = torch.float32, name: Optional[str] = None,
                    stochastic_round_nu: bool = False,
-                   generator: Optional[torch.Generator] = None) -> Adam:
+                   generator: Optional[torch.Generator] = None):
     """Adam with a runtime-mutable learning rate.
 
     ``name`` (config key ``training.optimizer``) selects the variant:
@@ -171,13 +171,15 @@ def make_optimizer(params: Dict[str, torch.Tensor], learning_rate: float,
         float32-parameter default);
       * ``adam_lean`` — bfloat16 moment storage, float32 arithmetic for nu's
         EMA (the bfloat16-parameter default);
-      * ``adam_fp8`` — float8 moment storage: not ported yet.
+      * ``adam_fp8`` — float8_e4m3 moment storage with lagged per-row
+        scales (``ops/adam8.py::AdamFp8``, the same surface as ``Adam``).
     """
     if name is None:
         name = "adam_lean" if param_dtype == torch.bfloat16 else "adam"
     if name == "adam_fp8":
-        raise NotImplementedError(
-            "training.optimizer adam_fp8 is not ported yet (ROADMAP.md queue 1 item 16)")
+        from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8
+
+        return AdamFp8(params, learning_rate)
     if name == "adam_lean":
         return Adam(params, learning_rate, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16,
                     widen_nu=True, stochastic_round_nu=stochastic_round_nu,

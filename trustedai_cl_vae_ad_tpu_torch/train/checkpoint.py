@@ -10,7 +10,9 @@ orbax trees. A log directory holds, beside ``config.yml`` and
         encoder/params.pt                {state-dict key: tensor} of the encoder
         decoder/params.pt                the same for the decoder
         optimizer/state.pt               {"count", "learning_rate", "mu/<key>",
-                                          "nu/<key>"} (optional)
+                                          "nu/<key>"} (optional; a moment that
+                                          adam_fp8 quantized is "mu/<key>/q",
+                                          ".../scale", ".../scale_next")
     <logdir>/current -> rounds/00000007          atomic symlink swap: the commit point
     <logdir>/encoder -> current/encoder          stable names, created once
     <logdir>/decoder -> current/decoder
@@ -47,9 +49,11 @@ and carry the JAX trees across ``bridge.py``. The optimizer tree is optax's
 ``inject_hyperparams`` state: ``count``, ``hyperparams/{learning_rate, ...}``
 and ``inner_state/0/{count, mu, nu}`` (``adam`` and ``adam_lean``); the
 moments' step count comes from ``inner_state/0/count`` and the learning rate
-from ``hyperparams/learning_rate``. An ``adam_fp8`` tree (moments as lists of
-quantized leaves) is refused: that optimizer is not ported (ROADMAP queue 1
-item 16); ``restore_optimizer=False`` still loads the parameters.
+from ``hyperparams/learning_rate``. ``adam_fp8``'s tree keeps each moment as
+a list in the flattened parameter tree's order (``mu/<i>``: an array, or
+``{q, scale, scale_next}`` for a quantized leaf); the parameters' keys in
+the encoder's and decoder's ``_METADATA`` give each index its name
+(``bridge.fp8_moments_from_optax``).
 """
 
 from __future__ import annotations
@@ -60,14 +64,20 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from trustedai_cl_vae_ad_tpu_torch.bridge import opt_state_from_optax, params_from_flax
+from trustedai_cl_vae_ad_tpu_torch.bridge import (
+    fp8_moments_from_optax,
+    opt_state_from_optax,
+    params_from_flax,
+)
 from trustedai_cl_vae_ad_tpu_torch.train.orbax_read import (
     MANIFEST_FILE,
     METADATA_FILE,
     is_orbax_subtree,
     read_subtree,
+    subtree_keys,
 )
 
 PARTS = ("encoder", "decoder")
@@ -226,7 +236,11 @@ def _subtrees(params: Dict[str, torch.Tensor], opt_state: Optional[dict]
             flat["learning_rate"] = torch.tensor(float(opt_state["learning_rate"]),
                                                  dtype=torch.float32)
         for kind in ("mu", "nu"):
-            flat.update({f"{kind}/{k}": v for k, v in opt_state[kind].items()})
+            for k, v in opt_state[kind].items():
+                if isinstance(v, dict):  # adam_fp8's quantized leaf
+                    flat.update({f"{kind}/{k}/{field}": t for field, t in v.items()})
+                else:
+                    flat[f"{kind}/{k}"] = v
         trees[OPTIMIZER_DIR] = flat
     return trees
 
@@ -427,33 +441,44 @@ def restore_params(logdir: str, map_location="cpu") -> Dict[str, torch.Tensor]:
     return _moved(params_from_flax(tree), map_location)
 
 
+def _param_names(base: str) -> List[str]:
+    """The state-dict keys of a JAX round's parameters, from its subtrees'
+    ``_METADATA`` alone (no array is read)."""
+    return [f"{part}.layers.{layer}.{'weight' if leaf == 'kernel' else leaf}"
+            for part in PARTS for layer, leaf in subtree_keys(os.path.join(base, part))]
+
+
 def _optax_adam_state(tree: dict, path: str) -> dict:
-    """The dict ``Adam.load_state_dict`` takes, from the JAX package's
-    optimizer tree (``inject_hyperparams``' layout)."""
+    """The dict ``Adam.load_state_dict`` (or ``AdamFp8.load_state_dict``)
+    takes, from the JAX package's optimizer tree (``inject_hyperparams``'
+    layout)."""
     inner = tree.get("inner_state", {}).get("0", {})
     mu, nu = inner.get("mu"), inner.get("nu")
     if not isinstance(mu, dict) or not isinstance(nu, dict) or "count" not in inner:
         raise ValueError(f"{path}: not an optax Adam state (no inner_state/0/count, mu, nu)")
-    if not set(mu) <= set(PARTS):
-        # adam_fp8 keeps its moments as lists of quantized leaves ('0', '1', ...)
-        raise NotImplementedError(
-            f"{path}: the optimizer state is the JAX package's adam_fp8 (float8 moments), "
-            "which is not ported yet (ROADMAP.md queue 1 item 16); load the parameters "
-            "with restore_optimizer=False")
-    return opt_state_from_optax(inner["count"], mu, nu,
-                                learning_rate=tree.get("hyperparams", {}).get("learning_rate"))
+    learning_rate = tree.get("hyperparams", {}).get("learning_rate")
+    if set(mu) <= set(PARTS):
+        return opt_state_from_optax(inner["count"], mu, nu, learning_rate=learning_rate)
+    # adam_fp8: the moments are lists ('0', '1', ...) in the parameters' flattened order
+    names = _param_names(os.path.dirname(path))
+    state = {"count": int(inner["count"]), "mu": fp8_moments_from_optax(mu, names),
+             "nu": fp8_moments_from_optax(nu, names)}
+    if learning_rate is not None:
+        state["learning_rate"] = float(np.asarray(learning_rate, dtype=np.float64))
+    return state
 
 
 def restore_optimizer_state(logdir: str, map_location="cpu") -> dict:
     """{'count', 'learning_rate', 'mu', 'nu'} as ``ops.adam.Adam.load_state_dict``
-    takes it, from the same round as ``restore_params`` reads. The port's
+    (and ``ops.adam8.AdamFp8``'s) takes it, from the same round as ``restore_params`` reads. The port's
     checkpoints written before the learning rate was saved give
     ``learning_rate`` None."""
     path = os.path.join(resolve_round_dir(logdir), OPTIMIZER_DIR)
     if _subtree_layout(path, OPTIMIZER_DIR) == "orbax":
         state = _optax_adam_state(read_subtree(path), path)
         for kind in ("mu", "nu"):
-            state[kind] = _moved(state[kind], map_location)
+            state[kind] = {k: _moved(v, map_location) if isinstance(v, dict)
+                           else v.to(map_location) for k, v in state[kind].items()}
         return state
     flat = _load(os.path.join(path, OPTIMIZER_FILE), map_location)
     state: dict = {"count": int(flat["count"]), "learning_rate": None, "mu": {}, "nu": {}}
@@ -462,5 +487,9 @@ def restore_optimizer_state(logdir: str, map_location="cpu") -> dict:
     for key, t in flat.items():
         if key not in ("count", "learning_rate"):
             kind, name = key.split("/", 1)
-            state[kind][name] = t
+            if "/" in name:  # a field of adam_fp8's quantized leaf
+                name, field = name.split("/")
+                state[kind].setdefault(name, {})[field] = t
+            else:
+                state[kind][name] = t
     return state

@@ -53,25 +53,38 @@ def _leaf_spec(subtree: str, keys, zarr3: bool) -> dict:
                         "path": ".".join(keys)}}
 
 
-def read_subtree(path: str) -> dict:
-    """The subtree at ``path`` as a nested dict {key: ... {key: numpy array}}
-    (sequence indices stay strings, as orbax writes them)."""
+def _metadata(path: str) -> dict:
     if not is_orbax_subtree(path):
         raise FileNotFoundError(
             f"{path} is not an orbax subtree (no {METADATA_FILE} with {MANIFEST_FILE})")
+    with open(os.path.join(path, METADATA_FILE)) as f:
+        return json.load(f)
+
+
+def _leaf_keys(meta: dict) -> list:
+    return [[str(k["key"]) for k in entry["key_metadata"]]
+            for entry in meta["tree_metadata"].values()
+            # None, EmptyState, an empty Dict: no data
+            if not entry.get("value_metadata", {}).get("skip_deserialize")]
+
+
+def subtree_keys(path: str) -> list:
+    """The key path (a list of strings) of each leaf with data, from the
+    subtree's ``_METADATA`` alone."""
+    return _leaf_keys(_metadata(path))
+
+
+def read_subtree(path: str) -> dict:
+    """The subtree at ``path`` as a nested dict {key: ... {key: numpy array}}
+    (sequence indices stay strings, as orbax writes them)."""
+    meta = _metadata(path)
     import tensorstore as ts
 
-    with open(os.path.join(path, METADATA_FILE)) as f:
-        meta = json.load(f)
     if not meta.get("use_ocdbt", True):
         raise ValueError(f"{path}: orbax wrote it without OCDBT, which this reader does not take")
     zarr3 = bool(meta.get("use_zarr3", False))
     tree: dict = {}
-    for entry in meta["tree_metadata"].values():
-        value = entry.get("value_metadata", {})
-        if value.get("skip_deserialize"):
-            continue  # None, EmptyState, an empty Dict: no data
-        keys = [str(k["key"]) for k in entry["key_metadata"]]
+    for keys in _leaf_keys(meta):
         store = ts.open(_leaf_spec(path, keys, zarr3), open=True).result()
         node = tree
         for key in keys[:-1]:
