@@ -8,8 +8,8 @@ dense-kernel update probes, the convolution weight-gradient kernel with its prob
 crash-atomic checkpoints, and the live application's autosave, recording and fleet
 continual learning, and the scoring surfaces (the HTTP server and the offline
 two-pass CLI), JAX-written log directories and the COCO-JSON data path, the dataset
-builders and adam_fp8; any failure raises and the script exits non-zero
-without printing its final line.
+builders and adam_fp8, and parallel/ (data parallelism, ZeRO-1, a model axis); any
+failure raises and the script exits non-zero without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
   (b) build: nvcc builds the stream-scorer (one block a frame and one
@@ -275,6 +275,22 @@ without printing its final line.
       steps each, synchronized: ms a step, max_memory_allocated (adam_fp8's no higher), the
       moments' bytes, each update timed alone, the losses finite, the first equal and the
       last within Y_LOSS_RTOL of each other; adam_fp8 on the card against the CPU's update.
+  (z) parallel/ (data parallelism over the global batch, ZeRO-1, a model axis, scoring over
+      a mesh). (z1) train_torch.py's main on configs/config.yml at flagship width (float32 +
+      adam, 2 training and 1 validation batches of 256 synthetic 240x320 frames), once through
+      --coordinator 127.0.0.1:<port> --num-processes 1 --process-id 0 (NCCL, the data-parallel
+      path at world size 1) and once with --no-parallel: the losses equal at 1e-5 relative,
+      kernel 2 launched once forward a step and once backward a training step, all cluster,
+      both ways; each step's ms. (z2) two processes of this script (--worker) on the one
+      card joined by gloo (NCCL refuses two ranks on one GPU; gloo carries CUDA tensors), the
+      flagship float32 + adam + ZeRO-1, each rank its 128 rows of one seeded 256-frame batch,
+      2 steps, against this process's 2 steps on the whole batch: the losses equal on both
+      ranks and within 1e-4 of one process's, the moments' bytes of the sharded leaves halved
+      on each rank, kernel 2 on every rank on the gathered z; ms a step and
+      max_memory_allocated per rank. (z3) the same two processes as a (data 1, model 2) mesh,
+      1 step: the encoder Dense's blocks (2000, 268800) on each rank, the loss within 1e-4.
+      (z4) get_data_scale over an explicit one-device mesh, 256 frames, float and w8a8 (kernel
+      10 twice under the mesh), equal to the no-mesh pass.
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -4472,12 +4488,503 @@ def phase_y(dev):
     bfloat16 step with adam_fp8 beside adam_lean (y2)."""
     return {"y1": veri_phase(dev), "y2": fp8_train_step_phase(dev)}
 
+Z_RANKS = 2
+Z_WORKER_TIMEOUT_S = 600
+Z_STEPS = 2
+
+
+def float32_flagship():
+    from trustedai_cl_vae_ad_tpu_torch.train.bench_step import flagship_config
+
+    config = flagship_config()
+    config["training"]["precision"] = "float32"
+    return config
+
+
+def seeded_frames(dev, config, n=BATCH, seed=0):
+    """One seeded batch of uint8 frames at the config's size, drawn on the card (the same
+    bits in every process)."""
+    import torch
+
+    h, w, c = config["data"]["image_size"]
+    return torch.randint(0, 256, (n, h, w, c), dtype=torch.uint8, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def timed_steps(model, x, steps):
+    """(losses, ms of each step): each step synchronized and timed alone."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.train_step(x)
+        losses.append(float(loss["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def z_cli_run(config_path, extra):
+    """train_torch.py's main in this process, in a temporary working directory (its logs,
+    a 16 GB checkpoint, are deleted after): the losses and ms of each training step (each
+    synchronized and timed alone by a wrapper of VAEModel.train_step), and the launches of
+    kernels 1, 2, 3 and 10 in the run."""
+    import torch
+
+    import train_torch
+    from trustedai_cl_vae_ad_tpu_torch.models.wrapper import VAEModel
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+
+    record = []
+    original = VAEModel.train_step
+
+    def train_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = original(self, *args, **kwargs)
+        value = float(loss["loss"])
+        torch.cuda.synchronize()
+        record.append(((time.perf_counter() - t0) * 1e3, value, self.mesh is not None))
+        return loss
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_z1_")
+    cwd = os.getcwd()
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    VAEModel.train_step = train_step
+    try:
+        os.chdir(workdir)
+        t0 = time.perf_counter()
+        train_torch.main([config_path, *extra])
+        seconds = time.perf_counter() - t0
+    finally:
+        VAEModel.train_step = original
+        os.chdir(cwd)
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"ms": [r[0] for r in record], "losses": [r[1] for r in record],
+            "on_mesh": [r[2] for r in record], "seconds": seconds,
+            "launches": launch_counts(stream_score, moments, int8_gemm)}
+
+
+def phase_z1(dev):
+    """(z1) train_torch.py at flagship width, float32 + adam, 2 training and 1 validation
+    batches of 256 synthetic frames: through a process group of one (NCCL) and with
+    --no-parallel. The same losses; kernel 2 once forward a step and once backward a
+    training step, all on the cluster kernel, both ways."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.config import load_config, save_config, validate_config
+
+    config = validate_config(load_config(os.path.join(REPO, "configs", "config.yml")))
+    config["data"] = {"image_size": config["data"]["image_size"], "dataset": "synthetic",
+                      "n_train": Z_STEPS * BATCH, "n_val": VAL_STEPS * BATCH,
+                      "synthetic_frame_size": [240, 320]}
+    config["training"].update(max_epochs=1, precision="float32")
+    directory = tempfile.mkdtemp(prefix="chip_smoke_z1cfg_")
+    try:
+        path = os.path.join(directory, "config.yml")
+        save_config(config, path)
+        runs = {"parallel": z_cli_run(path, ["--coordinator", f"127.0.0.1:{free_port()}",
+                                             "--num-processes", "1", "--process-id", "0"]),
+                "no_parallel": z_cli_run(path, ["--no-parallel"])}
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    assert not torch.distributed.is_initialized()
+    par, plain = runs["parallel"], runs["no_parallel"]
+    assert par["on_mesh"] == [True] * Z_STEPS and plain["on_mesh"] == [False] * Z_STEPS
+    for a, b in zip(par["losses"], plain["losses"]):
+        assert abs(a - b) <= 1e-5 * abs(b), (par["losses"], plain["losses"])
+    for name, run in runs.items():
+        launches = run["launches"]
+        assert launches["moments_cluster_global_forward"] == Z_STEPS + VAL_STEPS, launches
+        assert launches["moments_cluster_global_backward"] == Z_STEPS, launches
+        assert launches["moments_global_forward"] == launches["moments_global_backward"] == 0
+        log(f"  {name}: train_torch.py, float32 adam, batch {BATCH}, {Z_STEPS} + {VAL_STEPS} "
+            f"steps in {run['seconds']:.1f} s of CLI (load, save, figures included); ms a "
+            f"step {[round(v, 3) for v in run['ms']]}; losses {run['losses']}; kernel 2 "
+            f"{launches['moments_cluster_global_forward']} forward, "
+            f"{launches['moments_cluster_global_backward']} backward, all cluster")
+    return runs
+
+
+def param_samples(model):
+    """{parameter: a strided sample of at most 4096 of its elements, in float64}, each
+    tensor whole: a block split over the model axis is gathered first (every rank of the
+    group takes part)."""
+    from trustedai_cl_vae_ad_tpu_torch.parallel import tp
+
+    out = {}
+    for name, p in model.core.state_dict().items():
+        if model.mesh is not None:
+            p = tp.full_tensor(p, model.tp_dims.get(name), model.mesh)
+        flat = p.detach().reshape(-1)
+        out[name] = flat[::max(1, flat.numel() // 4096)][:4096].double().tolist()
+    return out
+
+
+def model_axis_spread(model, x):
+    """The replicated parameters' gradients of one step over the model axis, BEFORE the axis
+    averages them (``dp.average_replicated``): for each, the largest difference between the
+    ranks over the largest magnitude. Taken three times with one fixed eps: twice as the
+    model runs (``twice``: the second also against this rank's first, ``repeat``), then with
+    ``torch.backends.cudnn.deterministic`` (``deterministic``). Also each run's loss, and a
+    checksum of its x_hat, on this rank. The parameters do not move."""
+    import torch
+    import torch.distributed as dist
+
+    from trustedai_cl_vae_ad_tpu_torch.parallel import dp
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import shard_batch
+
+    mesh, opt = model.mesh, model.optimizer
+    group = mesh.model_group
+    (rows,) = shard_batch(x, mesh)
+    eps = torch.randn((rows.shape[0], model.latent_size), device=rows.device,
+                      generator=torch.Generator(device=rows.device).manual_seed(7))
+    replicated = [k for k in opt.names if model.tp_dims.get(k) is None]
+
+    def run():
+        loss, x_hat, grads = dp.loss_and_grads(model.core, opt.params, rows, mesh, eps=eps)
+        own = {k: g for k, g in zip(opt.names, grads) if k in replicated}
+        return float(loss["loss"].detach()), float(x_hat.detach().double().sum()), own
+
+    def spread(own):
+        worst = {}
+        for k, g in own.items():
+            hi, lo = g.clone(), g.clone()
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+            scale = float(torch.maximum(hi.abs().max(), lo.abs().max()))
+            worst[k] = float((hi - lo).max()) / scale if scale else 0.0
+        return worst
+
+    result = {}
+    first = None
+    for mode in ("default", "twice", "deterministic"):
+        torch.backends.cudnn.deterministic = mode == "deterministic"
+        try:
+            loss, checksum, own = run()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        result[mode] = {"loss": loss, "x_hat_sum": checksum, "spread": spread(own)}
+        if first is None:
+            first = own
+        elif mode == "twice":
+            result["repeat"] = {k: float((own[k] - first[k]).abs().max()) /
+                                (float(first[k].abs().max()) or 1.0) for k in own}
+        del own
+    return result
+
+
+def z_worker(rank, world, store, out):
+    """One of the (z2), (z3) ranks, in its own process on the one card; writes its figures
+    as JSON to ``out``."""
+    import gc
+
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.parallel.collectives import gather_blocks_
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import (
+        distributed_teardown,
+        initialize_distributed,
+        make_mesh,
+    )
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+
+    dev = torch.device("cuda", 0)
+    initialize_distributed(f"file://{store}", world, rank, backend="gloo", device=dev)
+    result = {}
+    # KurtosisSingle at a tiny size on the data axis: kernel 3 on every rank on the
+    # gathered z; rank 0 also takes the steps alone, on the whole batch
+    tiny = tiny_config("KurtosisSingle")
+    tiny["training"]["batch_size"] = 16
+    x = seeded_frames(dev, tiny, n=16)
+    model = load_model_from_config(tiny, seed=0, device=dev)
+    model.compile(mesh=make_mesh(devices=[dev]))
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    losses, _ = timed_steps(model, x, Z_STEPS)
+    result["z2s"] = {"losses": losses, "launches": launch_counts(stream_score, moments,
+                                                                 int8_gemm)}
+    if rank == 0:
+        alone = load_model_from_config(tiny, seed=0, device=dev)
+        alone.compile()
+        result["z2s"]["alone"] = timed_steps(alone, x, Z_STEPS)[0]
+    config = float32_flagship()
+    x = seeded_frames(dev, config)
+    for part, shape, zero1 in (("z2", (world, 1), True), ("z3", (1, world), False)):
+        model = load_model_from_config(config, seed=0, device=dev)
+        t0 = time.perf_counter()
+        model.compile(mesh=make_mesh(*shape, devices=[dev]), zero1=zero1)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        spread = model_axis_spread(model, x) if part == "z3" else None
+        reset_launch_counts(stream_score, moments, int8_gemm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = timed_steps(model, x, Z_STEPS)
+        opt = model.optimizer
+        collective_ms = {}
+        if zero1:
+            # the two collectives of a ZeRO-1 step alone: the gradients' sum (one flat
+            # buffer of every parameter's size) and the encoder Dense's blocks gathered
+            flat = torch.ones(sum(p.numel() for p in opt.params), device=dev)
+            weight = model.core.state_dict()["encoder.layers.Dense_0.weight"]
+            for name, fn in (("sum_gradients", lambda: torch.distributed.all_reduce(flat)),
+                             ("gather_encoder_dense", lambda: gather_blocks_(
+                                 weight, 1, model.mesh.data_group))):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                collective_ms[name] = (time.perf_counter() - t1) * 1e3
+            del flat, weight
+        result[part] = {
+            "compile_s": compile_s, "collective_ms": collective_ms,
+            "losses": losses, "ms": ms, "peak": torch.cuda.max_memory_allocated(),
+            "optimizer": type(opt).__name__,
+            "moment_bytes": (opt.moment_bytes() if zero1 else
+                             sum(t.numel() * t.element_size() for t in opt.mu + opt.nu)),
+            "sharded": opt.sharded() if zero1 else [],
+            "tp_shapes": {k: list(model.core.state_dict()[k].shape)
+                          for k, d in model.tp_dims.items() if d is not None},
+            "spread": spread,
+            # every parameter after the steps, the model axis's blocks gathered
+            "samples": param_samples(model),
+            "launches": launch_counts(stream_score, moments, int8_gemm)}
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    distributed_teardown()
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_z23(dev):
+    """(z2) two processes on the one card (gloo carries CUDA tensors; NCCL refuses two ranks
+    on one GPU), flagship float32 + adam + ZeRO-1, each rank taking its 128 rows of one seeded
+    256-frame batch, 2 steps, against one process with the whole batch; (z3) the same two
+    processes as a (data 1, model 2) mesh, 2 steps. Each rank's losses and parameter updates
+    are held against the one process's; on the model axis, the replicated gradients of the
+    two ranks are held together before the axis averages them."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+
+    config = float32_flagship()
+    model = load_model_from_config(config, seed=0, device=dev)
+    model.compile()
+    x = seeded_frames(dev, config)
+    initial = param_samples(model)
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(model, x, Z_STEPS)
+    opt = model.optimizer
+    single = {"losses": losses, "ms": ms, "peak": torch.cuda.max_memory_allocated(),
+              "moment_bytes": sum(t.numel() * t.element_size() for t in opt.mu + opt.nu),
+              "bytes_of": {k: mu.numel() * mu.element_size() * 2
+                           for k, mu in zip(opt.names, opt.mu)},
+              "samples": param_samples(model)}
+    log(f"  one process, float32 adam, batch {BATCH}: losses {losses}; ms a step "
+        f"{[round(v, 3) for v in ms]}; moments {single['moment_bytes']} bytes; "
+        f"max_memory_allocated {single['peak'] / 2**30:.3f} GiB")
+    del model, opt, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_z23_")
+    try:
+        outs = [os.path.join(directory, f"rank{r}.json") for r in range(Z_RANKS)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker",
+                                   "--rank", str(r), "--world", str(Z_RANKS), "--store",
+                                   os.path.join(directory, "store"), "--out", outs[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(Z_RANKS)]
+        try:
+            texts = [p.communicate(timeout=Z_WORKER_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, text in zip(procs, texts):
+            assert p.returncode == 0, text[-4000:]
+        ranks = []
+        for path in outs:
+            with open(path) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    # every rank's steps against one process's: the losses (on the H100 the second step's
+    # update moves the loss by 3.3e-5 relative and the ranks read within 2.7e-7 of one
+    # process: 1e-6 lies between), and each parameter's update from the common start, on a
+    # strided sample:
+    # |d - d_one| / |d_one| <= 0.05 (a skipped or wrong update gives about 1; Adam's early
+    # steps are +-lr, so rounding moves it only where a gradient's sign flips)
+    def update_gap(got, ref, start):
+        d = np.asarray(got) - np.asarray(start)
+        d_one = np.asarray(ref) - np.asarray(start)
+        norm = float(np.linalg.norm(d_one))
+        return float(np.linalg.norm(d - d_one)) / norm if norm else float(np.linalg.norm(d))
+
+    checks = {}
+    for part in ("z2", "z3"):
+        for rank, r in enumerate(ranks):
+            losses = r[part]["losses"]
+            gaps = {k: update_gap(v, single["samples"][k], initial[k])
+                    for k, v in r[part]["samples"].items()}
+            worst = max(gaps, key=gaps.get)
+            loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, single["losses"]))
+            checks[(part, rank)] = (loss_gap, gaps)
+            log(f"  {part} rank {rank}: losses {losses} against one process's "
+                f"{single['losses']} (largest gap {loss_gap:.3e} relative); parameter updates "
+                f"against one process's: largest gap {gaps[worst]:.3e} ({worst}), median "
+                f"{float(np.median(list(gaps.values()))):.3e} over {len(gaps)} tensors")
+    z3 = [r["z3"] for r in ranks]
+    for rank, r in enumerate(z3):
+        sp = r["spread"]
+        for mode in ("default", "twice", "deterministic"):
+            worst = max(sp[mode]["spread"].values())
+            log(f"  z3 rank {rank}, one step's replicated gradients before the model axis's "
+                f"average, {mode}: loss {sp[mode]['loss']!r}, x_hat sum "
+                f"{sp[mode]['x_hat_sum']!r}; largest spread between the ranks {worst:.3e} of "
+                f"the gradient's largest magnitude, {sum(v > 0 for v in sp[mode]['spread'].values())}"
+                f" of {len(sp[mode]['spread'])} tensors differ")
+        log(f"  z3 rank {rank}: the same gradients run twice on this rank: largest difference "
+            f"{max(sp['repeat'].values()):.3e}, {sum(v > 0 for v in sp['repeat'].values())} "
+            f"tensors differ")
+    for (part, rank), (loss_gap, gaps) in checks.items():
+        assert loss_gap <= 1e-6, (part, rank, ranks[rank][part]["losses"], single["losses"])
+        assert all(v <= 0.05 for v in gaps.values()), (part, rank, gaps)
+    for part in ("z2", "z3"):
+        # the data axis's loss is the same global loss on every rank
+        assert part == "z3" or all(r[part]["losses"] == ranks[0][part]["losses"]
+                                   for r in ranks), part
+    # the model axis's ranks compute the replicated gradients alike before the average: to
+    # the bit with cuDNN's deterministic algorithms (a wrong backward through the split
+    # layers' input gives each rank its own). cuDNN's default algorithms differ from run to
+    # run on one rank (``repeat``), which is why the axis averages them; those are logged
+    for r in z3:
+        det = r["spread"]["deterministic"]
+        assert all(v == 0 for v in det["spread"].values()), r["spread"]
+        assert det["loss"] == z3[0]["spread"]["deterministic"]["loss"], r["spread"]
+    z2 = [r["z2"] for r in ranks]
+    sharded = {k for k, _ in z2[0]["sharded"]}
+    assert {"encoder.layers.Dense_0.weight", "decoder.layers.Dense_0.weight"} <= sharded
+    halved = sum(single["bytes_of"][k] for k in sharded) // Z_RANKS
+    for r in z2:
+        assert r["optimizer"] == "Zero1"
+        assert r["moment_bytes"] == single["moment_bytes"] - halved, (r["moment_bytes"], halved)
+        assert r["launches"]["moments_cluster_global_forward"] == Z_STEPS, r["launches"]
+        assert r["launches"]["moments_cluster_global_backward"] == Z_STEPS, r["launches"]
+    z2s = [r["z2s"] for r in ranks]
+    for r in z2s:
+        assert r["losses"] == z2s[0]["losses"], z2s
+        assert r["launches"]["moments_cluster_perdim_forward"] == Z_STEPS, r["launches"]
+        assert r["launches"]["moments_cluster_perdim_backward"] == Z_STEPS, r["launches"]
+        assert r["launches"]["moments_cluster_global_forward"] == 0, r["launches"]
+    for a, b in zip(z2s[0]["losses"], z2s[0]["alone"]):
+        assert abs(a - b) <= 1e-4 * abs(b), z2s
+    log(f"  tiny KurtosisSingle on (data 2) (gloo): losses {z2s[0]['losses']}, one process "
+        f"{z2s[0]['alone']}; kernel 3 on each rank {Z_STEPS} forward, {Z_STEPS} backward")
+    for r in z3:
+        assert r["tp_shapes"]["encoder.layers.Dense_0.weight"] == [2000, 268800], r["tp_shapes"]
+        assert r["launches"]["moments_cluster_global_forward"] == Z_STEPS, r["launches"]
+        assert r["launches"]["moments_cluster_global_backward"] == Z_STEPS, r["launches"]
+    for rank, (a, b) in enumerate(zip(z2, z3)):
+        log(f"  rank {rank}, (data 2, model 1), ZeRO-1 (gloo): compile {a['compile_s']:.1f} s; "
+            f"losses {a['losses']}; ms a step {[round(v, 3) for v in a['ms']]}; alone: the "
+            f"gradients' sum {a['collective_ms']['sum_gradients']:.1f} ms, the encoder Dense's "
+            f"blocks gathered {a['collective_ms']['gather_encoder_dense']:.1f} ms; moments "
+            f"{a['moment_bytes']} bytes (one process {single['moment_bytes']}); "
+            f"max_memory_allocated {a['peak'] / 2**30:.3f} GiB")
+        log(f"  rank {rank}, (data 1, model 2) (gloo): losses {b['losses']}; ms a step "
+            f"{[round(v, 3) for v in b['ms']]}; shards {b['tp_shapes']}; max_memory_allocated "
+            f"{b['peak'] / 2**30:.3f} GiB")
+    return {"single": single, "z2": z2, "z3": z3, "z2s": z2s}
+
+
+def phase_z4(dev):
+    """(z4) get_data_scale over an explicit one-device mesh on the card: 256 frames, float
+    and w8a8 (kernel 10), equal to the no-mesh pass."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.anomaly.offline import get_data_scale
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.ops.quant import serving_forward
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import make_mesh
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+
+    config = float32_flagship()
+    model = load_model_from_config(config, seed=0, device=dev)
+    data = {"train": [seeded_frames(dev, config, seed=3)]}
+    mesh = make_mesh(devices=[dev])
+    assert mesh.shape == {"data": 1, "model": 1} and not mesh.distributed
+    _, tree = serving_forward(model.core, model.params, quantize=True)
+    out = {}
+    for quantize in (False, True):
+        params = tree if quantize else None
+        runs = {}
+        for name, m in (("no_mesh", None), ("mesh", mesh)):
+            reset_launch_counts(stream_score, moments, int8_gemm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scale = get_data_scale(model, config, data, mesh=m, quantize=quantize,
+                                   score_params=params)
+            runs[name] = {"scale": scale, "s": time.perf_counter() - t0,
+                          "launches": launch_counts(stream_score, moments, int8_gemm)}
+        ref, got = runs["no_mesh"]["scale"], runs["mesh"]["scale"]
+        for key in ("meu", "sigma", "min", "max"):
+            assert abs(got[key] - ref[key]) <= 1e-5 * abs(ref[key]), (key, got[key], ref[key])
+        assert got["z_scores"].shape == (BATCH,)
+        np.testing.assert_allclose(got["z_scores"], ref["z_scores"], rtol=1e-4, atol=1e-4)
+        mma = runs["mesh"]["launches"]["int8_gemm_mma"]
+        assert mma == (2 if quantize else 0), runs["mesh"]["launches"]
+        label = "w8a8" if quantize else "float"
+        out[label] = {k: {"s": v["s"], "launches": v["launches"]} for k, v in runs.items()}
+        log(f"  get_data_scale, {label}, {BATCH} frames: one-device mesh {runs['mesh']['s']:.3f} "
+            f"s, no mesh {runs['no_mesh']['s']:.3f} s; meu {got['meu']:.6f} / {ref['meu']:.6f}; "
+            f"kernel 10 under the mesh {mma} launches (mma)")
+    del model, tree, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_z(dev):
+    """parallel/ on the card: the training CLI through a process group (z1), data
+    parallelism with ZeRO-1 and tensor parallelism over two processes (z2, z3), offline
+    scoring over a one-device mesh (z4)."""
+    return {"z1": phase_z1(dev), "z23": phase_z23(dev), "z4": phase_z4(dev)}
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..y to run after the build (for "
+                        help="comma-separated subset of c..z to run after the build (for "
                              "finding a fault); the final line is then not printed")
+    parser.add_argument("--worker", action="store_true",
+                        help="(internal) run one rank of phase (z)'s two-process runs")
+    parser.add_argument("--rank", type=int, default=0)
+    parser.add_argument("--world", type=int, default=Z_RANKS)
+    parser.add_argument("--store", default=None)
+    parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
     if not __debug__:
@@ -4496,6 +5003,8 @@ def main(argv=None):
         print(f"chip_smoke: {PACKAGE} not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if args.worker:
+        return z_worker(args.rank, args.world, args.store, args.out)
     t_start = time.perf_counter()
 
     log("[a] device")
@@ -4579,6 +5088,8 @@ def main(argv=None):
         "with the device cache", lambda: phase_x(dev))
     run("y", "the dataset builders and configs/veri.yml with adam_fp8; the flagship's bf16 step "
         "with adam_fp8 beside adam_lean", lambda: phase_y(dev))
+    run("z", "parallel/: train_torch.py through a process group, two processes with ZeRO-1 "
+        "and with a model axis, offline scoring over a mesh", lambda: phase_z(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -4640,6 +5151,20 @@ def main(argv=None):
         entry["launches_veri"] = out["y"]["y1"]["launches"].get(entry["name"], 0)
         entry["launches_fp8_step"] = out["y"]["y2"]["runs"]["adam_fp8"]["launches"].get(
             entry["name"], 0)
+    # (z)'s paths, each counted from zero: the training CLI through a process group of one
+    # (z1), the two ranks of the ZeRO-1 and the model-axis runs summed (z2, z3), offline
+    # scoring over a one-device mesh in w8a8 (z4)
+    z = out["z"]
+    for entry in kernels:
+        kernel = entry["name"]
+        entry["launches_parallel_cli"] = z["z1"]["parallel"]["launches"].get(kernel, 0)
+        entry["launches_zero1_ranks"] = sum(r["launches"].get(kernel, 0)
+                                            for r in z["z23"]["z2"])
+        entry["launches_tiny_single_ranks"] = sum(r["launches"].get(kernel, 0)
+                                                  for r in z["z23"]["z2s"])
+        entry["launches_model_axis_ranks"] = sum(r["launches"].get(kernel, 0)
+                                                 for r in z["z23"]["z3"])
+        entry["launches_offline_mesh"] = z["z4"]["w8a8"]["mesh"]["launches"].get(kernel, 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

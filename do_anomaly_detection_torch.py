@@ -16,9 +16,10 @@ keeps the error distribution; pass 2 scores the dataset of ``-d`` against it
 With ``--quantize`` both passes run the ``w8a8`` forward (the int8 GEMM
 kernel on the card) on one quantized tree: the ``<logdir>/quantized``
 sidecar when it exists (the float weights are then never read), else a
-tree quantized once at start. It scores on one CUDA device unless
-``--device cpu`` is given; several devices are not used (ROADMAP.md queue 1
-item 17), so ``--no-parallel`` changes nothing.
+tree quantized once at start. It scores on the CUDA devices unless
+``--device cpu`` is given: with more than one local card each batch is split
+over all of them, one model replica a card (``anomaly/offline.py``'s mesh),
+unless ``--no-parallel`` is given or ``--device`` names one card.
 """
 
 import argparse
@@ -39,7 +40,7 @@ def get_args(argv=None):
     )
     parser.add_argument(
         "--no-parallel", action="store_true",
-        help="Accepted for do_anomaly_detection.py's sake: the port scores on one device",
+        help="Score on one device even when several local cards are visible",
     )
     parser.add_argument(
         "--quantize", action="store_true",
@@ -76,11 +77,17 @@ def main(argv=None):
     )
     from trustedai_cl_vae_ad_tpu_torch.data.loader import load_data
     from trustedai_cl_vae_ad_tpu_torch.ops.quant import serving_forward
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import make_mesh
     from trustedai_cl_vae_ad_tpu_torch.stream.engine import boot_serving_model
 
-    if torch.device(args.device).type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"{torch.cuda.device_count()} CUDA devices visible: scoring on "
-              f"{args.device} alone (multi-device scoring is ROADMAP.md queue 1 item 17)")
+    # bulk scoring splits each batch over all local cards (train_torch.py's parity)
+    mesh = None
+    device = torch.device(args.device)
+    if (not args.no_parallel and device.type == "cuda" and device.index is None
+            and torch.cuda.device_count() > 1):
+        mesh = make_mesh(devices=[torch.device("cuda", i)
+                                  for i in range(torch.cuda.device_count())])
+        print(f"scoring over {mesh.shape['data']} CUDA devices")
     model, config, score_params = boot_serving_model(
         args.model_dir, args.device, quantize=args.quantize, int8_checkpoint_boot=True,
         restore_optimizer=False)
@@ -92,7 +99,7 @@ def main(argv=None):
     if args.quantize and score_params is None:
         _, score_params = serving_forward(model.core, model.params, quantize=True)
 
-    data_scale = get_data_scale(model, config, train_data, quantize=args.quantize,
+    data_scale = get_data_scale(model, config, train_data, mesh=mesh, quantize=args.quantize,
                                 score_params=score_params)
 
     # pass 2 reads the evaluation set with the same dataset kind
@@ -102,6 +109,7 @@ def main(argv=None):
         model, config, evaluation_data, data_scale, args.anomaly_threshold,
         keep_maps=False,
         artifact_path=None if args.histogram_only else args.output_path,
+        mesh=mesh,
         quantize=args.quantize,
         score_params=score_params,
     )

@@ -80,7 +80,9 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "anomaly/offline.py", "train/orbax_read.py", "data/coco.py", "data/raite.py",
                 "data/ingest.py", "ops/adam8.py", "data/builders/__init__.py",
                 "data/builders/raite_json.py", "data/builders/fix_raite.py",
-                "data/builders/veri.py", "data/builders/virat.py"):
+                "data/builders/veri.py", "data/builders/virat.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/collectives.py", "parallel/dp.py",
+                "parallel/zero.py", "parallel/tp.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
     assert {"train_torch.py", "profile_train_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
             "serve_torch.py", "do_anomaly_detection_torch.py",
@@ -148,3 +150,41 @@ print(json.dumps(sorted(k for k in sys.modules
                           timeout=120, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def _flags(parser_source: str) -> set:
+    """The option strings of every ``add_argument`` call in a script."""
+    flags = set()
+    for node in ast.walk(ast.parse(parser_source)):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument":
+            flags |= {a.value for a in node.args
+                      if isinstance(a, ast.Constant) and str(a.value).startswith("-")}
+    return flags
+
+
+def test_the_parallel_flags_match_the_jax_clis():
+    """train_torch.py has every flag of train.py (the five parallel ones
+    among them), and do_anomaly_detection_torch.py every flag of
+    do_anomaly_detection.py; both parse them (read from the sources: the JAX
+    scripts import jax)."""
+    import do_anomaly_detection_torch
+    import train_torch
+
+    for port, jax_cli in ((train_torch, "train.py"),
+                          (do_anomaly_detection_torch, "do_anomaly_detection.py")):
+        with open(os.path.join(REPO, jax_cli)) as f:
+            want = _flags(f.read())
+        with open(port.__file__) as f:
+            got = _flags(f.read())
+        assert want <= got, (jax_cli, sorted(want - got))
+    assert {"--no-parallel", "--distributed", "--coordinator", "--num-processes",
+            "--process-id"} <= _flags(open(os.path.join(REPO, "train.py")).read())
+    args = train_torch.get_args(["cfg.yml", "--device", "cpu", "--coordinator", "127.0.0.1:29500",
+                                 "--num-processes", "2", "--process-id", "1", "--no-parallel"])
+    assert (args.coordinator, args.num_processes, args.process_id, args.no_parallel) == (
+        "127.0.0.1:29500", 2, 1, True)
+    assert train_torch.get_args(["cfg.yml", "--device", "cpu", "--distributed"]).distributed
+    import pytest
+
+    with pytest.raises(SystemExit):  # a coordinator needs the process count and id
+        train_torch.get_args(["cfg.yml", "--device", "cpu", "--coordinator", "h:1"])

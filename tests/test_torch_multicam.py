@@ -466,7 +466,7 @@ def test_unported_surfaces_raise_and_name_their_item(setup, tmp_path):
     cached = MultiCameraEngine(model, config, n_streams=2, model_cache_dir=str(tmp_path / "c"))
     assert cached.model_cache_dir == str(tmp_path / "c") and not cached.schedule_model_save_flag
     assert cached.cl_ring_ticks == 4 and cached.continuous_learning_period_ms == 500.0
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 19"):
         MultiCameraEngine(model, config, n_streams=2, mesh=object())
     assert model.optimizer is None
 

@@ -308,11 +308,58 @@ def test_quantized_passes_match_jax(setup, monkeypatch):
 
 
 def test_mesh_is_not_ported(setup):
+    """Scoring takes a one-process mesh of local devices (since the parallel
+    slice); anything else raises."""
     from trustedai_cl_vae_ad_tpu_torch.anomaly.offline import get_data_scale
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import Mesh
 
     config, _, model, _, _ = setup
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
+    with pytest.raises(TypeError, match="one-process mesh"):
         get_data_scale(model, config, _port_data(config), mesh=object())
+    with pytest.raises(TypeError, match="one-process mesh"):
+        get_data_scale(model, config, _port_data(config),
+                       mesh=Mesh(2, 1, ["cpu"], distributed=True))
+
+
+@pytest.mark.parametrize("replicas,quantize", [(2, False), (3, False), (2, True)])
+def test_mesh_scoring_matches_no_mesh_and_jax(setup, monkeypatch, replicas, quantize, capsys):
+    """Both passes over a one-process CPU mesh of 2 or 3 replicas (batches of
+    8: ragged on 3, padded by repeating the last frame, the pad rows dropped)
+    give the no-mesh results and the JAX package's 8-device mesh results, in
+    frame order."""
+    from trustedai_cl_vae_ad_tpu.anomaly.offline import evaluate_anomalies as jax_evaluate
+    from trustedai_cl_vae_ad_tpu.anomaly.offline import get_data_scale as jax_scale
+    from trustedai_cl_vae_ad_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from trustedai_cl_vae_ad_tpu_torch.anomaly.offline import evaluate_anomalies, get_data_scale
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import make_mesh
+
+    config, jmodel, model, _, eval_dir = setup
+    if quantize:
+        monkeypatch.setenv("TCVAE_QUANT_MIN_ELEMS", "0")
+    mesh = make_mesh(devices=["cpu"] * replicas)
+    assert mesh.shape == {"data": replicas, "model": 1} and not mesh.distributed
+    ref = get_data_scale(model, config, _port_data(config), quantize=quantize)
+    got = get_data_scale(model, config, _port_data(config), mesh=mesh, quantize=quantize)
+    assert ("padding ragged batch 8 -> 9" in capsys.readouterr().out) == (replicas == 3)
+    want = jax_scale(jmodel, config, _jax_data(config), mesh=jax_make_mesh(), quantize=quantize)
+    eps_tol = (Q_TOL * (2 * PIXELS + PIXELS * Q_TOL) if quantize
+               else 1e-5 * float(np.max(_eps(want))))
+    assert got["z_scores"].shape == (N_TRAIN,)
+    _assert_scale_close(got, ref, 1e-5 * float(np.max(_eps(ref))))
+    _assert_scale_close(got, want, eps_tol)
+    res_ref = evaluate_anomalies(model, config, _port_data(config, eval_dir), ref, 3.0)
+    res = evaluate_anomalies(model, config, _port_data(config, eval_dir), ref, 3.0, mesh=mesh,
+                             quantize=quantize)
+    res_jax = jax_evaluate(jmodel, config, _jax_data(config, eval_dir), ref, 3.0,
+                           mesh=jax_make_mesh(), quantize=quantize)
+    assert res["z_scores"].shape == res["norm_errs"].shape[:1] == (N_EVAL,)
+    if not quantize:
+        np.testing.assert_allclose(res["z_scores"], res_ref["z_scores"], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(res["norm_errs"], res_ref["norm_errs"], rtol=1e-4,
+                                   atol=1e-5)
+    np.testing.assert_allclose(res["z_scores"], res_jax["z_scores"], rtol=0,
+                               atol=eps_tol / ref["sigma"])
+    np.testing.assert_array_equal(res["anomalies"], res_jax["anomalies"])
 
 
 # -- the CLI -----------------------------------------------------------------------------------

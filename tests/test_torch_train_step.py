@@ -80,7 +80,7 @@ def test_train_step_draws_its_own_eps_and_needs_compile():
         tmodel.train_step(x)
     with pytest.raises(RuntimeError, match="compile"):
         tmodel.set_learning_rate(1e-4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
+    with pytest.raises(TypeError, match="Mesh"):
         tmodel.compile(mesh=object())
     tmodel.compile(learning_rate=5e-4)
     assert tmodel.learning_rate == 5e-4

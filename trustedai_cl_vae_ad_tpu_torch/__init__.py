@@ -17,6 +17,8 @@ Layer map:
                          .ops.moments (+ csrc/), .ops.adam, .ops.adam8
   data                -> .data.loader, .data.saved_dataset, .data.ingest, .data.builders
   training            -> .train.loop, .train.checkpoint, .train.bench_step, .utils.metrics
+  several devices     -> .parallel.mesh, .parallel.collectives, .parallel.dp, .parallel.zero,
+                         .parallel.tp
   live stream         -> .stream.engine, .stream.multicam, .stream.run
 """
 

@@ -15,13 +15,17 @@ A batch's forward and its reductions run on the model's device; only the
 per-frame scalars (and, in pass 2, the maps that become PNGs or that the
 caller keeps) are copied to the host. With ``quantize`` both passes run the
 ``w8a8`` forward of ``ops/quant.py``, whose Dense products are the int8 GEMM
-kernel on the card. Scoring over several devices (``mesh=``) is not ported
-(ROADMAP.md queue 1 item 17).
+kernel on the card. With ``mesh`` (a one-process mesh of local devices,
+``parallel/mesh.py``) each batch is padded to a multiple of the devices,
+split into one block of rows a device, and scored by one model replica a
+device; the results are gathered on the model's device in row order and the
+pad rows dropped, so results pair with frames by index.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import copy
 import csv
 import os
 
@@ -32,19 +36,54 @@ from trustedai_cl_vae_ad_tpu_torch.data.loader import host_images, iter_images
 from trustedai_cl_vae_ad_tpu_torch.viz.plots import jet_heatmap
 
 
+@torch.inference_mode()
+def _batch_err(forward, params, x):
+    err = ((x - forward(params, x)) ** 2).sum(dim=3)  # per pixel, channel-summed
+    return err.sum(dim=(1, 2)), err.amin(), err.amax()
+
+
+@torch.inference_mode()
+def _batch_eval(forward, params, x, mu, sigma, emin, emax):
+    x_rec = forward(params, x)
+    err = ((x - x_rec) ** 2).sum(dim=3)
+    z = (err.sum(dim=(1, 2)) - mu) / sigma
+    norm_err = (err - emin) / (emax - emin)
+    return x_rec, err, z, norm_err
+
+
+def _replicas(core, forward, score_params, quantize: bool, mesh) -> list:
+    """[(forward, params)] of each device of the mesh: the quantized tree on
+    each device, or the float core where it lies and a copy elsewhere."""
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import replicate
+
+    if quantize:
+        return [(forward, tree) for tree in replicate(score_params, mesh)]
+    home = next(core.parameters()).device
+    out = []
+    for d in mesh.devices:
+        if d == home:
+            out.append((forward, score_params))
+        else:
+            twin = copy.deepcopy(core).to(d)
+            out.append((lambda _p, x, twin=twin: twin(x), None))
+    return out
+
+
 def _score_fns(model, mesh=None, quantize=False, score_params=None):
     """``(batch_err, batch_eval, place, score_params)`` of the two passes on
     ``model.device``. With ``quantize`` the forward is ``call_quantized`` on a
     quantized tree, returned as ``score_params`` so that a caller running
     both passes quantizes once; a tree passed in as ``score_params`` is used
     as it is (the forward that matches it is picked). Eval mode: z = mean +
-    0.5 * logvar, so the quantized eval forward is the same computation."""
+    0.5 * logvar, so the quantized eval forward is the same computation.
+    With ``mesh`` both passes run each device's rows on its replica and
+    return the whole (padded) batch's results on the model's device."""
     from trustedai_cl_vae_ad_tpu_torch.ops import quant
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import Mesh
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "device meshes are not ported yet (ROADMAP.md queue 1 item 17): "
-            "offline scoring runs on one device")
+    if mesh is not None and (not isinstance(mesh, Mesh) or mesh.distributed):
+        raise TypeError("offline scoring takes a one-process mesh of local devices "
+                        f"(parallel.mesh.make_mesh(devices=...)), not {mesh!r}")
     core = model.core
     device = torch.device(model.device)
     if score_params is None:
@@ -56,18 +95,11 @@ def _score_fns(model, mesh=None, quantize=False, score_params=None):
         def forward(_p, x):
             return core(x)
 
-    @torch.inference_mode()
     def batch_err(params, x):
-        err = ((x - forward(params, x)) ** 2).sum(dim=3)  # per pixel, channel-summed
-        return err.sum(dim=(1, 2)), err.amin(), err.amax()
+        return _batch_err(forward, params, x)
 
-    @torch.inference_mode()
     def batch_eval(params, x, mu, sigma, emin, emax):
-        x_rec = forward(params, x)
-        err = ((x - x_rec) ** 2).sum(dim=3)
-        z = (err.sum(dim=(1, 2)) - mu) / sigma
-        norm_err = (err - emin) / (emax - emin)
-        return x_rec, err, z, norm_err
+        return _batch_eval(forward, params, x, mu, sigma, emin, emax)
 
     def place(x):
         # uint8 means raw 0-255 pixels (the package-wide contract); the
@@ -77,7 +109,28 @@ def _score_fns(model, mesh=None, quantize=False, score_params=None):
             x = x.to(torch.float32) / 255.0
         return x.to(torch.float32), int(x.shape[0])
 
-    return batch_err, batch_eval, place, score_params
+    if mesh is None:
+        return batch_err, batch_eval, place, score_params
+
+    from trustedai_cl_vae_ad_tpu_torch.parallel.dp import build_forward_step
+
+    replicas = _replicas(core, forward, score_params, quantize, mesh)
+    err_step = build_forward_step(lambda r, rows: _batch_err(*r, rows), mesh, replicas)
+    eval_step = build_forward_step(lambda r, rows, *a: _batch_eval(*r, rows, *a), mesh, replicas)
+
+    def gathered(outs):
+        """Each output's blocks, in device order, on the model's device."""
+        return [[t.to(device) for t in parts] for parts in zip(*outs)]
+
+    def sharded_err(_params, x):
+        errs, lows, highs = gathered(err_step(x))
+        return torch.cat(errs), torch.stack(lows).amin(), torch.stack(highs).amax()
+
+    def sharded_eval(_params, x, mu, sigma, emin, emax):
+        return tuple(torch.cat(parts) for parts in
+                     gathered(eval_step(x, mu, sigma, emin, emax)))
+
+    return sharded_err, sharded_eval, place, score_params
 
 
 def _scalar(value: float, device) -> torch.Tensor:

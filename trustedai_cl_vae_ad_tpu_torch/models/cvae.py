@@ -74,6 +74,15 @@ def compute_dense_shape(config: dict) -> Tuple[int, int, int]:
     return dense_width, dense_height, int(config["model"]["decoder_dense_filters"])
 
 
+def dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A Dense layer in the compute dtype: ``F.linear``, or the layer's own
+    ``apply`` where it holds a shard of its weight (``parallel/tp.py``)."""
+    apply = getattr(layer, "apply_sharded", None)
+    if apply is not None:
+        return apply(x, dtype)
+    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
 def _conv_out(n: int, layers: int) -> int:
     for _ in range(layers):
         n = -(-n // 2)
@@ -113,8 +122,7 @@ class Encoder(nn.Module):
         # row-major HWC flatten, as the JAX encoder (Keras Flatten) does
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         for j in range(self.n_dense + 1):
-            dense = self.layers[f"Dense_{j}"]
-            x = F.linear(x, dense.weight.to(self.dtype), dense.bias.to(self.dtype))
+            x = dense(self.layers[f"Dense_{j}"], x, self.dtype)
         return x.to(torch.float32)
 
 
@@ -142,9 +150,7 @@ class Decoder(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         dw, dh, df = self.dense_shape
-        dense = self.layers["Dense_0"]
-        x = F.relu(F.linear(z.to(self.dtype), dense.weight.to(self.dtype),
-                            dense.bias.to(self.dtype)))
+        x = F.relu(dense(self.layers["Dense_0"], z.to(self.dtype), self.dtype))
         x = x.reshape(x.shape[0], dw, dh, df).permute(0, 3, 1, 2)  # HWC -> NCHW
         last = len(self.strides) - 1
         for i, s in enumerate(self.strides):

@@ -10,7 +10,7 @@ on the family's shared encoder and decoder, whose quirks (z = mean +
 too: the type selects the loss only. The diagnostics (z_l1, x_std_loss,
 r_min, r_max) are computed, but only mse and kl_div are optimized. This loss
 runs no hand-written kernel. ``compute_loss_chunked`` is not ported (see
-``kurtosis_global.py``).
+``kurtosis_global.py``), and ``batch_group`` is that module's.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from trustedai_cl_vae_ad_tpu_torch.models.batch_stats import (
     weighted_z_l1,
 )
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import AbstractCVAE, normalize_image_input
+from trustedai_cl_vae_ad_tpu_torch.parallel.collectives import gather_rows
 
 
 class KLGaussianCVAE(AbstractCVAE):
@@ -49,21 +50,26 @@ class KLGaussianCVAE(AbstractCVAE):
 
     def compute_loss(self, x: torch.Tensor, training: bool = False, return_inf: bool = False,
                      eps: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None, weights=None):
+                     generator: Optional[torch.Generator] = None, weights=None,
+                     batch_group=None):
         """The 7-key metric dict (and x_hat with ``return_inf``); ``eps``,
-        ``generator`` and ``weights`` as in ``KurtosisGlobalCVAE.compute_loss``."""
+        ``generator``, ``weights`` and ``batch_group`` as in
+        ``KurtosisGlobalCVAE.compute_loss``."""
         x = normalize_image_input(x)
         x_hat_prob, z, mean, logvar = self.call_detailed(x, training=training, eps=eps,
                                                          generator=generator)
+        if batch_group is not None:
+            z, mean, logvar = (gather_rows(t, batch_group) for t in (z, mean, logvar))
 
         if weights is None:
-            st = unweighted_image_stats(x, x_hat_prob)
+            st = unweighted_image_stats(x, x_hat_prob, group=batch_group)
             kl_div = self.kl_divergence_gaussian(mean, logvar)
             z_l1_reg = z.abs().mean()
         else:
-            st = weighted_image_stats(x, x_hat_prob, weights)
-            kl_div = (st["w"] * self._kl_rows(mean, logvar)).sum() / st["wsum"]
-            z_l1_reg = weighted_z_l1(z, st["w"], st["wsum"])
+            st = weighted_image_stats(x, x_hat_prob, weights, group=batch_group)
+            w = st["w"] if batch_group is None else gather_rows(st["w"], batch_group)
+            kl_div = (w * self._kl_rows(mean, logvar)).sum() / st["wsum"]
+            z_l1_reg = weighted_z_l1(z, w, st["wsum"])
 
         loss = self.w_mse * st["mse"] + self.w_kl_divergence * kl_div
 

@@ -17,6 +17,11 @@ The moment reductions go through ``ops.moments.global_moments``: the
 hand-written CUDA kernels on the card, the plain versions on the CPU.
 ``compute_loss_chunked`` is not ported: it exists for XLA's 2 GiB buffer
 limit, and ``training.loss_chunks`` is accepted and ignored.
+
+``batch_group`` (the data axis of a mesh, ``parallel/``) makes every batch
+statistic that of the global batch: z, mean and logvar are gathered, so the
+latent terms (the moments kernel among them) run on all ranks' rows, and the
+image-space terms sum partial sums over the group.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from trustedai_cl_vae_ad_tpu_torch.models.batch_stats import (
     unweighted_image_stats,
@@ -33,6 +39,7 @@ from trustedai_cl_vae_ad_tpu_torch.models.batch_stats import (
 )
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import AbstractCVAE, normalize_image_input
 from trustedai_cl_vae_ad_tpu_torch.ops.moments import global_moments, global_moments_weighted
+from trustedai_cl_vae_ad_tpu_torch.parallel.collectives import gather_rows, global_sum
 
 
 def _abs_kl_terms(z_mean: torch.Tensor, z_logvar: torch.Tensor) -> torch.Tensor:
@@ -64,33 +71,46 @@ class KurtosisGlobalCVAE(AbstractCVAE):
 
     def compute_loss(self, x: torch.Tensor, training: bool = False, return_inf: bool = False,
                      eps: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None, weights=None):
+                     generator: Optional[torch.Generator] = None, weights=None,
+                     batch_group=None):
         """The 12-key metric dict (and x_hat with ``return_inf``).
 
         ``weights`` (B,) optionally masks rows out of EVERY batch statistic
         (weight-0 rows contribute nothing); with all-ones weights this equals
         the unweighted path. ``eps`` injects the latent noise; when training
-        without it, it is drawn from ``generator``.
+        without it, it is drawn from ``generator``. ``batch_group``: this
+        rank's rows are a share of the global batch of that process group.
         """
         x = normalize_image_input(x)
         x_hat_prob, z, mean, logvar = self.call_detailed(x, training=training, eps=eps,
                                                          generator=generator)
+        if batch_group is not None:
+            z, mean, logvar = (gather_rows(t, batch_group) for t in (z, mean, logvar))
+
+        def batch_sum(t):
+            return t if batch_group is None else global_sum(t, batch_group)
 
         if weights is None:
             # entropy diagnostic: softmax over the whole tensor
-            x_logit = torch.log(torch.exp(x) / torch.exp(x).sum())
-            likelihood_cross_entropy = -(x_hat_prob * x_logit).mean()
+            if batch_group is None:
+                x_logit = torch.log(torch.exp(x) / torch.exp(x).sum())
+                likelihood_cross_entropy = -(x_hat_prob * x_logit).mean()
+            else:
+                x_logit = torch.log(torch.exp(x) / batch_sum(torch.exp(x).sum()))
+                likelihood_cross_entropy = (-batch_sum((x_hat_prob * x_logit).sum())
+                                            / (x.numel() * dist.get_world_size(batch_group)))
 
-            st = unweighted_image_stats(x, x_hat_prob)
+            st = unweighted_image_stats(x, x_hat_prob, group=batch_group)
             z_mean, z_var, z_skew, z_kurtosis = global_moments(z)
             kl_div_gaus = self.kl_divergence_gaussian(mean, logvar)
             z_l1_reg = z.abs().mean()
         else:
-            st = weighted_image_stats(x, x_hat_prob, weights)
-            w, wx, wsum, n_el = st["w"], st["wx"], st["wsum"], st["n_el"]
+            st = weighted_image_stats(x, x_hat_prob, weights, group=batch_group)
+            wx, wsum, n_el = st["wx"], st["wsum"], st["n_el"]
+            w = st["w"] if batch_group is None else gather_rows(st["w"], batch_group)
 
-            x_logit = torch.log(torch.exp(x) / (wx * torch.exp(x)).sum())
-            likelihood_cross_entropy = -(wx * x_hat_prob * x_logit).sum() / n_el
+            x_logit = torch.log(torch.exp(x) / batch_sum((wx * torch.exp(x)).sum()))
+            likelihood_cross_entropy = -batch_sum((wx * x_hat_prob * x_logit).sum()) / n_el
 
             z_mean, z_var, z_skew, z_kurtosis = global_moments_weighted(z, w)
 

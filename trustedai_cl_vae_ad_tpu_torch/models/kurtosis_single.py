@@ -14,7 +14,8 @@ statistics are taken per latent dimension (over the batch axis). Kept exactly:
 
 The moment reductions go through ``ops.moments.perdim_moments``: the
 hand-written CUDA kernels on the card, the plain versions on the CPU.
-``compute_loss_chunked`` is not ported (see ``kurtosis_global.py``).
+``compute_loss_chunked`` is not ported (see ``kurtosis_global.py``), and
+``batch_group`` is that module's: z is gathered, image-space sums summed.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from trustedai_cl_vae_ad_tpu_torch.models.batch_stats import (
 )
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import AbstractCVAE, normalize_image_input
 from trustedai_cl_vae_ad_tpu_torch.ops.moments import perdim_moments, perdim_moments_weighted
+from trustedai_cl_vae_ad_tpu_torch.parallel.collectives import gather_rows
 
 
 class KurtosisSingleCVAE(AbstractCVAE):
@@ -44,21 +46,26 @@ class KurtosisSingleCVAE(AbstractCVAE):
 
     def compute_loss(self, x: torch.Tensor, training: bool = False, return_inf: bool = False,
                      eps: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None, weights=None):
+                     generator: Optional[torch.Generator] = None, weights=None,
+                     batch_group=None):
         """The 10-key metric dict (and x_hat with ``return_inf``); ``eps``,
-        ``generator`` and ``weights`` as in ``KurtosisGlobalCVAE.compute_loss``."""
+        ``generator``, ``weights`` and ``batch_group`` as in
+        ``KurtosisGlobalCVAE.compute_loss``."""
         x = normalize_image_input(x)
         x_hat_prob, z, _, _ = self.call_detailed(x, training=training, eps=eps,
                                                  generator=generator)
+        if batch_group is not None:
+            z = gather_rows(z, batch_group)
 
         if weights is None:
-            st = unweighted_image_stats(x, x_hat_prob)
+            st = unweighted_image_stats(x, x_hat_prob, group=batch_group)
             z_meu, _, z_skew, z_kurtosis = perdim_moments(z)
             z_l1_reg = z.abs().mean()
         else:
-            st = weighted_image_stats(x, x_hat_prob, weights)
-            z_meu, _, z_skew, z_kurtosis = perdim_moments_weighted(z, st["w"])
-            z_l1_reg = weighted_z_l1(z, st["w"], st["wsum"])
+            st = weighted_image_stats(x, x_hat_prob, weights, group=batch_group)
+            w = st["w"] if batch_group is None else gather_rows(st["w"], batch_group)
+            z_meu, _, z_skew, z_kurtosis = perdim_moments_weighted(z, w)
+            z_l1_reg = weighted_z_l1(z, w, st["wsum"])
 
         z_kurtosis_loss = ((z_kurtosis - self.kurtosis_target) ** 2).mean()
         z_skew_loss = (z_skew ** 2).mean()

@@ -6,7 +6,13 @@ call_detailed / compute_loss / train_step / test_step / train_step_and_run``),
 with ``beta`` (the input-noise stddev) and the
 optimizer's learning rate mutable at run time. PyTorch runs eagerly, so
 neither needs a rebuild of anything. Parameters and Adam moments are updated
-in place. Device meshes and ZeRO-1 are not ported (ROADMAP queue 1 item 17).
+in place.
+
+On a mesh of ranks (``parallel/``: one process, one device each) the model
+trains data-parallel over the global batch, with ZeRO-1 moments
+(``training.zero1``) and tensor-parallel Dense layers on a model axis; the
+training methods take the global batch and keep this rank's rows, and
+``save_model`` gathers the state to global rank 0, which writes it.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import torch
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import AbstractCVAE
 from trustedai_cl_vae_ad_tpu_torch.ops.adam import Adam, make_optimizer
 from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8
+from trustedai_cl_vae_ad_tpu_torch.parallel import tp, zero
+from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 
 
 class VAEModel:
@@ -35,7 +43,11 @@ class VAEModel:
         #: draws the latent eps of training steps and encode's input noise
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
-        self.optimizer: Optional[Union[Adam, AdamFp8]] = None
+        self.optimizer: Optional[Union[Adam, AdamFp8, zero.Zero1]] = None
+        self.mesh: Optional[Mesh] = None
+        #: {state-dict key: the dim split over the model axis, or None}
+        self.tp_dims: dict = {}
+        self._train_step = self._eval_step = None
 
     @property
     def params(self) -> dict:
@@ -64,20 +76,86 @@ class VAEModel:
         """Re-dial Adam's learning rate; takes effect at the next step."""
         self._need_optimizer().learning_rate = float(lr)
 
-    def compile(self, learning_rate: Optional[float] = None, mesh=None, zero1=None) -> None:
+    def compile(self, learning_rate: Optional[float] = None, mesh: Optional[Mesh] = None,
+                zero1: Optional[bool] = None) -> None:
         """Attach the optimizer named by ``training.optimizer`` (``adam``,
         ``adam_lean`` or ``adam_fp8``; default: ``adam`` for float32
-        parameters, ``adam_lean`` for bfloat16)."""
-        if mesh is not None or zero1:
-            raise NotImplementedError(
-                "device meshes and ZeRO-1 are not ported yet (ROADMAP.md queue 1 item 17)")
+        parameters, ``adam_lean`` for bfloat16).
+
+        With ``mesh`` (a mesh of ranks, ``parallel.mesh.make_mesh``) the
+        parameters are broadcast from global rank 0, the big Dense layers
+        split over the model axis, and the train step runs data-parallel.
+        ``zero1`` (default: ``training.zero1``) shards the Adam moments over
+        the data axis, freeing (N-1)/N of the optimizer memory per rank."""
         training = self.config.get("training", {})
         if learning_rate is None:
             learning_rate = float(training["learning_rate"])
+        if mesh is not None:
+            self._join_mesh(mesh)
+        self.optimizer = self._make_optimizer(learning_rate, zero1)
+        self._build_steps()
+
+    def _make_optimizer(self, learning_rate: float, zero1: Optional[bool]):
+        training = self.config.get("training", {})
+        if zero1 is None:
+            zero1 = bool(training.get("zero1", False))
         named = dict(self.core.named_parameters())
-        self.optimizer = make_optimizer(
-            named, learning_rate, param_dtype=next(iter(named.values())).dtype,
-            name=training.get("optimizer"), generator=self.generator)
+        kwargs = dict(param_dtype=next(iter(named.values())).dtype,
+                      name=training.get("optimizer"), generator=self.generator)
+        if self.mesh is not None and zero1:
+            return zero.Zero1(named, learning_rate, self.mesh, tp_dims=self.tp_dims, **kwargs)
+        optimizer = make_optimizer(named, learning_rate, **kwargs)
+        if isinstance(optimizer, AdamFp8) and any(d is not None for d in self.tp_dims.values()):
+            raise NotImplementedError(zero.FP8_ITEM.format("Tensor parallelism"))
+        return optimizer
+
+    def _join_mesh(self, mesh: Mesh) -> None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), not {type(mesh)}")
+        if not mesh.distributed:
+            raise ValueError("training runs one process per device: initialize_distributed, "
+                             "then make_mesh over the ranks")
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the model's {self.device}")
+        if self.mesh is not None:
+            raise RuntimeError(f"the model is already on {self.mesh}")
+        # every rank starts from rank 0's weights
+        replicate(dict(self.core.named_parameters()), mesh)
+        self.mesh = mesh
+        self.tp_dims = tp.shard_model(self.core, mesh)
+
+    def _build_steps(self) -> None:
+        if self.mesh is None:
+            self._train_step = self._eval_step = None
+            return
+        from trustedai_cl_vae_ad_tpu_torch.parallel import dp
+
+        loss_chunks = int((self.config.get("training") or {}).get("loss_chunks", 0) or 0)
+        split = [self.tp_dims.get(k) is not None for k in self.optimizer.names]
+        self._train_step = dp.build_train_step(self.core, self.optimizer, self.mesh,
+                                               self.generator, split, loss_chunks=loss_chunks)
+        self._eval_step = dp.build_eval_step(self.core, self.mesh)
+
+    def place_on_mesh(self, mesh: Mesh) -> None:
+        """Move a compiled (e.g. restored) model onto a mesh of ranks keeping
+        its state: the parameters and the Adam moments, their step count and
+        learning rate (a fresh ``compile(mesh=...)`` would start Adam anew).
+        Honors ``training.zero1``: restored moments land in their shards. The
+        optimizer is rebuilt only where the moments' layout changes (ZeRO-1,
+        or a Dense layer split over the model axis)."""
+        state = self.optimizer.state_dict() if self.optimizer is not None else None
+        self._join_mesh(mesh)
+        if state is None:
+            return
+        zero1 = bool(self.config.get("training", {}).get("zero1", False))
+        if zero1 or any(d is not None for d in self.tp_dims.values()):
+            for kind in ("mu", "nu"):
+                state[kind] = {k: tp.shard_tensor(t, self.tp_dims.get(k), mesh)
+                               for k, t in state[kind].items()}
+            self.optimizer = self._make_optimizer(state["learning_rate"], zero1)
+            self.optimizer.load_state_dict(state)
+        del state
+        self._build_steps()
 
     # -- inference ----------------------------------------------------------------
     def _as_image_input(self, x) -> torch.Tensor:
@@ -91,9 +169,9 @@ class VAEModel:
     def encode(self, x, training: bool = False):
         """(mean, logvar); with ``training`` the input is fuzzed with
         N(0, beta) noise drawn from the model's generator."""
+        x = self._as_image_input(x)
         with torch.no_grad():
-            return self.core.encode(self._as_image_input(x), training=training,
-                                    generator=self.generator)
+            return self.core.encode(x, training=training, generator=self.generator)
 
     def _as_latent(self, z) -> torch.Tensor:
         return torch.as_tensor(z).to(self.device, torch.float32)
@@ -146,7 +224,18 @@ class VAEModel:
                                           return_inf=return_inf, eps=eps,
                                           generator=self.generator)
 
+    def _local_rows(self, *tensors):
+        """This rank's rows of each global-batch tensor, padded as
+        ``parallel.mesh.shard_batch`` pads (None passes through)."""
+        return tuple(None if t is None else shard_batch(torch.as_tensor(t).to(self.device),
+                                                        self.mesh)[0] for t in tensors)
+
     def test_step(self, x):
+        """The eval-mode loss dict; on a mesh that of the global batch x, from
+        this rank's rows of it."""
+        if self.mesh is not None:
+            (x,) = self._local_rows(self._as_image_input(x))
+            return self._eval_step(x)
         return self.compute_loss(x, training=False)
 
     # -- training -----------------------------------------------------------------
@@ -160,9 +249,15 @@ class VAEModel:
         tensors, without waiting for the device. ``eps`` injects the latent
         noise (B, latent); otherwise it is drawn from the model's generator.
         ``weights`` (B,) masks rows out of every batch statistic (the live
-        engine's padded replay buffer)."""
+        engine's padded replay buffer). On a mesh, x, eps and weights are
+        the global batch, padded as ``parallel.mesh.shard_batch`` pads, of
+        which this rank keeps its rows; the statistics are the global
+        batch's, and x_hat is this rank's rows."""
         optimizer = self._need_optimizer()
         x = self._as_image_input(x)
+        if self.mesh is not None:
+            x, eps, weights = self._local_rows(x, eps, weights)
+            return self._train_step(x, eps=eps, weights=weights)
         loss_dict, x_hat = self.core.compute_loss(x, training=True, return_inf=True, eps=eps,
                                                   generator=self.generator, weights=weights)
         grads = torch.autograd.grad(loss_dict["loss"], optimizer.params)
@@ -174,9 +269,16 @@ class VAEModel:
         """Write one checkpoint round. With ``saver`` (a
         ``train.checkpoint.AsyncSaver``) the call returns once the state is
         copied off the live tensors, and the files are written in the
-        background; the round commits at the saver's next ``wait``."""
+        background; the round commits at the saver's next ``wait``. On a
+        mesh every rank must call it: the state is gathered whole to global
+        rank 0 one tensor at a time and written there, synchronously (no
+        saver), in the files a single device writes."""
         from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import save_checkpoint
 
+        if self.mesh is not None:
+            params, opt_state = self._gathered_state(include_optimizer)
+            save_checkpoint(log_dir, params, opt_state=opt_state, mesh=self.mesh)
+            return
         opt_state = None
         if include_optimizer and self.optimizer is not None:
             opt_state = self.optimizer.state_dict()
@@ -184,6 +286,32 @@ class VAEModel:
             saver.save(log_dir, self.params, opt_state=opt_state)
         else:
             save_checkpoint(log_dir, self.params, opt_state=opt_state)
+
+    def _gathered_state(self, include_optimizer: bool):
+        """(params, optimizer state) whole, on the host of global rank 0 ({}
+        and None elsewhere), gathered one tensor at a time: a ZeRO-1 moment
+        over the data axis, a tensor-parallel block over the model axis."""
+        keep = self.mesh.is_primary
+
+        def host(t, name):
+            t = tp.full_tensor(t, self.tp_dims.get(name), self.mesh)
+            return t.detach().to("cpu") if keep else None
+
+        params = {k: host(t, k) for k, t in self.core.state_dict().items()}
+        opt_state = None
+        if include_optimizer and self.optimizer is not None:
+            opt_state = {"count": self.optimizer.count,
+                         "learning_rate": self.optimizer.learning_rate}
+            for kind in ("mu", "nu"):
+                moments = {}
+                for k in self.optimizer.names:
+                    t = self.optimizer.full_moment(kind, k)
+                    moments[k] = ({f: host(v, None) for f, v in t.items()}
+                                  if isinstance(t, dict) else host(t, k))
+                opt_state[kind] = moments
+        if not keep:
+            return {}, None
+        return params, opt_state
 
     def load_model(self, model_path: str, restore_optimizer: Optional[bool] = None) -> None:
         """Restore the weights, and the optimizer state if present (the Adam

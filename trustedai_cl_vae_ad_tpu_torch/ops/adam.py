@@ -30,20 +30,27 @@ rebuild.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 
-def stochastic_round_bf16(x32: torch.Tensor, generator: Optional[torch.Generator] = None
+def stochastic_round_bf16(x32: torch.Tensor, generator: Optional[torch.Generator] = None,
+                          region: Optional[Tuple[Tuple[int, ...], int, int]] = None
                           ) -> torch.Tensor:
     """float32 -> bfloat16 with stochastic rounding: add uniform random bits
     below the bfloat16 mantissa boundary, then truncate to the high 16 bits.
     Unbiased: a value between two bfloat16 neighbours rounds up with a
-    probability equal to its distance from the lower one."""
+    probability equal to its distance from the lower one. ``region`` (full
+    shape, dim, start): ``x32`` is the block of a larger tensor that starts
+    there along that dim, and takes the bits the whole tensor's draw gives it
+    (a ZeRO-1 shard, ``parallel/zero.py``)."""
     bits = x32.contiguous().view(torch.int32)
-    noise = torch.randint(0, 1 << 16, bits.shape, dtype=torch.int32, device=bits.device,
+    shape = bits.shape if region is None else region[0]
+    noise = torch.randint(0, 1 << 16, shape, dtype=torch.int32, device=bits.device,
                           generator=generator)
+    if region is not None:
+        noise = noise.narrow(region[1], region[2], bits.shape[region[1]])
     dithered = (bits + noise) & -65536  # wraps like uint32; keep the high half
     return dithered.view(torch.float32).to(torch.bfloat16)
 
@@ -82,6 +89,8 @@ class Adam:
         self.params: List[torch.Tensor] = [params[k] for k in self.names]
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=nu_dtype or p.dtype) for p in self.params]
+        #: per parameter, None or the ``stochastic_round_bf16`` region it is a block of
+        self.regions: List[Optional[tuple]] = [None] * len(self.params)
 
     @torch.no_grad()
     def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
@@ -97,10 +106,10 @@ class Adam:
         # optax computes decay**count in float32
         c1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** self.count
         c2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** self.count
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            self._update_one(p, g, mu, nu, c1, c2)
+        for p, g, mu, nu, region in zip(self.params, grads, self.mu, self.nu, self.regions):
+            self._update_one(p, g, mu, nu, c1, c2, region)
 
-    def _update_one(self, p, g, mu, nu, c1, c2) -> None:
+    def _update_one(self, p, g, mu, nu, c1, c2, region=None) -> None:
         b1, b2 = self.b1, self.b2
         # mu's EMA in the gradient's dtype (mu widens to it where it is wider)
         m = g * self._omb1
@@ -124,7 +133,7 @@ class Adam:
         del update
         mu.copy_(m)
         if self.stochastic_round_nu and nu.dtype == torch.bfloat16 and v.dtype == torch.float32:
-            nu.copy_(stochastic_round_bf16(v, self.generator))
+            nu.copy_(stochastic_round_bf16(v, self.generator, region))
         else:
             nu.copy_(v)
 
@@ -138,6 +147,11 @@ class Adam:
         return {"count": int(self.count), "learning_rate": float(self.learning_rate),
                 "mu": dict(zip(self.names, self.mu)),
                 "nu": dict(zip(self.names, self.nu))}
+
+    def full_moment(self, kind: str, name: str) -> torch.Tensor:
+        """One moment ('mu' or 'nu') of one parameter in the full layout: the
+        live tensor (``parallel.zero.Zero1`` gathers its blocks)."""
+        return getattr(self, kind)[self.names.index(name)]
 
     def load_state_dict(self, state: dict) -> None:
         """Restore the moments, the step count and, where the state holds

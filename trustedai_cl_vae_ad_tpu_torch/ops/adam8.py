@@ -305,12 +305,15 @@ class AdamFp8:
     def state_dict(self) -> dict:
         """{'count', 'learning_rate', 'mu': {name: tensor or {'q', 'scale',
         'scale_next'}}, 'nu': ...} (the live tensors, not copies)."""
-        def entries(moments):
-            return {n: m._asdict() if isinstance(m, QLeaf) else m
-                    for n, m in zip(self.names, moments)}
-
         return {"count": int(self.count), "learning_rate": float(self.learning_rate),
-                "mu": entries(self.mu), "nu": entries(self.nu)}
+                **{kind: {n: self.full_moment(kind, n) for n in self.names}
+                   for kind in ("mu", "nu")}}
+
+    def full_moment(self, kind: str, name: str):
+        """One moment ('mu' or 'nu') of one parameter, live: a tensor, or
+        {'q', 'scale', 'scale_next'} for a quantized leaf."""
+        m = getattr(self, kind)[self.names.index(name)]
+        return m._asdict() if isinstance(m, QLeaf) else m
 
     def load_state_dict(self, state: dict) -> None:
         """Restore the moments, the step count and, where the state holds

@@ -30,7 +30,7 @@ fleet:
     ``labels.json`` per camera, one model snapshot for the fleet;
   * autosave into ``model_cache_dir`` on the single-stream engine's schedule.
 
-A device mesh is not ported (ROADMAP queue 1 item 17).
+A device mesh is not ported (ROADMAP queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -64,7 +64,8 @@ from trustedai_cl_vae_ad_tpu_torch.stream.engine import (
 )
 from trustedai_cl_vae_ad_tpu_torch.utils.profiling import defer_signals
 
-_MESH_ITEM = "device meshes are not ported yet (ROADMAP.md queue 1 item 17)"
+_MESH_ITEM = ("the multi-camera engine on a device mesh is not ported yet "
+              "(ROADMAP.md queue 1 item 19)")
 
 
 @dataclass

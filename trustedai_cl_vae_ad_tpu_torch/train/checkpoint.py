@@ -257,21 +257,40 @@ def _write_payload(obj: Dict[str, torch.Tensor], staging: str, sub: str) -> None
 
 
 def save_checkpoint(logdir: str, params: Dict[str, torch.Tensor],
-                    opt_state: Optional[dict] = None) -> None:
+                    opt_state: Optional[dict] = None, mesh=None) -> int:
     """Write one crash-atomic round into ``logdir``: the weights (and the
     optimizer state, when given) are staged under ``rounds/.tmp-N``, one
     subtree on the host at a time, then committed. A kill at any point keeps
-    the previous complete round."""
-    trees = _subtrees(params, opt_state)
+    the previous complete round. Returns the round number N.
+
+    On a mesh of ranks (``parallel/``) every rank calls it: global rank 0
+    stages, writes and commits the round with the whole state it was given
+    (the others' arguments are not read); the round number is broadcast, and
+    every rank returns once the round is committed. The files are those a
+    single device writes."""
+    import torch.distributed as dist
+
+    distributed = mesh is not None and mesh.distributed
     logdir = os.path.abspath(logdir)
-    os.makedirs(logdir, exist_ok=True)
-    tmp_path, n = _stage_round(logdir)
-    for i, (sub, tensors) in enumerate(trees.items()):
-        _write_payload(_to_host(tensors), tmp_path, sub)
-        if i == 0:
-            _test_pause("between_subtrees")
-    _test_pause("before_commit")
-    _commit_round(logdir, tmp_path, n)
+    n = 0
+    if not distributed or mesh.is_primary:
+        trees = _subtrees(params, opt_state)
+        os.makedirs(logdir, exist_ok=True)
+        tmp_path, n = _stage_round(logdir)
+    if distributed:
+        box = [n]
+        dist.broadcast_object_list(box, src=0)
+        n = box[0]
+    if not distributed or mesh.is_primary:
+        for i, (sub, tensors) in enumerate(trees.items()):
+            _write_payload(_to_host(tensors), tmp_path, sub)
+            if i == 0:
+                _test_pause("between_subtrees")
+        _test_pause("before_commit")
+        _commit_round(logdir, tmp_path, n)
+    if distributed:
+        dist.barrier()
+    return n
 
 
 class AsyncSaver:

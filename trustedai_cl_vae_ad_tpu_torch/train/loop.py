@@ -7,6 +7,13 @@ a batch boundary, periodic checkpoints (written in the background with
 ``training.async_checkpoint``) and the final one, and the training-progress
 sidecar that ``--resume`` reads; then the post-training figures
 (``evaluate``).
+
+In a process group (``parallel/mesh.py::initialize_distributed``) every
+rank trains on one (data, model) mesh: each loads the same batches (the
+loaders are seeded) and the model keeps its rows of each, so the
+config's ``batch_size`` is the global batch and an R-rank run takes the
+steps of a 1-rank run. Global rank 0 alone writes ``metrics.jsonl`` and
+``train_state.json``; the checkpoint is gathered to it.
 """
 
 from __future__ import annotations
@@ -22,7 +29,18 @@ import numpy as np
 
 from trustedai_cl_vae_ad_tpu_torch.data.loader import host_images, iter_images
 from trustedai_cl_vae_ad_tpu_torch.models.wrapper import VAEModel
+from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import is_distributed, make_mesh
 from trustedai_cl_vae_ad_tpu_torch.utils.metrics import MetricsWriter
+
+
+class _NullWriter:
+    """Metrics sink of the ranks that do not write."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
 
 
 class BetaAnnealing:
@@ -120,6 +138,7 @@ def train_model(
     beta_annealing: Optional[BetaAnnealing] = None,
     max_epochs: Optional[int] = None,
     log_every: int = 50,
+    parallel: bool = True,
     initial_epoch: int = 0,
     initial_step: int = 0,
 ) -> VAEModel:
@@ -127,24 +146,37 @@ def train_model(
 
     ``initial_epoch`` / ``initial_step`` continue a resumed run:
     ``max_epochs`` stays the TOTAL target, so a run resumed after k epochs
-    trains ``max_epochs - k`` more.
+    trains ``max_epochs - k`` more. With ``parallel`` in a process group the
+    model trains on a mesh of all ranks (one process per device:
+    ``train_torch.py`` starts a worker per card).
     """
     logdir = config.get("logdir", ".")
     training = config.get("training") or {}
     epochs = int(max_epochs if max_epochs is not None else training["max_epochs"])
     if beta_annealing is None:
         beta_annealing = BetaAnnealing()
+    mesh = None
+    if parallel and is_distributed():
+        mesh = make_mesh(devices=[model.device])
+    if model.optimizer is None:
+        model.compile(mesh=mesh)
+    elif mesh is not None and model.mesh is None:
+        # a restored model joining the mesh keeps its moments
+        model.place_on_mesh(mesh)
+    on_mesh = model.mesh is not None
+    primary = not on_mesh or model.mesh.is_primary
     owns_writer = writer is None
     if writer is None:
-        writer = MetricsWriter(logdir)
-    if model.optimizer is None:
-        model.compile()
+        writer = MetricsWriter(logdir) if primary else _NullWriter()
     # training.async_checkpoint (opt-in): a periodic save returns once the
     # state is copied off the live tensors and the files are written by a
     # background thread, so the loop goes on training. The sidecar becomes a
     # commit callback: it still lands only after the weights do.
     async_saver = None
-    if training.get("async_checkpoint"):
+    if training.get("async_checkpoint") and on_mesh:
+        print("WARNING: training.async_checkpoint ignored on multi-process runs "
+              "(the state is gathered to rank 0 and saved synchronously)")
+    elif training.get("async_checkpoint"):
         from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import AsyncSaver
 
         async_saver = AsyncSaver()
@@ -216,7 +248,8 @@ def train_model(
                         save_train_state(logdir, e, s, b))
                 else:
                     model.save_model(logdir)
-                    save_train_state(logdir, progress[0], step, progress[1])
+                    if primary:
+                        save_train_state(logdir, progress[0], step, progress[1])
             if stop["n"]:  # the signal landed during validation or a save
                 raise KeyboardInterrupt
     except KeyboardInterrupt:
@@ -240,7 +273,8 @@ def train_model(
                     print(f"WARNING: async periodic checkpoint failed ({e}); "
                           "writing a final synchronous save")
             model.save_model(logdir)
-            save_train_state(logdir, progress[0], step, progress[1])
+            if primary:
+                save_train_state(logdir, progress[0], step, progress[1])
         finally:
             if async_saver is not None:
                 try:
