@@ -20,8 +20,10 @@ then never reach the device. The model comes from a log directory that
 moments are restored too), or is built from a config with seeded random
 weights (``--config``). ``--max-rss-mb`` saves the CL state and exits 3 for a
 supervisor restart when the host's memory passes the limit;
-``--combine-datasets`` merges recordings and exits. A device mesh
-(``camera_streamer.py --mesh``) is not ported.
+``--combine-datasets`` merges recordings and exits. ``--mesh`` with
+``--all-cameras`` splits the streams over every local CUDA device (the
+device named by ``--device`` alone when it is not a CUDA device), in blocks
+of K/D.
 
 Usage:
   python camera_streamer_torch.py --config configs/config.yml --source synthetic --max-frames 64
@@ -32,6 +34,8 @@ Usage:
   python camera_streamer_torch.py cam_config.yml --config configs/config.yml --device cuda
   python camera_streamer_torch.py --config configs/config.yml --all-cameras --n-streams 16 \
       --quantize --source synthetic --max-frames 64 --stats-jsonl ticks.jsonl
+  python camera_streamer_torch.py --config configs/config.yml --all-cameras --n-streams 16 \
+      --mesh -c --source synthetic --max-frames 64
   python camera_streamer_torch.py --combine-datasets rec/data_A rec/data_B --combine-dest merged
 """
 
@@ -41,6 +45,7 @@ import os
 
 import torch
 
+from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import make_mesh
 from trustedai_cl_vae_ad_tpu_torch.stream.capture import make_source
 from trustedai_cl_vae_ad_tpu_torch.stream.engine import combine_datasets
 from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
@@ -121,6 +126,10 @@ def get_args(argv=None):
                         help="Shrink frames on the host before upload")
     parser.add_argument("--pipelined", action="store_true",
                         help="One-frame-lag pipelining: overlap fetch with compute")
+    parser.add_argument("--mesh", action="store_true",
+                        help="With --all-cameras on a multi-chip host: shard "
+                             "the K streams over all local devices (stream "
+                             "count must divide the device count)")
     parser.add_argument("--warmup", nargs="?", const="native", default=None, metavar="HxW",
                         help="Build the kernels and run the dispatch (and with -c the "
                              "CL step's loss and backward) once before the "
@@ -149,9 +158,16 @@ def main_all_cameras(args, model, config, qparams, metrics, stop):
     """Every camera of the list (or --n-streams synthetic ones) in one batched
     tick, with fleet CL, recording and autosave; returns the run's summary."""
     anomaly_settings, specs, names, fps_list = resolve_cameras(args.cam_config, args.n_streams)
+    mesh = None
+    if args.mesh:
+        device = torch.device(args.device)
+        mesh = make_mesh(devices=None if device.type == "cuda" else [device])
+        print(f"mesh: {len(mesh.devices)} devices, {len(specs) // len(mesh.devices)} "
+              "streams each")
     engine = MultiCameraEngine(model, config, n_streams=len(specs),
                                anomaly_settings=anomaly_settings, quantize=args.quantize,
-                               pipelined=args.pipelined, qparams=qparams, metrics=metrics,
+                               pipelined=args.pipelined, mesh=mesh, qparams=qparams,
+                               metrics=metrics,
                                model_cache_dir=args.model_cache_dir,
                                autosave_period_s=args.autosave_period_s,
                                async_autosave=args.async_autosave)

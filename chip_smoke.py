@@ -8,8 +8,9 @@ dense-kernel update probes, the convolution weight-gradient kernel with its prob
 crash-atomic checkpoints, and the live application's autosave, recording and fleet
 continual learning, and the scoring surfaces (the HTTP server and the offline
 two-pass CLI), JAX-written log directories and the COCO-JSON data path, the dataset
-builders and adam_fp8, and parallel/ (data parallelism, ZeRO-1, a model axis); any
-failure raises and the script exits non-zero without printing its final line.
+builders and adam_fp8, parallel/ (data parallelism, ZeRO-1, a model axis), and the
+multi-camera engine on a device mesh with adam_fp8 on one; any failure raises and the
+script exits non-zero without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
   (b) build: nvcc builds the stream-scorer (one block a frame and one
@@ -291,6 +292,23 @@ failure raises and the script exits non-zero without printing its final line.
       1 step: the encoder Dense's blocks (2000, 268800) on each rank, the loss within 1e-4.
       (z4) get_data_scale over an explicit one-device mesh, 256 frames, float and w8a8 (kernel
       10 twice under the mesh), equal to the no-mesh pass.
+  (zm) the multi-camera engine on a device mesh and adam_fp8 on one. (zm1) the flagship fleet
+      engine, 16 synthetic 240x320 cameras (the last dropping every 4th tick), 32 ticks float
+      and 32 w8a8 with no mesh, make_mesh(devices=[dev]) and make_mesh(devices=[dev, dev]),
+      from testing.py's warm scorer state: scores against no mesh's by testing.py's rule
+      (float rtol 1e-5, w8a8 W8A8_EPS_RTOL), kernel 1 launched once a block a tick and kernel
+      10 twice a block a w8a8 tick, all mma; tick p50 / p95 and, over 8 more ticks under
+      torch.profiler, the device's busy ms a tick. (zm2) kernel 1 at a block's K = 8 and
+      kernel 10 at M = 8 against their plain versions. (zm3) fleet CL, K = 16, a ring of 4
+      ticks, 2 steps over the two-entry mesh against no mesh from the same seed: the losses
+      within 1e-6, the 2-step update within 0.05 (update_gap). (zm4) two processes of this
+      script (--worker --job zm) on the one card by gloo: on identical injected gradients each
+      rank's blocks of the flagship Dense weights' q, scale, scale_next and parameter after 2
+      adam_fp8 steps equal one process's bits, ZeRO-1 and (data 1, model 2); then the
+      flagship bfloat16 with adam_fp8, 2 steps of one seeded 256-frame batch with ZeRO-1 and
+      on (data 1, model 2), under cudnn.deterministic as the one process it is held against:
+      the losses within 1e-6, the 2-step update within ZM_FP8_UPDATE_GAP, the float8 codes of
+      the split leaves halved a rank; ms a step and max_memory_allocated a rank.
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -4834,15 +4852,7 @@ def phase_z23(dev):
     # every rank's steps against one process's: the losses (on the H100 the second step's
     # update moves the loss by 3.3e-5 relative and the ranks read within 2.7e-7 of one
     # process: 1e-6 lies between), and each parameter's update from the common start, on a
-    # strided sample:
-    # |d - d_one| / |d_one| <= 0.05 (a skipped or wrong update gives about 1; Adam's early
-    # steps are +-lr, so rounding moves it only where a gradient's sign flips)
-    def update_gap(got, ref, start):
-        d = np.asarray(got) - np.asarray(start)
-        d_one = np.asarray(ref) - np.asarray(start)
-        norm = float(np.linalg.norm(d_one))
-        return float(np.linalg.norm(d - d_one)) / norm if norm else float(np.linalg.norm(d))
-
+    # strided sample, within 0.05 (update_gap)
     checks = {}
     for part in ("z2", "z3"):
         for rank, r in enumerate(ranks):
@@ -4974,13 +4984,553 @@ def phase_z(dev):
     return {"z1": phase_z1(dev), "z23": phase_z23(dev), "z4": phase_z4(dev)}
 
 
+ZM_STREAMS, ZM_TICKS, ZM_TRACED = 16, 32, 8
+ZM_CL_RING, ZM_CL_PERIOD_MS = 4, 1000.0
+# the replayed clock of the fleet CL runs: the ring fills in 4 ticks, then a step fires at the
+# 4th tick and at the 8th
+ZM_CL_NOW = (0.1, 0.2, 0.3, 1.05, 1.1, 1.2, 1.3, 2.1)
+ZM_FP8_STEPS = 2
+ZM_FP8_UPDATE_GAP = 0.25  # the bfloat16 2-step update against one process's (zm_fp8_ranks)
+ZM_DENSE = {"decoder.layers.Dense_0.weight": (134400, 2000),
+            "encoder.layers.Dense_0.weight": (4000, 268800)}
+
+
+def zm_ticks(n_ticks):
+    """n_ticks ticks of ZM_STREAMS synthetic 240x320 cameras (the device resize runs), read
+    once, so that every run takes the same frames: the last camera drops every
+    DROP_EVERY-th tick."""
+    readers = fleet_readers(ZM_STREAMS, n_ticks)
+    ticks = [[r.read() for r in readers] for _ in range(n_ticks)]
+    for r in readers:
+        r.release()
+    return ticks
+
+
+def zm_tick_run(model, config, settings, mesh, quantize, ticks):
+    """The flagship fleet engine over ``mesh`` (None: no mesh), from a warm scorer state:
+    ZM_TICKS ticks, counted, then ZM_TRACED more under torch.profiler for the device time.
+    Returns each tick's (score, count) per stream, the tick latencies and the launches."""
+    import numpy as np
+    import torch
+
+    from profile_stream_torch import analyze_trace
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
+    from trustedai_cl_vae_ad_tpu_torch.testing import warm_score_state
+
+    engine = MultiCameraEngine(model, config, n_streams=ZM_STREAMS, anomaly_settings=settings,
+                               quantize=quantize, mesh=mesh)
+    engine.warmup(frame_shape=(240, 320, 3))
+    maps, scalars = warm_score_state(engine.height, engine.width)
+    engine.maps = torch.from_numpy(np.stack([maps] * ZM_STREAMS)).to(engine.device)
+    engine.scalars = torch.from_numpy(np.stack([scalars] * ZM_STREAMS)).to(engine.device)
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    torch.cuda.synchronize()
+    results, lat = [], []
+    for i, tick in enumerate(ticks):
+        t0 = time.perf_counter()
+        out = engine.process_frames(tick, now=i / 20.0)  # the score fetch waits for the device
+        lat.append((time.perf_counter() - t0) * 1e3)
+        results.append([None if r is None else (r.score, r.pixel_count) for r in out])
+    launches = launch_counts(stream_score, moments, int8_gemm)
+    trace = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_zm_"), "trace.json")
+    try:
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            for i, tick in enumerate(ticks[:ZM_TRACED]):
+                with torch.profiler.record_function("tick"):
+                    engine.process_frames(tick, now=(len(ticks) + i) / 20.0)
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            traced = analyze_trace(json.load(f)["traceEvents"], ZM_TRACED, "tick")
+    finally:
+        shutil.rmtree(os.path.dirname(trace), ignore_errors=True)
+    blocks = len(engine.block_devices)
+    del engine
+    torch.cuda.empty_cache()
+    kept = sorted(lat[2:])
+    return {"results": results, "blocks": blocks, "launches": launches,
+            "p50_ms": kept[len(kept) // 2], "p95_ms": kept[int(0.95 * (len(kept) - 1))],
+            "device_ms": traced["device_busy_ms_per_frame"],
+            "device_sum_ms": traced["device_sum_ms_per_frame"],
+            "idle_share": traced["idle_share"]}
+
+
+def zm_compare(got, ref, rtol):
+    """testing.py's rule over each stream's ticks: counts within COUNT_TOL, scores at ``rtol``
+    (NaN alike) while the stream's counts agree, stopping at its first differing count.
+    Returns the number of scores compared."""
+    import math
+
+    from trustedai_cl_vae_ad_tpu_torch.testing import COUNT_TOL
+
+    compared = 0
+    for i in range(ZM_STREAMS):
+        agreed = True
+        for t, (g, r) in enumerate(zip(got, ref)):
+            assert (g[i] is None) == (r[i] is None), (t, i)
+            if g[i] is None:
+                continue
+            (gs, gc), (rs, rc) = g[i], r[i]
+            assert abs(gc - rc) <= COUNT_TOL, (t, i, gc, rc)
+            agreed = agreed and gc == rc
+            if not agreed:
+                continue
+            assert math.isnan(gs) == math.isnan(rs), (t, i, gs, rs)
+            if not math.isnan(rs):
+                assert abs(gs - rs) <= rtol * abs(rs), (t, i, gs, rs)
+                compared += 1
+    return compared
+
+
+def zm_kernels_at_the_blocks(dev):
+    """Kernels 1 and 10 at the shapes a block of a two-entry mesh gives them, against their
+    plain versions: the batched scorer at K = ZM_STREAMS / 2 frames (4 ticks with a dropped
+    frame, from the warm state), the int8 products at M = ZM_STREAMS / 2 rows."""
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm as ig
+    from trustedai_cl_vae_ad_tpu_torch.ops import stream_score as ss
+    from trustedai_cl_vae_ad_tpu_torch.ops.quant import _I32_SAFE_K
+    from trustedai_cl_vae_ad_tpu_torch.testing import compare_sequences, warm_score_state
+
+    k, (h, w, c) = ZM_STREAMS // 2, SEQ_SHAPES[0]
+    gen = torch.Generator(device=dev).manual_seed(31)
+    imgs = torch.rand((4, k, h, w, c), device=dev, generator=gen)
+    recs = (imgs + 0.05 * torch.randn(imgs.shape, device=dev, generator=gen)).clamp(0, 1)
+    valid = torch.ones((4, k), dtype=torch.bool, device=dev)
+    valid[2, 3] = False
+    maps0, scalars0 = (torch.from_numpy(np.stack([a] * k)).to(dev)
+                       for a in warm_score_state(h, w))
+    runs = {}
+    for name, fn in (("kernel", ss.stream_score_step_batched),
+                     ("plain", ss.stream_score_step_batched_reference)):
+        maps, scalars, outs = maps0, scalars0, []
+        for t in range(4):
+            maps, scalars, norm, sc = fn(maps, scalars, imgs[t], recs[t], ALPHA, valid[t])
+            outs.append((maps.cpu().numpy(), scalars.cpu().numpy(), norm.cpu().numpy(),
+                         sc.cpu().numpy()))
+        runs[name] = outs
+    scorer_err = 0.0
+    for i in range(k):
+        def stream(outs):
+            return [(o[0][i], o[1][i], o[2][i], float(o[3][i, 0]), float(o[3][i, 1]))
+                    for o in outs]
+        scorer_err = max(scorer_err, compare_sequences(stream(runs["kernel"]),
+                                                       stream(runs["plain"]), f"block stream {i}"))
+    shapes = []
+    for kk, n in ((268800, 4000), (2000, 134400)):
+        x = torch.randint(-127, 128, (k, kk), device=dev, generator=gen,
+                          dtype=torch.int32).to(torch.int8)
+        wt = torch.randint(-127, 128, (n, kk), device=dev, generator=gen,
+                           dtype=torch.int32).to(torch.int8)
+        assert ig.int8_gemm_arrangement(x, wt, 0, kk, _I32_SAFE_K) == "mma"
+        got = ig.int8_gemm_chunked(x, wt, _I32_SAFE_K)
+        ref = ig.int8_gemm_chunked_reference(x, wt, _I32_SAFE_K)
+        assert torch.equal(got, ref), (kk, n)
+        shapes.append((k, kk, n))
+    log(f"  kernel 1 at a block's K = {k} (224x300x3, 4 ticks, one frame dropped) against its "
+        f"plain version: max_abs_err {scorer_err:.3g}; kernel 10 at (M, K, N) {shapes}: equal "
+        f"to the plain int8 products")
+
+
+def zm_fleet_cl(dev, config, settings, ticks):
+    """Fleet CL at the flagship over the two-entry mesh against no mesh: K = ZM_STREAMS, a
+    ring of ZM_CL_RING ticks, 8 ticks with a step at the 4th and the 8th, each from a fresh
+    model of seed 0 (the same weights and generator, so the same latent noise). Returns the
+    losses, the strided parameter samples before and after, each step's ms and the peak."""
+    import gc
+
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import make_mesh
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config_path
+    from trustedai_cl_vae_ad_tpu_torch.stream.multicam import MultiCameraEngine
+
+    runs, initial = {}, None
+    for name, mesh in (("none", None), ("two", make_mesh(devices=[dev, dev]))):
+        model, _ = load_model_from_config_path(os.path.join(REPO, "configs", "config.yml"),
+                                               seed=0, device=dev)
+        if initial is None:
+            initial = param_samples(model)
+        engine = MultiCameraEngine(model, config, n_streams=ZM_STREAMS, anomaly_settings=settings,
+                                   cl_ring_ticks=ZM_CL_RING,
+                                   continuous_learning_period_ms=ZM_CL_PERIOD_MS, mesh=mesh)
+        engine.enable_cont_learning = True
+        steps, do_step = [], engine._do_cl_step
+
+        def timed_step(do_step=do_step, steps=steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = do_step()  # its loss fetch waits for the device
+            steps.append(((time.perf_counter() - t0) * 1e3, loss))
+            return loss
+
+        engine._do_cl_step = timed_step
+        reset_launch_counts(stream_score, moments, int8_gemm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for tick, now in zip(ticks, ZM_CL_NOW):
+            engine.process_frames(tick, now=now)
+        torch.cuda.synchronize()
+        assert engine.cl_epochs == len(steps) == 2, steps
+        runs[name] = {"losses": [loss["loss"] for _ms, loss in steps],
+                      "step_ms": [ms for ms, _loss in steps],
+                      "peak": torch.cuda.max_memory_allocated(),
+                      "launches": launch_counts(stream_score, moments, int8_gemm),
+                      "samples": param_samples(model)}
+        # timed_step holds the engine (and its model and moments) through do_step
+        del engine, model, steps, do_step, timed_step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs, initial
+
+
+def update_gap(got, ref, start):
+    """|d - d_one| / |d_one| of a parameter's update from ``start`` on a strided sample (a
+    skipped or wrong update gives about 1; Adam's early steps are +-lr, so rounding moves it
+    only where a gradient's sign flips)."""
+    import numpy as np
+
+    d = np.asarray(got) - np.asarray(start)
+    d_one = np.asarray(ref) - np.asarray(start)
+    norm = float(np.linalg.norm(d_one))
+    return float(np.linalg.norm(d - d_one)) / norm if norm else float(np.linalg.norm(d))
+
+
+def fp8_flagship():
+    """The flagship in bfloat16 with training.optimizer adam_fp8."""
+    from trustedai_cl_vae_ad_tpu_torch.train.bench_step import flagship_config
+
+    config = flagship_config()
+    config["training"].update(precision="bfloat16", optimizer="adam_fp8")
+    return config
+
+
+def fp8_leaf_bytes(optimizer):
+    """{parameter: {"fp8": bytes of its moments' float8 codes, "other": the rest}} on this
+    rank (a ZeRO-1 optimizer's blocks)."""
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import QLeaf
+
+    inner = getattr(optimizer, "inner", optimizer)
+    out = {}
+    for name, mu, nu in zip(inner.names, inner.mu, inner.nu):
+        fp8 = other = 0
+        for m in (mu, nu):
+            if isinstance(m, QLeaf):
+                fp8 += m.q.numel()
+                other += sum(t.numel() * t.element_size() for t in (m.scale, m.scale_next))
+            else:
+                other += m.numel() * m.element_size()
+        out[name] = {"fp8": fp8, "other": other}
+    return out
+
+
+def fp8_sharded_bits(dev, world):
+    """On identical injected gradients (drawn alike on every rank), the flagship's two Dense
+    weights in bfloat16, ZM_FP8_STEPS steps of adam_fp8 through ZeRO-1 over (data world) and
+    through a (data 1, model world) mesh: whether this rank's blocks of q, scale, scale_next
+    and the parameter equal the same blocks of one process's AdamFp8 steps on the whole
+    leaf (every rank of the pair takes part: the collectives)."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam import make_optimizer
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8, map_moment
+    from trustedai_cl_vae_ad_tpu_torch.parallel import tp, zero
+    from trustedai_cl_vae_ad_tpu_torch.parallel.collectives import rank_slice
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import make_mesh
+
+    meshes = {"zero1": make_mesh(world, 1, devices=[dev]), "model": make_mesh(1, world, devices=[dev])}
+    out = {part: {} for part in meshes}
+    for name, shape in ZM_DENSE.items():
+        gen = torch.Generator(device=dev).manual_seed(11)
+        w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        grads = [(torch.randn(shape, generator=gen, device=dev) * 1e-3
+                  * (1 + 99 * (i == 1))).to(torch.bfloat16) for i in range(ZM_FP8_STEPS)]
+        whole = {name: w.clone()}
+        ref = AdamFp8(whole, 1e-3)
+        for g in grads:
+            ref.step([g])
+        for part, mesh in meshes.items():
+            tp_dims = tp.param_shardings({name: w}, mesh)
+            local = {name: tp.shard_tensor(w, tp_dims[name], mesh).clone()}
+            if part == "zero1":
+                opt = zero.Zero1(local, 1e-3, mesh, name="adam_fp8", tp_dims=tp_dims)
+                inner, dim, group = opt.inner, opt.dims[name], mesh.data_group
+                block = whole[name]  # the updated blocks are gathered into every rank's whole
+            else:
+                opt = make_optimizer(local, 1e-3, name="adam_fp8",
+                                     regions=zero.block_regions(local, mesh, tp_dims))
+                inner, dim, group = opt, tp_dims[name], mesh.model_group
+                block = rank_slice(whole[name], dim, group)
+            assert dim is not None, (part, name)
+            for g in grads:
+                opt.step([tp.shard_tensor(g, tp_dims[name], mesh)])
+            same = torch.equal(local[name], block)
+            for kind in ("mu", "nu"):
+                mine = inner.full_moment(kind, name)
+                want = map_moment(ref.full_moment(kind, name), name, dim,
+                                  lambda t, d: t if d is None else rank_slice(t, d, group))
+                same = same and all(torch.equal(mine[f], want[f]) for f in want)
+            out[part][name] = same
+            del opt, inner, local, block
+        del w, grads, whole, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def zm_worker(rank, world, store, out):
+    """One of phase (zm)'s two ranks on the one card: the injected-gradient bits, then the
+    flagship's bfloat16 adam_fp8 steps with ZeRO-1 and on a model axis; writes its figures
+    as JSON to ``out``."""
+    import gc
+
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import (
+        distributed_teardown,
+        initialize_distributed,
+        make_mesh,
+    )
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config, use_full_float32
+
+    use_full_float32()  # as in the process it is held against
+    torch.backends.cudnn.deterministic = True  # as there (zm_fp8_ranks says why)
+    dev = torch.device("cuda", 0)
+    initialize_distributed(f"file://{store}", world, rank, backend="gloo", device=dev)
+    result = {"bits": fp8_sharded_bits(dev, world)}
+    config = fp8_flagship()
+    x = seeded_frames(dev, config)
+    for part, shape, zero1 in (("zero1", (world, 1), True), ("model", (1, world), False)):
+        model = load_model_from_config(config, seed=0, device=dev)
+        model.compile(mesh=make_mesh(*shape, devices=[dev]), zero1=zero1)
+        reset_launch_counts(stream_score, moments, int8_gemm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = timed_steps(model, x, ZM_FP8_STEPS)
+        opt = model.optimizer
+        result[part] = {
+            "losses": losses, "ms": ms, "peak": torch.cuda.max_memory_allocated(),
+            "optimizer": type(opt).__name__, "bytes": fp8_leaf_bytes(opt),
+            "zero1_dims": dict(opt.sharded()) if zero1 else {},
+            "tp_dims": {k: d for k, d in model.tp_dims.items() if d is not None},
+            "samples": param_samples(model),
+            "launches": launch_counts(stream_score, moments, int8_gemm)}
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    distributed_teardown()
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def zm_fp8_ranks(dev):
+    """adam_fp8 on two gloo ranks of the one card against one process: the flagship in
+    bfloat16, ZM_FP8_STEPS steps of one seeded 256-frame batch with ZeRO-1 (data 2) and on a
+    (data 1, model 2) mesh, through the (z2)/(z3) worker harness."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+
+    config = fp8_flagship()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    # cuDNN's default algorithms give other bits from run to run (phase z3): the one process
+    # and the ranks run deterministic ones, so that a model axis's replicated layers compute
+    # what the one process computes, and only the mesh's sums differ
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = load_model_from_config(config, seed=0, device=dev)
+        model.compile()
+        assert isinstance(model.optimizer, AdamFp8)
+        x = seeded_frames(dev, config)
+        initial = param_samples(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = timed_steps(model, x, ZM_FP8_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    single = {"losses": losses, "ms": ms, "peak": torch.cuda.max_memory_allocated(),
+              "resident_before": resident, "bytes": fp8_leaf_bytes(model.optimizer),
+              "samples": param_samples(model)}
+    log(f"  one process, bfloat16 adam_fp8, batch {BATCH}, cudnn.deterministic: losses {losses}; "
+        f"ms a step {[round(v, 3) for v in ms]}; max_memory_allocated "
+        f"{single['peak'] / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB allocated before)")
+    del model, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_zm_")
+    try:
+        outs = [os.path.join(directory, f"rank{r}.json") for r in range(Z_RANKS)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker",
+                                   "--job", "zm", "--rank", str(r), "--world", str(Z_RANKS),
+                                   "--store", os.path.join(directory, "store"), "--out", outs[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(Z_RANKS)]
+        try:
+            texts = [p.communicate(timeout=Z_WORKER_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, text in zip(procs, texts):
+            assert p.returncode == 0, text[-4000:]
+        ranks = []
+        for path in outs:
+            with open(path) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    for rank, r in enumerate(ranks):
+        log(f"  rank {rank}, injected gradients, {ZM_FP8_STEPS} steps: this rank's blocks of q, "
+            f"scale, scale_next and the parameter equal one process's AdamFp8: {r['bits']}")
+    checks = {}
+    for part in ("zero1", "model"):
+        for rank, r in enumerate(ranks):
+            got = r[part]
+            loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], single["losses"]))
+            gaps = {k: update_gap(v, single["samples"][k], initial[k])
+                    for k, v in got["samples"].items()}
+            worst = max(gaps, key=gaps.get)
+            checks[(part, rank)] = (loss_gap, gaps)
+            split = got["zero1_dims"] if part == "zero1" else got["tp_dims"]
+            log(f"  {part} rank {rank} ({got['optimizer']}): losses {got['losses']} against one "
+                f"process's {single['losses']} (largest gap {loss_gap:.3e} relative); parameter "
+                f"updates: largest gap {gaps[worst]:.3e} ({worst}), median "
+                f"{float(np.median(list(gaps.values()))):.3e} over {len(gaps)} tensors; ms a "
+                f"step {[round(v, 3) for v in got['ms']]}; max_memory_allocated "
+                f"{got['peak'] / 2**30:.3f} GiB; split {split}; float8 bytes of the split "
+                f"leaves {sum(got['bytes'][k]['fp8'] for k in split)} (one process "
+                f"{sum(single['bytes'][k]['fp8'] for k in split)})")
+    for r in ranks:
+        assert all(v for part in r["bits"].values() for v in part.values()), r["bits"]
+    # the optimizer's bits on the same gradients are checked above. In bfloat16, Adam's first
+    # two steps move an entry by about +-lr, and the gradients' extra bfloat16 rounding on a
+    # mesh (each rank's partial sum, then their sum) flips the sign of near-zero gradients:
+    # on an H100 (80GB HBM3, 700 W) the 2-step update gaps read 0.088 (ZeRO-1) and 0.179 (the
+    # model axis) with default and with deterministic cuDNN alike, where float32 reads 0.0075
+    # (z2). A skipped or wrong update gives about 1; the bound for this bfloat16 run is 0.25
+    for (part, rank), (loss_gap, gaps) in checks.items():
+        assert loss_gap <= 1e-6, (part, rank, ranks[rank][part]["losses"], single["losses"])
+        assert all(v <= ZM_FP8_UPDATE_GAP for v in gaps.values()), (part, rank, gaps)
+    assert all(r["zero1"]["losses"] == ranks[0]["zero1"]["losses"] for r in ranks)
+    for r in ranks:
+        z, m = r["zero1"], r["model"]
+        assert z["optimizer"] == "Zero1" and m["optimizer"] == "AdamFp8"
+        assert set(ZM_DENSE) <= set(z["zero1_dims"]) and set(ZM_DENSE) <= set(m["tp_dims"])
+        for name, want in single["bytes"].items():
+            if name in z["zero1_dims"]:  # the codes and the scales' columns both halved
+                assert z["bytes"][name] == {"fp8": want["fp8"] // 2,
+                                            "other": want["other"] // 2}, name
+            else:
+                assert z["bytes"][name] == want, name
+            if name in m["tp_dims"]:  # the codes halved; a scale row is whole on each rank
+                assert m["bytes"][name]["fp8"] == want["fp8"] // 2, name
+        for part in (z, m):
+            assert part["launches"]["moments_cluster_global_forward"] == ZM_FP8_STEPS
+            assert part["launches"]["moments_cluster_global_backward"] == ZM_FP8_STEPS
+
+
+def phase_zm(dev):
+    """The multi-camera engine on a device mesh and adam_fp8 on two ranks: (zm1) the
+    flagship fleet's tick in float and w8a8 with no mesh, a one-entry and a two-entry mesh
+    of the one card; (zm2) kernels 1 and 10 at a block's shapes; (zm3) fleet CL over the
+    two-entry mesh against no mesh; (zm4) adam_fp8 with ZeRO-1 and on a model axis."""
+    import gc
+
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import make_mesh
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config_path
+    from trustedai_cl_vae_ad_tpu_torch.stream.run import resolve_camera
+
+    torch.cuda.empty_cache()
+    model, config = load_model_from_config_path(os.path.join(REPO, "configs", "config.yml"),
+                                                seed=0, device=dev)
+    settings = resolve_camera(os.path.join(REPO, "configs", "cam_config.yml"))[0]
+    ticks = zm_ticks(ZM_TICKS)
+    meshes = {"none": None, "one": make_mesh(devices=[dev]), "two": make_mesh(devices=[dev, dev])}
+    mesh_launches = {}
+
+    def add(counts):  # the launches of a run over a mesh, summed
+        for kernel, n in counts.items():
+            mesh_launches[kernel] = mesh_launches.get(kernel, 0) + n
+
+    ticks_out = {}
+    for quantize, label in ((False, "float"), (True, "w8a8")):
+        runs = {name: zm_tick_run(model, config, settings, mesh, quantize, ticks)
+                for name, mesh in meshes.items()}
+        rtol = W8A8_EPS_RTOL if quantize else 1e-5
+        for name in ("one", "two"):
+            run = runs[name]
+            d = run["blocks"]
+            assert d == {"one": 1, "two": 2}[name]
+            n = run["launches"]
+            # kernel 1: one batched launch a block a tick; kernel 10: two a block a w8a8 tick
+            assert n["stream_score_cluster"] == d * ZM_TICKS and n["stream_score"] == 0, n
+            assert n["int8_gemm_mma"] == (2 * d * ZM_TICKS if quantize else 0), n
+            assert n["int8_gemm"] == 0, n
+            run["compared"] = zm_compare(run["results"], runs["none"]["results"], rtol)
+            assert run["compared"] > 0
+            add(n)
+        for name, run in runs.items():
+            log(f"  {label}, mesh {name} ({run['blocks']} block(s) of "
+                f"{ZM_STREAMS // run['blocks']}): tick p50 {run['p50_ms']:.3f} ms p95 "
+                f"{run['p95_ms']:.3f} ms; device busy {run['device_ms']:.3f} ms a tick (kernels "
+                f"{run['device_sum_ms']:.3f} ms), idle {run['idle_share']:.1%}; launches "
+                f"kernel 1 {run['launches']['stream_score_cluster']}, kernel 10 "
+                f"{run['launches']['int8_gemm_mma']}"
+                + (f"; {run['compared']} scores against no mesh's within {rtol:g}"
+                   if name != "none" else ""))
+        ticks_out[label] = {name: {k: v for k, v in run.items() if k != "results"}
+                            for name, run in runs.items()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    zm_kernels_at_the_blocks(dev)
+
+    cl, initial = zm_fleet_cl(dev, config, settings, ticks)
+    none, two = cl["none"], cl["two"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(two["losses"], none["losses"]))
+    gaps = {k: update_gap(v, none["samples"][k], initial[k]) for k, v in two["samples"].items()}
+    worst = max(gaps, key=gaps.get)
+    add(two["launches"])
+    log(f"  fleet CL, {ZM_STREAMS} cameras, ring of {ZM_CL_RING} ticks ({ZM_CL_RING * ZM_STREAMS}"
+        f" rows), 2 steps: losses two-entry mesh {two['losses']}, no mesh {none['losses']} "
+        f"(largest gap {loss_gap:.3e} relative); parameter updates: largest gap "
+        f"{gaps[worst]:.3e} ({worst}); step ms mesh {[round(v, 1) for v in two['step_ms']]}, no "
+        f"mesh {[round(v, 1) for v in none['step_ms']]}; max_memory_allocated mesh "
+        f"{two['peak'] / 2**30:.2f} GiB, no mesh {none['peak'] / 2**30:.2f} GiB")
+    assert loss_gap <= 1e-6, (two["losses"], none["losses"])
+    assert all(v <= 0.05 for v in gaps.values()), gaps
+    assert two["launches"]["stream_score_cluster"] == 2 * len(ZM_CL_NOW), two["launches"]
+
+    zm_fp8_ranks(dev)
+    return {"ticks": ticks_out, "launches": mesh_launches}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
                         help="comma-separated subset of c..z to run after the build (for "
                              "finding a fault); the final line is then not printed")
     parser.add_argument("--worker", action="store_true",
-                        help="(internal) run one rank of phase (z)'s two-process runs")
+                        help="(internal) run one rank of phase (z)'s or (zm)'s two-process "
+                             "runs")
+    parser.add_argument("--job", choices=("z", "zm"), default="z",
+                        help="(internal) which phase's ranks --worker runs")
     parser.add_argument("--rank", type=int, default=0)
     parser.add_argument("--world", type=int, default=Z_RANKS)
     parser.add_argument("--store", default=None)
@@ -5004,7 +5554,8 @@ def main(argv=None):
         return 1
     sys.path.insert(0, REPO)
     if args.worker:
-        return z_worker(args.rank, args.world, args.store, args.out)
+        worker = zm_worker if args.job == "zm" else z_worker
+        return worker(args.rank, args.world, args.store, args.out)
     t_start = time.perf_counter()
 
     log("[a] device")
@@ -5090,6 +5641,8 @@ def main(argv=None):
         "with adam_fp8 beside adam_lean", lambda: phase_y(dev))
     run("z", "parallel/: train_torch.py through a process group, two processes with ZeRO-1 "
         "and with a model axis, offline scoring over a mesh", lambda: phase_z(dev))
+    run("zm", "the multi-camera engine on a device mesh; adam_fp8 with ZeRO-1 and on a model "
+        "axis over two processes", lambda: phase_zm(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -5165,6 +5718,10 @@ def main(argv=None):
         entry["launches_model_axis_ranks"] = sum(r["launches"].get(kernel, 0)
                                                  for r in z["z23"]["z3"])
         entry["launches_offline_mesh"] = z["z4"]["w8a8"]["mesh"]["launches"].get(kernel, 0)
+    # (zm)'s runs over a mesh, each counted from zero and summed: the fleet's ticks over the
+    # one-entry and the two-entry mesh in float and w8a8, and fleet CL over the two-entry mesh
+    for entry in kernels:
+        entry["launches_multicam_mesh"] = out["zm"]["launches"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

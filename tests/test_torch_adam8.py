@@ -445,3 +445,89 @@ def test_live_and_fleet_continual_learning_reach_adam_fp8(monkeypatch):
         assert any(not torch.equal(before[k], v) for k, v in model.params.items())
         engine.set_learning_rate(2.5e-4)
         assert opt.learning_rate == model.learning_rate == 2.5e-4
+
+
+# -- sharded leaves: regions ---------------------------------------------------------------
+
+def test_hash_bits_of_a_block_along_every_dim():
+    """A block that starts at offsets along every dim gets the bits of its
+    elements in the whole tensor, in the port's layout too."""
+    name = "encoder.layers.Dense_0.weight"
+    _, axes = flax_leaf_layout([name])
+    whole = T._hash_bits((40, 96), 77, axes[name]).numpy()
+    for r0, c0, r, c in ((0, 48, 40, 48), (20, 0, 20, 96), (10, 24, 7, 30)):
+        block = T._hash_bits((r, c), 77, axes[name], start=(r0, c0))
+        np.testing.assert_array_equal(block.numpy(), whole[r0:r0 + r, c0:c0 + c])
+    # an int start is the offset along dim 0
+    np.testing.assert_array_equal(T._hash_bits((5, 96), 77, axes[name], start=3).numpy(),
+                                  whole[3:8])
+
+
+@pytest.mark.parametrize("mode", ["none", "nu", "both"])
+@pytest.mark.parametrize("dim", [0, 1], ids=["rows", "columns"])
+def test_blocks_with_regions_step_like_the_whole(mode, dim, monkeypatch):
+    """A Dense weight (out, in) updated as 4 blocks, each an AdamFp8 of its
+    own with its Region, gives the whole tensor's bits over 3 steps: along
+    the port's dim 1 (flax's rows: ZeRO-1's split) each block owns its slice
+    of the scales; along dim 0 (the output features: tensor parallelism's)
+    each block's absmax is partial, and the blocks' maximum, which the MAX
+    all-reduce of the model group takes, gives the scales. The leaf is
+    quantized because the whole tensor is big, though no block is."""
+    monkeypatch.setattr(T, "BIG_LEAF_ELEMS", 64 * 48)
+    monkeypatch.setattr(T, "BLOCK_ELEMS", 3 * 48)  # blocks of rows inside each block too
+    name = "encoder.layers.Dense_0.weight"
+    rs = np.random.RandomState(1)
+    w = rs.normal(0, 0.1, (64, 48)).astype(np.float32)
+    grads = [(rs.normal(0, 1e-2, (64, 48)) * 10.0 ** rs.uniform(-2, 1, (1, 48))
+              * (1 + 99 * (i == 1))).astype(np.float32) for i in range(3)]
+    whole = {name: torch.from_numpy(w.copy())}
+    ref = T.AdamFp8(whole, 1e-3, stochastic_round=mode)
+    n, size = 4, w.shape[dim] // 4
+    blocks, opts = [], []
+    for b in range(n):
+        part = torch.from_numpy(np.ascontiguousarray(np.take(w, range(b * size, (b + 1) * size),
+                                                             axis=dim)))
+        offsets = tuple(b * size if d == dim else 0 for d in range(2))
+        region = T.Region((64, 48), offsets, {dim: None})
+        blocks.append({name: part})
+        opts.append(T.AdamFp8(blocks[-1], 1e-3, stochastic_round=mode, regions={name: region}))
+    assert all(isinstance(o.mu[0], T.QLeaf) for o in opts)
+    for g in grads:
+        ref.step([torch.from_numpy(g)])
+        parts = [torch.from_numpy(np.ascontiguousarray(np.take(g, range(b * size, (b + 1) * size),
+                                                               axis=dim))) for b in range(n)]
+        for o, gb in zip(opts, parts):
+            o.step([gb])
+        if dim == 0:
+            # the model group's MAX of each block's fresh scales, taken here by hand
+            for kind in ("mu", "nu"):
+                top = torch.stack([getattr(o, kind)[0].scale_next for o in opts]).amax(0)
+                for o in opts:
+                    getattr(o, kind)[0].scale_next.copy_(top)
+    got = torch.cat([b[name] for b in blocks], dim=dim)
+    assert torch.equal(got, whole[name])
+    for kind in ("mu", "nu"):
+        leaf = getattr(ref, kind)[0]
+        assert torch.equal(torch.cat([getattr(o, kind)[0].q for o in opts], dim=dim), leaf.q)
+        for field in ("scale", "scale_next"):
+            parts = [getattr(getattr(o, kind)[0], field) for o in opts]
+            got = parts[0] if dim == 0 else torch.cat(parts, dim=1)
+            assert torch.equal(got, getattr(leaf, field)), (kind, field)
+
+
+def test_map_moment_splits_q_and_keeps_scales_whole_along_their_rows():
+    """map_moment: a quantized leaf's q follows the split dim; its scales do
+    too, except along the dim they reduce over (flax's last axis: the port's
+    dim 0 of a Dense weight), where they are whole."""
+    name = "encoder.layers.Dense_0.weight"
+    leaf = {"q": torch.zeros(8, 6, dtype=torch.int8), "scale": torch.ones(1, 6),
+            "scale_next": torch.ones(1, 6)}
+    assert T.last_axis_dim(name, 2) == 0 and T.last_axis_dim("w", 2) == 1
+    seen = {}
+    T.map_moment(leaf, name, 0, lambda t, d: seen.setdefault(tuple(t.shape), d))
+    assert seen == {(8, 6): 0, (1, 6): None}
+    seen.clear()
+    T.map_moment(leaf, name, 1, lambda t, d: seen.setdefault(tuple(t.shape), d))
+    assert seen == {(8, 6): 1, (1, 6): 1}
+    assert T.map_moment(torch.zeros(3), "encoder.layers.Dense_0.bias", 0,
+                        lambda t, d: d) == 0

@@ -636,7 +636,7 @@ def _saved_logdir(tmp_path):
 
 def test_help_lists_every_option_of_the_reference_cli(monkeypatch):
     """camera_streamer_torch.py --help offers every option of
-    camera_streamer.py but --mesh, with the same defaults."""
+    camera_streamer.py, --mesh included, with the same defaults."""
     import re
 
     import camera_streamer
@@ -651,13 +651,13 @@ def test_help_lists_every_option_of_the_reference_cli(monkeypatch):
 
     reference, port = options("camera_streamer.py"), options("camera_streamer_torch.py")
     assert {"--rtsp-override", "--rtsp-overide", "-r", "--max-rss-mb"} <= reference
-    assert reference - {"--mesh"} <= port, reference - port
+    assert reference <= port, reference - port
     monkeypatch.setattr(sys, "argv", ["camera_streamer.py", "-m", "x"])
     ref_args = vars(camera_streamer.get_args())
     port_args = vars(camera_streamer_torch.get_args(["-m", "x", "--device", "cpu"]))
+    assert "mesh" in ref_args
     for key, value in ref_args.items():
-        if key != "mesh":
-            assert port_args[key] == value, key
+        assert port_args[key] == value, key
     assert port_args["model_cache_dir"] == "model_cache"
     assert port_args["autosave_period_s"] == 300.0
 

@@ -84,6 +84,10 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "parallel/mesh.py", "parallel/collectives.py", "parallel/dp.py",
                 "parallel/zero.py", "parallel/tp.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
+    # the multi-camera engine on a mesh and adam_fp8 on one: their modules above, their
+    # JAX-parity tests beside the rest
+    for rel in ("test_torch_multicam_mesh.py", "test_torch_parallel.py", "test_torch_adam8.py"):
+        assert os.path.isfile(os.path.join(REPO, "tests", rel)), rel
     assert {"train_torch.py", "profile_train_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
             "serve_torch.py", "do_anomaly_detection_torch.py",
             "build_raite_json_from_directory_torch.py", "build_veri_dataset_torch.py",
@@ -94,8 +98,10 @@ def test_the_slices_new_modules_are_in_the_walk():
 
 
 def test_port_sources_have_no_jax_import():
+    """The port, its entry points and the worker of its multi-process tests
+    (tests/torch_dist_worker.py, which runs torch and the port alone)."""
     found = []
-    for path in _port_sources():
+    for path in (*_port_sources(), os.path.join(REPO, "tests", "torch_dist_worker.py")):
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):

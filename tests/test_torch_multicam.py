@@ -450,9 +450,11 @@ def test_multicam_serves_a_prequantized_tree(setup, tmp_path):
 def test_unported_surfaces_raise_and_name_their_item(setup, tmp_path):
     """Fleet continual learning, its replay buffer, recording and autosave,
     which raised NotImplementedError before, are ported
-    (tests/test_torch_multicam_cl.py holds them to the JAX engine); the
-    device mesh still raises with its ROADMAP item. An engine that never
-    uses a CL control allocates no optimizer."""
+    (tests/test_torch_multicam_cl.py holds them to the JAX engine), and so is
+    the device mesh (tests/test_torch_multicam_mesh.py): what is not a
+    one-process Mesh is refused with a TypeError, a mesh of ranks with a
+    ValueError. An engine that never uses a CL control allocates no
+    optimizer."""
     _, model, config = setup
     multi = MultiCameraEngine(model, config, n_streams=2)
     assert multi.enable_cont_learning is False
@@ -466,8 +468,13 @@ def test_unported_surfaces_raise_and_name_their_item(setup, tmp_path):
     cached = MultiCameraEngine(model, config, n_streams=2, model_cache_dir=str(tmp_path / "c"))
     assert cached.model_cache_dir == str(tmp_path / "c") and not cached.schedule_model_save_flag
     assert cached.cl_ring_ticks == 4 and cached.continuous_learning_period_ms == 500.0
-    with pytest.raises(NotImplementedError, match="queue 1 item 19"):
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         MultiCameraEngine(model, config, n_streams=2, mesh=object())
+    with pytest.raises(ValueError, match="one process"):
+        MultiCameraEngine(model, config, n_streams=2,
+                          mesh=Mesh(2, 1, ["cpu"], distributed=True))
     assert model.optimizer is None
 
 

@@ -223,14 +223,233 @@ def test_zero1_matches_replicated(optimizer, stochastic, tmp_path):
     assert rep["moment_bytes"] - r0["moment_bytes"] == sharded // 2
 
 
-def test_zero1_refuses_adam_fp8():
-    """adam_fp8's per-row scales cross the shards: ZeRO-1 raises, naming the
-    ROADMAP item that takes it."""
-    from trustedai_cl_vae_ad_tpu_torch.parallel.zero import Zero1
+FP8_SHAPES = {"encoder.layers.Dense_0.weight": (48, 64), "encoder.layers.Dense_0.bias": (48,),
+              "decoder.layers.Dense_0.weight": (64, 40), "decoder.layers.Dense_0.bias": (64,),
+              "encoder.layers.Conv_0.weight": (8, 3, 3, 3)}
+FP8_MODES = ["none", "nu", "both"]
+# both Dense weights quantized (>= 1024 elements), updated in blocks of a few rows
+FP8_LIMITS = {"big_leaf_elems": 1024, "block_elems": 5 * 64}
 
-    p = {"encoder.layers.Dense_0.weight": torch.zeros(4, 4)}
-    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
-        Zero1(p, 1e-3, Mesh(2, 1, ["cpu"]), name="adam_fp8")
+
+def _fp8_case(n_model, zero1, steps=3, lr=1e-3):
+    rs = np.random.RandomState(9)
+    params = {k: torch.from_numpy(rs.normal(0, 0.1, s).astype(np.float32))
+              for k, s in FP8_SHAPES.items()}
+    # rows and columns of very different magnitudes, so that the per-row scales
+    # differ; step 1 jumps 100x, so that the lagged scale saturates for a step
+    grads = [{k: torch.from_numpy((rs.normal(0, 1e-2, s) * 10.0 ** rs.uniform(-2, 1, s[-1:])
+                                   * (1 + 99 * (i == 1))).astype(np.float32))
+              for k, s in FP8_SHAPES.items()} for i in range(steps)]
+    return dict({"kind": "fp8", "params": params, "grads": grads, "lr": lr, "modes": FP8_MODES,
+                 "n_model": n_model, "zero1": zero1}, **FP8_LIMITS)
+
+
+def _fp8_replicated(case, mode, monkeypatch):
+    from trustedai_cl_vae_ad_tpu_torch.ops import adam8
+
+    monkeypatch.setattr(adam8, "BIG_LEAF_ELEMS", case["big_leaf_elems"])
+    monkeypatch.setattr(adam8, "BLOCK_ELEMS", case["block_elems"])
+    params = {k: v.clone() for k, v in case["params"].items()}
+    opt = adam8.AdamFp8(params, case["lr"], stochastic_round=mode)
+    for grads in case["grads"]:
+        opt.step([grads[k] for k in opt.names])
+    return params, opt
+
+
+def _assert_fp8_equal_replicated(got, case, mode, monkeypatch):
+    """One mode's whole state from the ranks equals the replicated AdamFp8's bits."""
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import QLeaf
+
+    params, opt = _fp8_replicated(case, mode, monkeypatch)
+    assert got["count"] == opt.count == len(case["grads"])
+    for name, p in params.items():
+        assert torch.equal(got["params"][name], p), (mode, name)
+    quantized = 0
+    for kind in ("mu", "nu"):
+        for name, ref in zip(opt.names, getattr(opt, kind)):
+            mine = got[kind][name]
+            if isinstance(ref, QLeaf):
+                quantized += 1
+                for field in QLeaf._fields:
+                    assert torch.equal(mine[field], getattr(ref, field)), (mode, kind, name, field)
+            else:
+                assert mine.dtype == ref.dtype and torch.equal(mine, ref), (mode, kind, name)
+    assert quantized == 4  # both Dense weights' mu and nu
+    return opt
+
+
+def test_zero1_refuses_adam_fp8(tmp_path, monkeypatch):
+    """ZeRO-1 no longer refuses adam_fp8: over 2 gloo ranks, with every
+    eligible moment sharded, 3 steps from the same gradients give the bits of
+    the replicated AdamFp8 step in every stochastic_round mode (q, scale,
+    scale_next, the bfloat16 moments and the parameters): the dither hash
+    takes each element's index in the whole tensor, and a block of whole flax
+    rows owns its slice of the scales, with no collective. Each rank holds
+    half the sharded moments' bytes."""
+    case = _fp8_case(n_model=1, zero1=True)
+    r0, r1 = run_ranks(case, 2, tmp_path)
+    for mode in FP8_MODES:
+        got = r0[mode]
+        assert got["zero1_dims"]["encoder.layers.Dense_0.weight"] == 1  # flax's dim 0
+        assert got["zero1_dims"]["decoder.layers.Dense_0.weight"] == 1
+        assert got["max_reductions"] == r1[mode]["max_reductions"] == []
+        opt = _assert_fp8_equal_replicated(got, case, mode, monkeypatch)
+        for name in opt.names:  # both ranks gather the same whole state
+            assert torch.equal(r1[mode]["params"][name], got["params"][name]), name
+        sharded = 0
+        for kind in ("mu", "nu"):
+            for name, m in zip(opt.names, getattr(opt, kind)):
+                if got["zero1_dims"][name] is not None:
+                    sharded += sum(t.numel() * t.element_size()
+                                   for t in (m if isinstance(m, tuple) else (m,)))
+        whole = sum(t.numel() * t.element_size() for m in opt.mu + opt.nu
+                    for t in (m if isinstance(m, tuple) else (m,)))
+        assert whole - got["moment_bytes"] == sharded // 2
+
+
+@pytest.mark.parametrize("world,n_model,zero1", [(2, 2, False), (4, 2, True)],
+                         ids=["model2", "data2_model2"])
+def test_adam_fp8_on_a_model_axis_matches_replicated(world, n_model, zero1, tmp_path,
+                                                     monkeypatch):
+    """adam_fp8 with the Dense weights split along their output features over
+    a model axis (alone, and composed with ZeRO-1 on a (2, 2) mesh): 3 steps
+    give the replicated bits in every mode. The rows' absmax of each block is
+    partial; it is all-reduced with MAX over the model group once per leaf and
+    step (both moments in one collective), not once per block of rows."""
+    case = _fp8_case(n_model=n_model, zero1=zero1)
+    results = run_ranks(case, world, tmp_path)
+    for mode in FP8_MODES:
+        got = results[0][mode]
+        assert got["tp_dims"]["encoder.layers.Dense_0.weight"] == 0
+        assert got["tp_dims"]["decoder.layers.Dense_0.weight"] == 0
+        if zero1:
+            assert got["zero1_dims"]["encoder.layers.Dense_0.weight"] == 1
+        # one MAX a split quantized leaf and step, of mu's and nu's fresh scales
+        # together (ZeRO-1 holds half of each scale row)
+        cols = [64 // (2 if zero1 else 1), 40 // (2 if zero1 else 1)]
+        want = sorted([(2, 1, c) for c in cols] * len(case["grads"]))
+        for r in results:
+            assert sorted(r[mode]["max_reductions"]) == want, r[mode]["max_reductions"]
+        _assert_fp8_equal_replicated(got, case, mode, monkeypatch)
+        for r in results[1:]:
+            for name, p in got["params"].items():
+                assert torch.equal(r[mode]["params"][name], p), name
+
+
+def test_adam_fp8_trains_on_data2_model2(tmp_path):
+    """The tiny model with training.optimizer adam_fp8 (its Dense weights
+    quantized) on a (2, 2) mesh with ZeRO-1 and the Dense layers split: the
+    ranks' losses agree and equal one device's within 1e-6, and the
+    parameters after one step are one device's (Adam's first step moves an
+    entry by +-lr; the order of the gradient's sums may flip a sign where the
+    gradient is rounding noise)."""
+    config = _config(optimizer="adam_fp8")
+    config["model"]["encoder_dense_filters"] = 12
+    _, params = _jax_core(config)
+    x = _batch(8, seed=1)
+    case = dict(_step_case(config, params, x, eps=torch.zeros(8, 8), n_model=2, min_params=1,
+                           min_elems=1), big_leaf_elems=64)
+    results = run_ranks(case, 4, tmp_path)
+    r0 = results[0]
+    assert all(r["losses"] == r0["losses"] for r in results)
+    for k, v in r0["losses"][0].items():
+        np.testing.assert_allclose(v, r0["single"]["losses"][0][k], rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+    assert r0["tp_shapes"]["encoder.layers.Dense_0.weight"] == (6, 256)
+    mu = r0["opt"]["mu"]["encoder.layers.Dense_0.weight"]
+    assert isinstance(mu, dict) and tuple(mu["q"].shape) == (12, 256)  # gathered whole
+    assert tuple(mu["scale"].shape) == (1, 256)
+    single = r0["single"]
+    assert isinstance(single["opt"]["mu"]["encoder.layers.Dense_0.weight"], dict)
+    lr = config["training"]["learning_rate"]
+    for name, p in r0["params"].items():
+        diff = (p - single["params"][name]).abs()
+        assert float(diff.max()) <= 2.01 * lr, name
+        assert float((diff <= 1e-6 + 1e-5 * single["params"][name].abs()).float().mean()) > 0.99
+
+
+def _jax_fp8_logdir(logdir, config, seed=4):
+    """A log directory the JAX package writes after 2 adam_fp8 steps (the
+    second quantizes with the first's scale), its learning rate dialled."""
+    import os
+
+    import yaml
+
+    from trustedai_cl_vae_ad_tpu.models.wrapper import VAEModel
+    from trustedai_cl_vae_ad_tpu.registry import build_core_from_config
+
+    os.makedirs(logdir, exist_ok=True)
+    with open(os.path.join(logdir, "config.yml"), "w") as f:
+        yaml.safe_dump(config, f)
+    model = VAEModel(build_core_from_config(config), seed=seed)
+    model.compile()
+    rs = np.random.RandomState(seed)
+    for _ in range(2):
+        model.train_step(rs.randint(0, 256, (8, 64, 64, 3)).astype(np.uint8))
+    model.set_learning_rate(2.5e-4)
+    model.save_model(logdir)
+    return model
+
+
+@pytest.mark.parametrize("n_model,zero1", [(1, True), (2, False)], ids=["zero1", "model2"])
+def test_adam_fp8_logdir_onto_a_mesh(n_model, zero1, tmp_path):
+    """The JAX package's adam_fp8 tree (one quantized leaf, the encoder Dense
+    4096 -> 256) restores onto a ZeRO-1 or a model-axis mesh of 2 ranks: the
+    state gathered whole is the JAX state bit for bit. A step of the global
+    batch gives one device's loss, and the mesh's save (gathered to rank 0,
+    mu/<key>/q|scale|scale_next in the full layout) restores alone to the
+    ranks' state bit for bit."""
+    import os
+    import shutil
+
+    from torch_port_helpers import next_jax_eps, tiny_config
+    from trustedai_cl_vae_ad_tpu.ops.adam8 import QLeaf as JaxQLeaf
+    from trustedai_cl_vae_ad_tpu_torch.bridge import fp8_moments_to_optax
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_directory
+
+    config = tiny_config(image=(64, 64, 3), layers=(8, 16), latent=128)
+    config["training"]["optimizer"] = "adam_fp8"
+    logdir, save_dir = str(tmp_path / "jax"), str(tmp_path / "saved")
+    jmodel = _jax_fp8_logdir(logdir, config)
+    x = np.random.RandomState(11).randint(0, 256, (8, 64, 64, 3)).astype(np.uint8)
+    eps = torch.from_numpy(next_jax_eps(jmodel, 8))
+    (tmp_path / "ranks").mkdir()
+    results = run_ranks({"kind": "fp8_logdir", "logdir": logdir, "zero1": zero1,
+                         "n_model": n_model, "x": torch.from_numpy(x), "eps": eps, "steps": 1,
+                         "save_dir": save_dir}, 2, tmp_path / "ranks", timeout=300.0)
+    r0 = results[0]
+    assert r0["optimizer"] == ("Zero1" if zero1 else "AdamFp8")
+    if n_model == 2:
+        assert r0["tp_shapes"]["encoder.layers.Dense_0.weight"] == (128, 4096)
+    inner = jax.device_get(jmodel.opt_state).inner_state[0]
+    placed = r0["placed"]["opt"]
+    assert placed["count"] == int(inner.count) == 2
+    for kind in ("mu", "nu"):
+        listed = fp8_moments_to_optax(placed[kind])
+        for i, (got, ref) in enumerate(zip(listed, getattr(inner, kind), strict=True)):
+            if isinstance(ref, JaxQLeaf):
+                for field in ("q", "scale", "scale_next"):
+                    np.testing.assert_array_equal(got[field], np.asarray(getattr(ref, field)),
+                                                  err_msg=f"{kind}/{i}/{field}")
+            else:
+                np.testing.assert_array_equal(got, np.asarray(ref).astype(np.float32))
+    alone, _ = load_model_from_directory(logdir, device="cpu", restore_optimizer=True)
+    want = alone.train_step(torch.from_numpy(x), eps=eps)
+    for r in results:
+        for k, v in r["losses"][0].items():
+            np.testing.assert_allclose(v, float(want[k]), rtol=1e-6, atol=1e-7, err_msg=k)
+    shutil.copy(os.path.join(logdir, "config.yml"), save_dir)
+    resumed, _ = load_model_from_directory(save_dir, device="cpu", restore_optimizer=True)
+    stepped = r0["stepped"]
+    for name, p in resumed.params.items():
+        assert torch.equal(p, stepped["params"][name]), name
+    state = resumed.optimizer.state_dict()
+    assert state["count"] == stepped["opt"]["count"] == 3
+    for kind in ("mu", "nu"):
+        for name, m in state[kind].items():
+            ref = stepped["opt"][kind][name]
+            pairs = [(m[f], ref[f]) for f in m] if isinstance(m, dict) else [(m, ref)]
+            assert all(torch.equal(a, b) for a, b in pairs), (kind, name)
 
 
 @pytest.mark.parametrize("n_data,n_model,min_params,min_elems",

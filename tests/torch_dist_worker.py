@@ -19,6 +19,18 @@ Cases (``case["kind"]``):
   * ``wrapper``: the stateful model through its public surface:
     ``compile(mesh=...)`` and ``train_step`` of the global batch, or a model
     trained one step alone, then ``place_on_mesh`` (``resume``).
+  * ``fp8``: ``adam_fp8`` alone on a (world / n_model, n_model) mesh, the
+    Dense weights split over the model axis and the moments ZeRO-1-sharded
+    (``zero1``), stepped from the same whole gradients on every rank, once
+    for each ``stochastic_round`` mode: the state after the steps gathered
+    whole, and the MAX collectives of the scales counted.
+  * ``fp8_logdir``: a log directory (``adam_fp8``) restored alone, then
+    placed on a mesh (``training.zero1`` from ``zero1``): the state gathered
+    whole; then ``steps`` training steps of the global batch and a save of
+    the mesh's state into ``save_dir`` (rank 0 writes).
+
+``big_leaf_elems`` / ``block_elems`` in a case lower ``ops/adam8.py``'s
+thresholds, so that a tiny model's leaves take the quantized, blocked path.
 """
 
 import os
@@ -150,9 +162,80 @@ def _steps(case, mesh, zero1_min_elems):
                global_batch=global_batch_from_local(x, mesh),
                tp_shapes={k: tuple(v.shape) for k, v in model.core.state_dict().items()},
                zero1_dims=getattr(model.optimizer, "dims", None),
-               moment_bytes=sum(t.numel() * t.element_size() for t in
-                                (model.optimizer.inner if zero1_min_elems is not None
-                                 else model.optimizer).mu))
+               moment_bytes=_moment_bytes(model.optimizer.inner if zero1_min_elems is not None
+                                          else model.optimizer))
+    return out
+
+
+def _moment_bytes(optimizer):
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import QLeaf
+
+    return sum(t.numel() * t.element_size() for m in optimizer.mu
+               for t in (m if isinstance(m, QLeaf) else (m,)))
+
+
+def _fp8(case, mesh):
+    """adam_fp8 from injected whole gradients on this rank's blocks, each mode in turn."""
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam import make_optimizer
+    from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import map_moment
+    from trustedai_cl_vae_ad_tpu_torch.parallel import tp, zero
+
+    reductions = []
+    all_reduce = dist.all_reduce
+
+    def counted(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        if op == dist.ReduceOp.MAX:
+            reductions.append(tuple(t.shape))
+        return all_reduce(t, op=op, group=group, async_op=async_op)
+
+    dist.all_reduce = counted
+    out = {}
+    try:
+        for mode in case["modes"]:
+            whole = {k: v.clone() for k, v in case["params"].items()}
+            tp_dims = tp.param_shardings(whole, mesh, min_params=1)
+            params = {k: tp.shard_tensor(v, tp_dims[k], mesh).clone() for k, v in whole.items()}
+            if case["zero1"]:
+                opt = zero.Zero1(params, case["lr"], mesh, name="adam_fp8", min_elems=1,
+                                 tp_dims=tp_dims)
+                opt.inner.stochastic_round = mode
+            else:
+                opt = make_optimizer(params, case["lr"], name="adam_fp8",
+                                     regions=zero.block_regions(params, mesh, tp_dims))
+                opt.stochastic_round = mode
+            del reductions[:]
+            for grads in case["grads"]:
+                opt.step([tp.shard_tensor(grads[k], tp_dims[k], mesh) for k in opt.names])
+
+            def gathered(t, dim):
+                return tp.full_tensor(t, dim, mesh).clone()
+
+            out[mode] = {
+                "params": {k: gathered(p, tp_dims[k]) for k, p in params.items()},
+                "max_reductions": list(reductions), "count": opt.count,
+                "moment_bytes": opt.moment_bytes() if case["zero1"] else _moment_bytes(opt),
+                "tp_dims": tp_dims, "zero1_dims": getattr(opt, "dims", None),
+                **{kind: {k: map_moment(opt.full_moment(kind, k), k, tp_dims[k], gathered)
+                          for k in opt.names} for kind in ("mu", "nu")}}
+    finally:
+        dist.all_reduce = all_reduce
+    return out
+
+
+def _fp8_logdir(case):
+    from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import make_mesh
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_directory
+
+    model, config = load_model_from_directory(case["logdir"], device="cpu",
+                                              restore_optimizer=True)
+    model.config["training"]["zero1"] = case["zero1"]
+    model.place_on_mesh(make_mesh(n_model=case.get("n_model", 1)))
+    out = {"placed": _whole_state(model), "optimizer": type(model.optimizer).__name__,
+           "tp_shapes": {k: tuple(v.shape) for k, v in model.core.state_dict().items()}}
+    out["losses"] = [_floats(model.train_step(case["x"], eps=case["eps"]))
+                     for _ in range(case["steps"])]
+    out["stepped"] = _whole_state(model)
+    model.save_model(case["save_dir"])
     return out
 
 
@@ -196,7 +279,11 @@ def _wrapper(case):
 def main(rank: int, world: int, directory: str) -> None:
     torch.set_num_threads(1)
     case = torch.load(os.path.join(directory, "case.pt"), weights_only=False)
+    from trustedai_cl_vae_ad_tpu_torch.ops import adam8
     from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    adam8.BIG_LEAF_ELEMS = case.get("big_leaf_elems", adam8.BIG_LEAF_ELEMS)
+    adam8.BLOCK_ELEMS = case.get("block_elems", adam8.BLOCK_ELEMS)
 
     initialize_distributed(f"file://{os.path.join(directory, 'store')}", world, rank,
                            device="cpu")
@@ -209,6 +296,10 @@ def main(rank: int, world: int, directory: str) -> None:
             out["replicated"] = _steps(case, make_mesh(n_model=case.get("n_model", 1)), None)
         if rank == 0 and case.get("single", True):
             out["single"] = _single(case)
+    elif case["kind"] == "fp8":
+        out = _fp8(case, make_mesh(n_model=case.get("n_model", 1)))
+    elif case["kind"] == "fp8_logdir":
+        out = _fp8_logdir(case)
     else:
         out = _wrapper(case)
     dist.barrier()

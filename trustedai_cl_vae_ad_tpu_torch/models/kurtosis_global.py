@@ -72,7 +72,7 @@ class KurtosisGlobalCVAE(AbstractCVAE):
     def compute_loss(self, x: torch.Tensor, training: bool = False, return_inf: bool = False,
                      eps: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None, weights=None,
-                     batch_group=None):
+                     batch_group=None, detailed=None):
         """The 12-key metric dict (and x_hat with ``return_inf``).
 
         ``weights`` (B,) optionally masks rows out of EVERY batch statistic
@@ -80,10 +80,14 @@ class KurtosisGlobalCVAE(AbstractCVAE):
         the unweighted path. ``eps`` injects the latent noise; when training
         without it, it is drawn from ``generator``. ``batch_group``: this
         rank's rows are a share of the global batch of that process group.
+        ``detailed``: the forward's (x_hat_prob, z, mean, logvar) of x,
+        computed elsewhere (the fleet engine's mesh, one device a block of
+        rows); the loss is then taken over them and nothing runs the forward.
         """
         x = normalize_image_input(x)
-        x_hat_prob, z, mean, logvar = self.call_detailed(x, training=training, eps=eps,
-                                                         generator=generator)
+        if detailed is None:
+            detailed = self.call_detailed(x, training=training, eps=eps, generator=generator)
+        x_hat_prob, z, mean, logvar = detailed
         if batch_group is not None:
             z, mean, logvar = (gather_rows(t, batch_group) for t in (z, mean, logvar))
 

@@ -47,13 +47,14 @@ class KurtosisSingleCVAE(AbstractCVAE):
     def compute_loss(self, x: torch.Tensor, training: bool = False, return_inf: bool = False,
                      eps: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None, weights=None,
-                     batch_group=None):
+                     batch_group=None, detailed=None):
         """The 10-key metric dict (and x_hat with ``return_inf``); ``eps``,
-        ``generator``, ``weights`` and ``batch_group`` as in
+        ``generator``, ``weights``, ``batch_group`` and ``detailed`` as in
         ``KurtosisGlobalCVAE.compute_loss``."""
         x = normalize_image_input(x)
-        x_hat_prob, z, _, _ = self.call_detailed(x, training=training, eps=eps,
-                                                 generator=generator)
+        if detailed is None:
+            detailed = self.call_detailed(x, training=training, eps=eps, generator=generator)
+        x_hat_prob, z, _, _ = detailed
         if batch_group is not None:
             z = gather_rows(z, batch_group)
 

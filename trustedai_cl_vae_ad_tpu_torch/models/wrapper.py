@@ -23,8 +23,8 @@ import numpy as np
 import torch
 
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import AbstractCVAE
-from trustedai_cl_vae_ad_tpu_torch.ops.adam import Adam, make_optimizer
-from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8
+from trustedai_cl_vae_ad_tpu_torch.ops.adam import Adam, make_optimizer, optimizer_name
+from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8, map_moment
 from trustedai_cl_vae_ad_tpu_torch.parallel import tp, zero
 from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 
@@ -104,10 +104,13 @@ class VAEModel:
                       name=training.get("optimizer"), generator=self.generator)
         if self.mesh is not None and zero1:
             return zero.Zero1(named, learning_rate, self.mesh, tp_dims=self.tp_dims, **kwargs)
-        optimizer = make_optimizer(named, learning_rate, **kwargs)
-        if isinstance(optimizer, AdamFp8) and any(d is not None for d in self.tp_dims.values()):
-            raise NotImplementedError(zero.FP8_ITEM.format("Tensor parallelism"))
-        return optimizer
+        regions = None
+        if self.mesh is not None and optimizer_name(kwargs["name"],
+                                                    kwargs["param_dtype"]) == "adam_fp8":
+            # a block of a Dense weight split over the model axis: its moments are the
+            # block's, the scales' absmax taken over the model group
+            regions = zero.block_regions(named, self.mesh, self.tp_dims)
+        return make_optimizer(named, learning_rate, regions=regions, **kwargs)
 
     def _join_mesh(self, mesh: Mesh) -> None:
         if not isinstance(mesh, Mesh):
@@ -150,7 +153,8 @@ class VAEModel:
         zero1 = bool(self.config.get("training", {}).get("zero1", False))
         if zero1 or any(d is not None for d in self.tp_dims.values()):
             for kind in ("mu", "nu"):
-                state[kind] = {k: tp.shard_tensor(t, self.tp_dims.get(k), mesh)
+                state[kind] = {k: map_moment(t, k, self.tp_dims.get(k),
+                                             lambda v, dim: tp.shard_tensor(v, dim, mesh))
                                for k, t in state[kind].items()}
             self.optimizer = self._make_optimizer(state["learning_rate"], zero1)
             self.optimizer.load_state_dict(state)
@@ -293,22 +297,19 @@ class VAEModel:
         over the data axis, a tensor-parallel block over the model axis."""
         keep = self.mesh.is_primary
 
-        def host(t, name):
-            t = tp.full_tensor(t, self.tp_dims.get(name), self.mesh)
+        def host(t, dim):
+            t = tp.full_tensor(t, dim, self.mesh)
             return t.detach().to("cpu") if keep else None
 
-        params = {k: host(t, k) for k, t in self.core.state_dict().items()}
+        params = {k: host(t, self.tp_dims.get(k)) for k, t in self.core.state_dict().items()}
         opt_state = None
         if include_optimizer and self.optimizer is not None:
             opt_state = {"count": self.optimizer.count,
                          "learning_rate": self.optimizer.learning_rate}
             for kind in ("mu", "nu"):
-                moments = {}
-                for k in self.optimizer.names:
-                    t = self.optimizer.full_moment(kind, k)
-                    moments[k] = ({f: host(v, None) for f, v in t.items()}
-                                  if isinstance(t, dict) else host(t, k))
-                opt_state[kind] = moments
+                opt_state[kind] = {k: map_moment(self.optimizer.full_moment(kind, k), k,
+                                                 self.tp_dims.get(k), host)
+                                   for k in self.optimizer.names}
         if not keep:
             return {}, None
         return params, opt_state

@@ -174,10 +174,17 @@ class Adam:
             self.learning_rate = float(state["learning_rate"])
 
 
+def optimizer_name(name: Optional[str], param_dtype: torch.dtype = torch.float32) -> str:
+    """The variant ``make_optimizer`` builds for ``training.optimizer`` ``name``."""
+    if name is None:
+        return "adam_lean" if param_dtype == torch.bfloat16 else "adam"
+    return name
+
+
 def make_optimizer(params: Dict[str, torch.Tensor], learning_rate: float,
                    param_dtype: torch.dtype = torch.float32, name: Optional[str] = None,
                    stochastic_round_nu: bool = False,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, regions: Optional[dict] = None):
     """Adam with a runtime-mutable learning rate.
 
     ``name`` (config key ``training.optimizer``) selects the variant:
@@ -187,13 +194,18 @@ def make_optimizer(params: Dict[str, torch.Tensor], learning_rate: float,
         EMA (the bfloat16-parameter default);
       * ``adam_fp8`` — float8_e4m3 moment storage with lagged per-row
         scales (``ops/adam8.py::AdamFp8``, the same surface as ``Adam``).
+
+    ``regions`` ({name: ``ops.adam8.Region``}) marks parameters that are
+    blocks of larger tensors, for ``adam_fp8`` (the Adam variants take
+    theirs through ``Adam.regions``).
     """
-    if name is None:
-        name = "adam_lean" if param_dtype == torch.bfloat16 else "adam"
+    name = optimizer_name(name, param_dtype)
     if name == "adam_fp8":
         from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8
 
-        return AdamFp8(params, learning_rate)
+        return AdamFp8(params, learning_rate, regions=regions)
+    if regions:
+        raise ValueError(f"regions are adam_fp8's; {name} takes Adam.regions")
     if name == "adam_lean":
         return Adam(params, learning_rate, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16,
                     widen_nu=True, stochastic_round_nu=stochastic_round_nu,

@@ -35,13 +35,26 @@ each a set of independent rows of the computation: the per-element
 arithmetic and the index hash give the same bits in blocks, and the fresh
 scale is a running maximum. The flagship's encoder Dense (1.075 G elements)
 then needs ≈1 GB of temporaries, not ten float32 copies of itself.
+
+Sharded leaves (``parallel/``). A parameter may be this rank's block of a
+larger tensor, described by a ``Region``: the whole tensor's shape (which
+decides whether the leaf is quantized), the block's offset along each dim
+(the hash takes the element's index in the whole tensor) and, per split dim,
+the process group holding the other blocks. ZeRO-1 splits flax's dim 0 (the
+port's dim 1 of a Dense weight): a block holds whole flax rows, so its scales
+are the slice of the full scales that it owns and need no collective. Tensor
+parallelism splits the port's dim 0 (a Dense weight's output features, flax's
+last axis): each block's row absmax is then a partial maximum, all-reduced
+with MAX over the model group once per leaf and step before it becomes
+``scale_next``. Either way the update keeps the replicated update's bits.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from trustedai_cl_vae_ad_tpu_torch.bridge import flax_leaf_layout
 
@@ -69,6 +82,37 @@ class QLeaf(NamedTuple):
 Moment = Union[torch.Tensor, QLeaf]
 
 
+class Region(NamedTuple):
+    """A parameter that is this rank's block of a larger tensor: ``shape``
+    the whole tensor's, ``offsets`` where the block starts along each dim,
+    ``groups`` {split dim: the process group whose ranks hold the blocks
+    along it}."""
+
+    shape: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    groups: Dict[int, object]
+
+
+def last_axis_dim(name: str, ndim: int) -> int:
+    """The dim of a parameter that is flax's last axis: a quantized moment's
+    scales reduce over it (size 1 there)."""
+    _, axes = flax_leaf_layout([name], {name: ndim})
+    a = axes[name]
+    return a.index(len(a) - 1) if a else 0
+
+
+def map_moment(moment, name: str, dim: Optional[int], fn: Callable):
+    """``fn(tensor, dim)`` over one moment in the state-dict layout of
+    parameter ``name`` split along ``dim`` (None: not split): a tensor, or a
+    quantized leaf's {'q', 'scale', 'scale_next'}. A scale is whole along
+    the dim it reduces over (size 1, the same on every block), so ``fn``
+    gets None there."""
+    if not isinstance(moment, dict):
+        return fn(moment, dim)
+    row = last_axis_dim(name, moment["q"].dim())
+    return {f: fn(t, None if f != "q" and dim == row else dim) for f, t in moment.items()}
+
+
 def _is_big(shape: Sequence[int]) -> bool:
     n = 1
     for s in shape:
@@ -83,17 +127,18 @@ def _i32(v: int) -> int:
 
 
 def _hash_bits(shape: Sequence[int], salt: int, axes: Optional[Sequence[int]] = None,
-               start: int = 0, device=None) -> torch.Tensor:
+               start: Union[int, Sequence[int]] = 0, device=None) -> torch.Tensor:
     """The JAX package's dither bits, as int32 holding its uint32 bit
     patterns: a murmur3 finalizer over each element's index mixed with
     ``salt``. ``axes[j]`` is the flax axis of dim j (default: the same),
-    ``start`` the offset of a block along dim 0. int32 multiplies and adds
-    wrap modulo 2**32 as uint32 ones do; right shifts are masked to act as
-    uint32 ones."""
+    ``start`` the offset of a block along dim 0, or its offsets along every
+    dim. int32 multiplies and adds wrap modulo 2**32 as uint32 ones do;
+    right shifts are masked to act as uint32 ones."""
     axes = tuple(range(len(shape))) if axes is None else tuple(axes)
+    starts = ((start,) + (0,) * (len(shape) - 1)) if isinstance(start, int) else tuple(start)
     h = torch.zeros((), dtype=torch.int32, device=device)
     for j, n in enumerate(shape):
-        first = start if j == 0 else 0
+        first = starts[j]
         i = torch.arange(first, first + n, dtype=torch.int64, device=device)
         i = (i * ((0x9E3779B1 + 0x85EBCA77 * axes[j]) & _MASK32)) & _MASK32
         view = [1] * len(shape)
@@ -158,14 +203,16 @@ class AdamFp8:
     ``state_dict``, ``load_state_dict``. Parameters named as the port's
     state dict (``encoder.layers.Dense_0.weight``) take the flax layout's
     leaf order and axes; other names are taken as flax leaves of their own
-    layout, ordered by name."""
+    layout, ordered by name. ``regions`` ({name: ``Region``}) marks the
+    parameters that are blocks of larger tensors (``parallel/``)."""
 
     name = "adam_fp8"
 
     def __init__(self, params: Dict[str, torch.Tensor], learning_rate: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  mu_dtype: torch.dtype = FP8, nu_dtype: torch.dtype = FP8,
-                 stochastic_round: str = "both"):
+                 stochastic_round: str = "both",
+                 regions: Optional[Dict[str, Region]] = None):
         if stochastic_round not in ("none", "nu", "both"):
             raise ValueError(f"stochastic_round must be none | nu | both, not "
                              f"{stochastic_round!r}")
@@ -184,12 +231,14 @@ class AdamFp8:
         self.axes = [axes[k] for k in self.names]
         # the dim that flax's last axis is: scales reduce over it
         self.row_dim = [a.index(len(a) - 1) if a else 0 for a in self.axes]
+        self.regions: List[Optional[Region]] = [(regions or {}).get(k) for k in self.names]
         self.mu = [self._zero(k, "mu") for k in range(len(self.names))]
         self.nu = [self._zero(k, "nu") for k in range(len(self.names))]
 
     def _zero(self, k: int, which: str) -> Moment:
         p, d = self.params[k], self.dtypes[which]
-        if d == FP8 and not _is_big(p.shape):
+        whole = p.shape if self.regions[k] is None else self.regions[k].shape
+        if d == FP8 and not _is_big(whole):
             d = torch.bfloat16
         if d != FP8:
             return torch.zeros(p.shape, dtype=d, device=p.device)
@@ -237,6 +286,14 @@ class AdamFp8:
         """The part of a scale that a block of dim 0 uses."""
         return t if sl is Ellipsis or self.row_dim[k] == 0 else t[sl]
 
+    def _starts(self, k: int, sl) -> Tuple[int, ...]:
+        """The offsets in the whole tensor, one a dim, of a block of dim 0."""
+        region = self.regions[k]
+        starts = [0] * self.params[k].dim() if region is None else list(region.offsets)
+        if sl is not Ellipsis:
+            starts[0] += sl.start
+        return tuple(starts)
+
     def _update_one(self, k: int, g: torch.Tensor, count: int, c1: float,
                     c2: torch.Tensor) -> None:
         p, moments = self.params[k], {"mu": self.mu[k], "nu": self.nu[k]}
@@ -273,6 +330,13 @@ class AdamFp8:
             for which, x32 in new.items():
                 self._store(k, which, moments[which], x32, sl, salt, fresh.get(which))
             del new
+        group = None if self.regions[k] is None else self.regions[k].groups.get(self.row_dim[k])
+        if fresh and group is not None:
+            # split along the dim the scales reduce over: each block's absmax
+            # is a partial maximum; one collective a leaf, both moments in it
+            both = torch.stack(list(fresh.values()))
+            dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group)
+            fresh = dict(zip(fresh, both.unbind(0)))
         for which, f in fresh.items():
             leaf = moments[which]
             leaf.scale.copy_(leaf.scale_next)
@@ -290,7 +354,7 @@ class AdamFp8:
         dtype = FP8 if isinstance(leaf, QLeaf) else leaf.dtype
         sr = self._sr_on(which, dtype)
         noise = _hash_bits(x32.shape, salt + (0 if which == "mu" else 1), self.axes[k],
-                           0 if sl is Ellipsis else sl.start, x32.device) if sr else None
+                           self._starts(k, sl), x32.device) if sr else None
         if not isinstance(leaf, QLeaf):
             leaf[sl].copy_(_sr_cast(x32, dtype, noise) if sr else x32)
             return

@@ -9,7 +9,10 @@ Counterpart of ``trustedai_cl_vae_ad_tpu/parallel/mesh.py``. A mesh is one of:
     process group of its data axis (the ranks that share its model index)
     and of its model axis. Training runs on this kind;
   * a list of devices of one process, all on the data axis: one model
-    replica per device, each scoring its rows of a batch (offline scoring).
+    replica per device, each scoring its rows of a batch (offline scoring)
+    or a block of camera streams (the multi-camera engine). A device may be
+    listed more than once: the split, the per-device state and the joins
+    then run on one device.
 
 Collectives run on the device of the rank for every backend: NCCL takes
 only CUDA tensors, and gloo takes CUDA tensors as well as CPU ones.
@@ -70,6 +73,15 @@ def process_count() -> int:
 
 def process_index() -> int:
     return dist.get_rank() if is_distributed() else 0
+
+
+def local_device(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current CUDA device), so
+    that two names of one device compare equal."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def default_device(process_id: int = 0) -> torch.device:

@@ -17,8 +17,10 @@ gathered into every rank's full parameter. The update is elementwise, so
 the bits are those of the replicated update; ``adam_lean``'s stochastic
 rounding of nu gives a block the bits that the whole tensor's draw gives it.
 The moments are allocated in blocks from the start: the full replicated
-state never exists on a rank. ``adam_fp8`` raises (ROADMAP.md queue 1 item
-20): its scales and its dither hash are laid out over the whole tensor.
+state never exists on a rank. ``adam_fp8`` takes each block's ``Region``
+(``block_regions``): its dither hash takes the element's index in the whole
+tensor, and a block of whole flax rows owns its slice of the per-row scales,
+so the bits are those of the replicated update too.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from trustedai_cl_vae_ad_tpu_torch.bridge import flax_leaf_layout
+from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import QLeaf, Region, map_moment
 from trustedai_cl_vae_ad_tpu_torch.parallel.collectives import (
     all_gather_dim,
     gather_blocks_,
@@ -36,8 +40,6 @@ from trustedai_cl_vae_ad_tpu_torch.parallel.collectives import (
 from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 MIN_ELEMS = 2 ** 16
-FP8_ITEM = ("{} with adam_fp8 is not ported: its quantized moments' scales and "
-            "dither hash are laid out over the whole tensor (ROADMAP.md queue 1 item 20)")
 
 
 def zero1_dims(params: Dict[str, torch.Tensor], mesh, min_elems: int = MIN_ELEMS,
@@ -59,6 +61,34 @@ def zero1_dims(params: Dict[str, torch.Tensor], mesh, min_elems: int = MIN_ELEMS
     return dims
 
 
+def block_regions(params: Dict[str, torch.Tensor], mesh,
+                  tp_dims: Optional[Dict[str, Optional[int]]] = None,
+                  zero_dims: Optional[Dict[str, Optional[int]]] = None) -> Dict[str, Region]:
+    """{name: ``ops.adam8.Region``} of each parameter whose optimizer state
+    is a block of a larger tensor on this rank: ``params`` as this rank holds
+    them (a tensor-parallel block along ``tp_dims``, split over the model
+    axis), their moments further split over the data axis along
+    ``zero_dims`` (ZeRO-1)."""
+    tp_dims, zero_dims = tp_dims or {}, zero_dims or {}
+    regions = {}
+    for name, p in params.items():
+        shape, offsets, groups = list(p.shape), [0] * p.dim(), {}
+        dim = tp_dims.get(name)
+        if dim is not None:  # p is this rank's block of the whole tensor
+            group = mesh.model_group
+            offsets[dim] = dist.get_rank(group) * p.shape[dim]
+            shape[dim] *= dist.get_world_size(group)
+            groups[dim] = group
+        dim = zero_dims.get(name)
+        if dim is not None:  # its moments are this rank's block of p
+            group = mesh.data_group
+            offsets[dim] = dist.get_rank(group) * (p.shape[dim] // dist.get_world_size(group))
+            groups[dim] = group
+        if groups:
+            regions[name] = Region(tuple(shape), tuple(offsets), groups)
+    return regions
+
+
 class Zero1:
     """``ops.adam.make_optimizer``'s optimizer with its moments sharded over
     the data axis of ``mesh``. Same surface: ``step(grads)`` (the gradients
@@ -70,26 +100,24 @@ class Zero1:
                  param_dtype: torch.dtype = torch.float32, name: Optional[str] = None,
                  generator: Optional[torch.Generator] = None, stochastic_round_nu: bool = False,
                  min_elems: int = MIN_ELEMS, tp_dims: Optional[Dict[str, Optional[int]]] = None):
-        from trustedai_cl_vae_ad_tpu_torch.ops.adam import make_optimizer
+        from trustedai_cl_vae_ad_tpu_torch.ops.adam import make_optimizer, optimizer_name
 
-        if name == "adam_fp8":
-            raise NotImplementedError(FP8_ITEM.format("ZeRO-1"))
         self.mesh = mesh
         self.group = mesh.data_group
+        self.name = optimizer_name(name, param_dtype)
         self.names = list(params)
         self.params = [params[k] for k in self.names]
         self.dims = zero1_dims(params, mesh, min_elems, tp_dims)
         views = {k: p if self.dims[k] is None else rank_slice(p, self.dims[k], self.group)
                  for k, p in params.items()}
-        self.inner = make_optimizer(views, learning_rate, param_dtype=param_dtype, name=name,
-                                    stochastic_round_nu=stochastic_round_nu,
-                                    generator=generator)
-        if self.inner.name == "adam_fp8":
-            raise NotImplementedError(FP8_ITEM.format("ZeRO-1"))
-        self.name = self.inner.name
+        fp8 = self.name == "adam_fp8"
+        self.inner = make_optimizer(
+            views, learning_rate, param_dtype=param_dtype, name=self.name,
+            stochastic_round_nu=stochastic_round_nu, generator=generator,
+            regions=block_regions(params, mesh, tp_dims, self.dims) if fp8 else None)
         for i, k in enumerate(self.names):
             dim = self.dims[k]
-            if dim is not None:
+            if dim is not None and not fp8:
                 block = views[k].shape[dim]
                 self.inner.regions[i] = (tuple(params[k].shape), dim,
                                          block * self.mesh.data_rank)
@@ -122,15 +150,15 @@ class Zero1:
                     gather_blocks_(p, self.dims[k], self.group)
 
     def moment_bytes(self) -> int:
-        """Bytes of this rank's mu and nu."""
-        return sum(t.numel() * t.element_size() for t in self.inner.mu + self.inner.nu)
+        """Bytes of this rank's mu and nu (a quantized leaf's three tensors)."""
+        return sum(t.numel() * t.element_size() for m in self.inner.mu + self.inner.nu
+                   for t in (m if isinstance(m, QLeaf) else (m,)))
 
-    def full_moment(self, kind: str, name: str) -> torch.Tensor:
-        """One moment in the full layout (a collective for a sharded one)."""
-        i = self.names.index(name)
-        t = getattr(self.inner, kind)[i]
-        dim = self.dims[name]
-        return t if dim is None else all_gather_dim(t, dim, self.group)
+    def full_moment(self, kind: str, name: str):
+        """One moment in the full layout (a collective for a sharded one): a
+        tensor, or a quantized leaf's {'q', 'scale', 'scale_next'}."""
+        return map_moment(self.inner.full_moment(kind, name), name, self.dims[name],
+                          lambda t, dim: t if dim is None else all_gather_dim(t, dim, self.group))
 
     def state_dict(self) -> dict:
         """The full layout: {'count', 'learning_rate', 'mu', 'nu'}; every
@@ -143,7 +171,7 @@ class Zero1:
         """Restore from the full layout: each rank keeps its blocks."""
         blocks = {"count": state["count"], "learning_rate": state.get("learning_rate")}
         for kind in ("mu", "nu"):
-            blocks[kind] = {k: t if self.dims[k] is None else
-                            rank_slice(t, self.dims[k], self.group)
+            blocks[kind] = {k: map_moment(t, k, self.dims[k], lambda v, dim: v if dim is None
+                                          else rank_slice(v, dim, self.group))
                             for k, t in state[kind].items()}
         self.inner.load_state_dict(blocks)

@@ -30,7 +30,25 @@ fleet:
     ``labels.json`` per camera, one model snapshot for the fleet;
   * autosave into ``model_cache_dir`` on the single-stream engine's schedule.
 
-A device mesh is not ported (ROADMAP queue 1 item 19).
+A device mesh (``mesh=``, ``parallel.mesh.make_mesh`` over local devices, as
+``camera_streamer_torch.py --mesh`` builds it) scales the fleet over devices,
+as the JAX engine shards its K streams over chips. The streams split into
+contiguous blocks of K/D, one a device of the mesh; each device holds its
+block's scorer state and fleet-CL ring, its rows of the replay buffer, and a
+replica of the serving parameters (``parallel.mesh.replicate``: the float
+parameters or the int8 tree, made once and refreshed after each CL step). A
+tick launches every block's normalize, resize, forward and scorer launch
+before it reads any result, then fetches each block's [score, count] pairs
+once. A fleet CL step equals the unsharded engine's step: each device runs
+the forward of its rows on its replica (the latent noise of the whole
+stacked batch is drawn at once and given to rows by their global index), x,
+x_hat, z, mean and logvar come to the mesh's first device in copies that
+autograd differentiates, and the loss's batch statistics are taken there
+over the union of every block's rows in the unsharded row order. The
+replicas' gradients are summed onto the first device's parameters (a
+replica that IS those tensors, as when the mesh lists one device twice,
+counts once), the optimizer steps there and the replicas are refreshed. The
+mesh's first device must be the model's.
 """
 
 from __future__ import annotations
@@ -44,11 +62,13 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from trustedai_cl_vae_ad_tpu_torch.anomaly.cdf import CDFObject, threshold_from_cdf
 from trustedai_cl_vae_ad_tpu_torch.data.ingest import resize_images
-from trustedai_cl_vae_ad_tpu_torch.ops import stream_score
+from trustedai_cl_vae_ad_tpu_torch.ops import moments, stream_score
 from trustedai_cl_vae_ad_tpu_torch.ops.quant import serving_forward
+from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import Mesh, local_device, replicate
 from trustedai_cl_vae_ad_tpu_torch.stream.engine import (
     RECORD_STREAMS,
     AutosaveControls,
@@ -64,8 +84,36 @@ from trustedai_cl_vae_ad_tpu_torch.stream.engine import (
 )
 from trustedai_cl_vae_ad_tpu_torch.utils.profiling import defer_signals
 
-_MESH_ITEM = ("the multi-camera engine on a device mesh is not ported yet "
-              "(ROADMAP.md queue 1 item 19)")
+
+class _Detailed(nn.Module):
+    """``core.call_detailed`` in training mode as a module's forward, so that
+    ``torch.func.functional_call`` runs it over a replica's parameters."""
+
+    def __init__(self, core):
+        super().__init__()
+        self.core = core
+
+    def forward(self, x, eps):
+        return self.core.call_detailed(x, training=True, eps=eps)
+
+
+def _block_devices(mesh, n_streams: int, device: torch.device) -> List[torch.device]:
+    """The device of each block of streams: the model's alone without a mesh;
+    on a one-process mesh each of its devices, the first the model's."""
+    if mesh is None:
+        return [device]
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), not {type(mesh).__name__}")
+    if mesh.distributed:
+        raise ValueError("the multi-camera engine runs in one process: make_mesh over the local "
+                         "devices (devices=...), not over the ranks of a process group")
+    devices = [local_device(d) for d in mesh.devices]
+    if n_streams % len(devices):
+        raise ValueError(f"n_streams {n_streams} must divide over {len(devices)} devices")
+    if devices[0] != device:
+        raise ValueError(f"the mesh's first device {devices[0]} is not the model's {device}: "
+                         "fleet continual learning steps the parameters there")
+    return devices
 
 
 @dataclass
@@ -117,10 +165,12 @@ class MultiCameraEngine(AutosaveControls):
     ):
         if n_streams < 1:
             raise ValueError(f"n_streams must be at least 1, got {n_streams}")
-        if mesh is not None:
-            raise NotImplementedError(_MESH_ITEM)
         self.model = model
-        self.device = model.device
+        self.device = local_device(model.device)
+        self.mesh = mesh
+        #: the device of each block of streams (one block without a mesh)
+        self.block_devices = _block_devices(mesh, int(n_streams), self.device)
+        self._block = int(n_streams) // len(self.block_devices)  # streams a block
         # ``qparams`` is a tree that is already quantized
         # (load_quantized_checkpoint): the int8-checkpoint boot, where
         # model.params may be None and fleet continual learning raises
@@ -136,9 +186,11 @@ class MultiCameraEngine(AutosaveControls):
         size = config["data"]["image_size"]
         self.height, self.width, self.channels = int(size[0]), int(size[1]), int(size[2])
         k = self.n_streams
-        self.maps = torch.zeros((k, 2, self.height, self.width), dtype=torch.float32,
-                                device=self.device)
-        self.scalars = torch.zeros((k, 6), dtype=torch.float32, device=self.device)
+        # the scorer state, one block of streams a device
+        self._maps = [torch.zeros((self._block, 2, self.height, self.width), dtype=torch.float32,
+                                  device=d) for d in self.block_devices]
+        self._scalars = [torch.zeros((self._block, 6), dtype=torch.float32, device=d)
+                         for d in self.block_devices]
 
         self.score_ma = np.zeros(k, np.float64)
         self.anomalous = np.zeros(k, bool)
@@ -174,14 +226,16 @@ class MultiCameraEngine(AutosaveControls):
         self.last_epoch_loss: Optional[dict] = None
         self.model_changed_flag = False
         self._last_cl_t = 0.0
-        self._cl_ring: Optional[torch.Tensor] = None  # (T, K, H, W, C) float32
+        # per block, (T, K / D, H, W, C) float32
+        self._cl_rings: Optional[List[torch.Tensor]] = None
         self._cl_valid: Optional[np.ndarray] = None  # (T, K) row weights
         self._cl_tick = 0
 
         # the replay buffer the fleet shares, capacity-padded as the
-        # single-stream engine's: padding rows weigh 0
+        # single-stream engine's (padding rows weigh 0), in blocks of rows
+        # over the devices
         self.replay_capacity = int(replay_capacity)
-        self.replay_buffer: Optional[torch.Tensor] = None
+        self._replay_blocks: Optional[List[torch.Tensor]] = None
         self.replay_n = 0
         self.replay_buffer_paths: Optional[list] = None
 
@@ -205,8 +259,81 @@ class MultiCameraEngine(AutosaveControls):
         self.schedule_model_save_flag = False
         self._last_autosave_t: Optional[float] = None
 
-        self._forward, self._serve_params = serving_forward(
+        self._forward, tree = serving_forward(
             model.core, model.params, quantize=self.quantized, qparams=qparams)
+        #: per block, the float parameters on its device (the model's own on
+        #: the first device; copies elsewhere, which the CL step differentiates)
+        self._param_replicas: Optional[List[dict]] = None
+        if not self.quantized:
+            self._param_replicas = self._float_replicas()
+        #: per block, what its forward reads: the float replica or the int8 tree
+        self._serve_replicas = (self._replicate(tree) if self.quantized
+                                else self._param_replicas)
+        self._detailed = _Detailed(model.core)
+
+    # ------------------------------------------------------------ blocks
+    def _replicate(self, tree) -> List[dict]:
+        return [tree] if self.mesh is None else replicate(tree, self.mesh)
+
+    def _float_replicas(self) -> List[dict]:
+        replicas = self._replicate(self.model.params)
+        for device, replica in zip(self.block_devices, replicas):
+            if device != self.device:
+                for t in replica.values():
+                    t.requires_grad_(True)
+        return replicas
+
+    def _split(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """A (K, ...) tensor in blocks of streams, each on its device."""
+        b = self._block
+        return [t[j * b:(j + 1) * b].to(d) for j, d in enumerate(self.block_devices)]
+
+    def _joined(self, blocks: List[torch.Tensor], dim: int = 0) -> torch.Tensor:
+        """Blocks joined on the first device (the one block itself)."""
+        if len(blocks) == 1:
+            return blocks[0]
+        return torch.cat([b.to(self.device) for b in blocks], dim=dim)
+
+    @property
+    def maps(self) -> torch.Tensor:
+        """The scorer's maps (K, 2, H, W); on a mesh a copy on the first device."""
+        return self._joined(self._maps)
+
+    @maps.setter
+    def maps(self, value: torch.Tensor) -> None:
+        self._maps = self._split(value)
+
+    @property
+    def scalars(self) -> torch.Tensor:
+        """The scorer's scalars (K, 6); on a mesh a copy on the first device."""
+        return self._joined(self._scalars)
+
+    @scalars.setter
+    def scalars(self, value: torch.Tensor) -> None:
+        self._scalars = self._split(value)
+
+    @property
+    def _serve_params(self):
+        """The first device's serving tree."""
+        return self._serve_replicas[0]
+
+    @property
+    def _cl_ring(self) -> Optional[torch.Tensor]:
+        """The fleet ring (T, K, H, W, C), None before the first CL tick; on a
+        mesh a copy on the first device."""
+        return None if self._cl_rings is None else self._joined(self._cl_rings, dim=1)
+
+    @property
+    def replay_buffer(self) -> Optional[torch.Tensor]:
+        """The capacity-padded replay buffer; on a mesh a copy on the first device."""
+        return None if self._replay_blocks is None else self._joined(self._replay_blocks)
+
+    def _block_forward(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """Block j's eval forward on its device."""
+        params = self._serve_replicas[j]
+        if self.quantized or self.block_devices[j] == self.device:
+            return self._forward(params, x)
+        return torch.func.functional_call(self.model.core, params, (x,))
 
     # ------------------------------------------------------------ fleet CL
     def _need_float_model(self) -> None:
@@ -220,16 +347,98 @@ class MultiCameraEngine(AutosaveControls):
             self.model.compile()
 
     def _ensure_cl(self) -> None:
-        """Allocate the fleet ring and the optimizer at the first use."""
-        if self._cl_ring is not None:
+        """Allocate the fleet ring, the optimizer and, on a mesh serving
+        int8, the float replicas at the first use."""
+        if self._cl_rings is not None:
             return
         self._need_float_model()
-        t, k = self.cl_ring_ticks, self.n_streams
+        if self._param_replicas is None:
+            self._param_replicas = self._float_replicas()
+        t = self.cl_ring_ticks
         # made outside inference mode and written in place inside it, so its
         # rows can enter the CL step's autograd graph
-        self._cl_ring = torch.zeros((t, k, self.height, self.width, self.channels),
-                                    dtype=torch.float32, device=self.device)
-        self._cl_valid = np.zeros((t, k), np.float32)
+        self._cl_rings = [torch.zeros((t, self._block, self.height, self.width, self.channels),
+                                      dtype=torch.float32, device=d)
+                          for d in self.block_devices]
+        self._cl_valid = np.zeros((t, self.n_streams), np.float32)
+
+    def _cl_eps(self, n: int) -> torch.Tensor:
+        """The latent noise of a mesh CL step's n stacked rows, drawn at once
+        from the model's generator: the unsharded step's draw."""
+        return torch.randn((n, self.model.latent_size), generator=self.model.generator,
+                           device=self.device)
+
+    def _cl_blocks(self, rings, replay) -> list:
+        """Per block, (its stacked CL rows on its device: its ring rows tick
+        by tick, then its replay rows; their rows' indices in the unsharded
+        stacked batch, t * K + k for the ring, T * K + r for the replay)."""
+        t, k, b = self.cl_ring_ticks, self.n_streams, self._block
+        out = []
+        for j, ring in enumerate(rings):
+            rows = ring.reshape((-1,) + tuple(ring.shape[2:]))
+            index = (np.arange(t)[:, None] * k + j * b + np.arange(b)[None, :]).reshape(-1)
+            if replay is not None:
+                r = replay[j].shape[0]
+                rows = torch.cat([rows, replay[j]], dim=0)
+                index = np.concatenate([index, t * k + j * r + np.arange(r)])
+            out.append((rows, torch.from_numpy(index).to(self.device)))
+        return out
+
+    def _mesh_grads(self, blocks: list, weights: torch.Tensor, eps: torch.Tensor):
+        """(loss dict, the gradients of the first device's parameters) of the
+        stacked batch in ``blocks``: each block's forward on its device and
+        replica, the loss over the union on the first device, the replicas'
+        gradients summed in."""
+        core, parts, index = self.model.core, [], []
+        for j, (rows, idx) in enumerate(blocks):
+            e = eps[idx].to(rows.device)
+            if self.block_devices[j] == self.device:
+                out = core.call_detailed(rows, training=True, eps=e)
+            else:
+                replica = {f"core.{k}": v for k, v in self._param_replicas[j].items()}
+                out = torch.func.functional_call(self._detailed, replica, (rows, e))
+            parts.append((rows,) + tuple(out))
+            index.append(idx)
+        order = torch.argsort(torch.cat(index))  # the unsharded row order
+        x, x_hat, z, mean, logvar = (torch.cat([p[i].to(self.device) for p in parts])[order]
+                                     for i in range(5))
+        loss = core.compute_loss(x, training=True, weights=weights,
+                                 detailed=(x_hat, z, mean, logvar))
+        params = list(self.model.optimizer.params)
+        names = self.model.optimizer.names
+        replicas = [[r[k] for k in names] for d, r in zip(self.block_devices,
+                                                         self._param_replicas)
+                    if d != self.device]
+        grads = torch.autograd.grad(loss["loss"], params + [t for r in replicas for t in r])
+        total = list(grads[:len(params)])
+        for i in range(len(replicas)):
+            for g, extra in zip(total, grads[(i + 1) * len(params):(i + 2) * len(params)]):
+                g.add_(extra.to(g.device))
+        return loss, total
+
+    def _mesh_cl_step(self) -> dict:
+        """The mesh's CL step on the ring and the replay buffer."""
+        w = [self._cl_valid.reshape(-1)]
+        if self._replay_blocks is not None:
+            w.append((np.arange(self.replay_capacity) < self.replay_n).astype(np.float32))
+        weights = torch.from_numpy(np.concatenate(w)).to(self.device)
+        loss, grads = self._mesh_grads(self._cl_blocks(self._cl_rings, self._replay_blocks),
+                                       weights, self._cl_eps(weights.shape[0]))
+        self.model.optimizer.step(grads)
+        return {k: v.detach() for k, v in loss.items()}
+
+    def _refresh_serve_params(self) -> None:
+        """The replicas after a CL step: the float copies take the trained
+        parameters in place; an int8 tree is quantized again and replicated."""
+        params = self.model.params
+        with torch.no_grad():
+            for device, replica in zip(self.block_devices, self._param_replicas):
+                if device != self.device:
+                    for k, t in replica.items():
+                        t.copy_(params[k])
+        if self.quantized:
+            _, tree = serving_forward(self.model.core, params, quantize=True)
+            self._serve_replicas = self._replicate(tree)
 
     def _do_cl_step(self) -> Optional[dict]:
         """One gradient step on the fleet ring (all streams, weighted rows)
@@ -237,17 +446,18 @@ class MultiCameraEngine(AutosaveControls):
         Returns the loss dict as floats, fetched in one copy."""
         if self._cl_valid is None or self._cl_valid.sum() == 0:
             return None
-        rows = self._cl_ring.reshape((-1,) + self._cl_ring.shape[2:])
-        stacked, weights = cl_batch(
-            rows, torch.from_numpy(self._cl_valid.reshape(-1)).to(self.device),
-            self.replay_buffer, self.replay_n)
         # parameters and moments update in place, tensor by tensor: defer
         # signals so an interrupt never leaves a step half applied
         with defer_signals():
-            loss, _x_hat = self.model.train_step_and_run(stacked, weights=weights)
-            if self.quantized:
-                _, self._serve_params = serving_forward(
-                    self.model.core, self.model.params, quantize=True)
+            if self.mesh is None:
+                rows = self._cl_rings[0].reshape((-1,) + self._cl_rings[0].shape[2:])
+                stacked, weights = cl_batch(
+                    rows, torch.from_numpy(self._cl_valid.reshape(-1)).to(self.device),
+                    self.replay_buffer, self.replay_n)
+                loss, _x_hat = self.model.train_step_and_run(stacked, weights=weights)
+            else:
+                loss = self._mesh_cl_step()
+            self._refresh_serve_params()
         self.cl_epochs += 1
         values = torch.stack([v.to(torch.float32) for v in loss.values()]).cpu().tolist()
         loss = dict(zip(loss, values))
@@ -284,10 +494,14 @@ class MultiCameraEngine(AutosaveControls):
             # converge to few distinct batch shapes
             ring_rows = self.cl_ring_ticks * self.n_streams
             self.replay_capacity = -(-n // ring_rows) * ring_rows
+        d = len(self.block_devices)  # the buffer's rows split evenly over the devices
+        self.replay_capacity = -(-self.replay_capacity // d) * d
         buf = torch.zeros((self.replay_capacity, self.height, self.width, self.channels),
                           dtype=torch.float32, device=self.device)
         buf[:n] = imgs
-        self.replay_buffer = buf
+        rows = self.replay_capacity // d
+        self._replay_blocks = [buf[j * rows:(j + 1) * rows].to(dev)
+                               for j, dev in enumerate(self.block_devices)]
         self.replay_n = n
         self.replay_buffer_paths = ok_paths
         print(f"Replay Buffer Loaded: {n} images (capacity {self.replay_capacity})")
@@ -388,17 +602,23 @@ class MultiCameraEngine(AutosaveControls):
         return out
 
     def _step(self, batch_u8: np.ndarray, valid: np.ndarray):
-        """One tick on the device: normalize, resize, one forward for all K
-        frames, one launch of the scorer over them. Returns the new state,
-        the tick's device results and the model-size float batch (which the
-        fleet CL ring stores); nothing is fetched."""
-        x = torch.from_numpy(batch_u8).to(self.device).to(torch.float32) / 255.0
-        x = resize_images(x, (self.height, self.width))
-        x_hat = self._forward(self._serve_params, x)
-        maps, scalars, norm, score_count = stream_score.stream_score_step_batched(
-            self.maps, self.scalars, x, x_hat, self.stream_error_ma,
-            torch.from_numpy(valid).to(self.device))
-        return maps, scalars, _to_u8(norm), _to_u8(x_hat), score_count, x
+        """One tick: for each block of streams on its device, normalize,
+        resize, one forward for its frames and one launch of the scorer over
+        them; every block is launched before any result is read. Returns,
+        each a list over the blocks, the new state, the tick's device
+        results and the model-size float batch (which the fleet CL ring
+        stores); nothing is fetched."""
+        b, out = self._block, []
+        for j, device in enumerate(self.block_devices):
+            rows = slice(j * b, (j + 1) * b)
+            x = torch.from_numpy(batch_u8[rows]).to(device).to(torch.float32) / 255.0
+            x = resize_images(x, (self.height, self.width))
+            x_hat = self._block_forward(j, x)
+            maps, scalars, norm, score_count = stream_score.stream_score_step_batched(
+                self._maps[j], self._scalars[j], x, x_hat, self.stream_error_ma,
+                torch.from_numpy(valid[rows]).to(device))
+            out.append((maps, scalars, _to_u8(norm), _to_u8(x_hat), score_count, x))
+        return tuple(list(t) for t in zip(*out))
 
     def warmup(self, frame_shape=None, cl: bool = False) -> None:
         """Build the kernels and run the tick once on zero frames BEFORE the
@@ -425,12 +645,30 @@ class MultiCameraEngine(AutosaveControls):
             *_state, score_count, _x = self._step(
                 np.zeros((self.n_streams, *self._ref_shape), np.uint8),
                 np.ones(self.n_streams, bool))
-            score_count.cpu()
+            for sc in score_count:
+                sc.cpu()
         if cl:
             self._ensure_cl()
-            n = self._cl_ring.shape[0] * self.n_streams + (
-                0 if self.replay_buffer is None else self.replay_buffer.shape[0])
-            warm_cl_backward(self.model, n, (self.height, self.width, self.channels))
+            if self.mesh is None:
+                n = self.cl_ring_ticks * self.n_streams + (
+                    0 if self._replay_blocks is None else self.replay_capacity)
+                warm_cl_backward(self.model, n, (self.height, self.width, self.channels))
+            else:
+                self._warm_mesh_cl()
+
+    def _warm_mesh_cl(self) -> None:
+        """``warm_cl_backward`` over the mesh: the CL step's loss and backward
+        once on mid-grey scratch blocks of its shapes, the gradients dropped."""
+        if self.device.type == "cuda":
+            moments.build()
+        rings = [torch.full_like(r, 0.5) for r in self._cl_rings]
+        replay = (None if self._replay_blocks is None
+                  else [torch.full_like(r, 0.5) for r in self._replay_blocks])
+        blocks = self._cl_blocks(rings, replay)
+        n = sum(rows.shape[0] for rows, _ in blocks)
+        _, grads = self._mesh_grads(blocks, torch.ones(n, device=self.device),
+                                    torch.zeros((n, self.model.latent_size), device=self.device))
+        float(grads[0].flatten()[0])  # wait for the backward
 
     def process_frames(self, frames: Sequence[Optional[np.ndarray]],
                        now: Optional[float] = None,
@@ -474,10 +712,11 @@ class MultiCameraEngine(AutosaveControls):
         # is written with its weights: defer signals so an interrupt never
         # splits them
         with defer_signals(), torch.inference_mode():
-            self.maps, self.scalars, norm_u8, rec_u8, score_count, x = self._step(batch, valid)
+            self._maps, self._scalars, norm_u8, rec_u8, score_count, x = self._step(batch, valid)
             if self.enable_cont_learning:
                 slot = self._cl_tick % self.cl_ring_ticks
-                self._cl_ring[slot].copy_(x)
+                for ring, rows in zip(self._cl_rings, x):
+                    ring[slot].copy_(rows)
                 self._cl_valid[slot] = valid.astype(np.float32)
                 self._cl_tick += 1
         if (self.enable_cont_learning
@@ -508,11 +747,13 @@ class MultiCameraEngine(AutosaveControls):
 
     def _emit(self, score_count, norm_u8, rec_u8, batch, valid, now,
               tag=None) -> List[Optional[StreamStatus]]:
-        """Host side of one tick: the one score fetch, the moving averages,
-        the per-stream state machines and the recording."""
+        """Host side of one tick: the score fetch (one device->host copy a
+        block), the moving averages, the per-stream state machines and the
+        recording."""
         self.last_emitted_tag = tag
-        sc = score_count.cpu().numpy()  # (K, 2), one device->host copy
+        sc = np.concatenate([c.cpu().numpy() for c in score_count])  # (K, 2)
         out: List[Optional[StreamStatus]] = []
+        b = self._block
         for i in range(self.n_streams):
             if not valid[i]:
                 out.append(None)
@@ -528,8 +769,8 @@ class MultiCameraEngine(AutosaveControls):
                 score_ma=float(self.score_ma[i]),
                 pixel_count=float(sc[i, 1]),
                 anomalous=bool(self.anomalous[i]),
-                _norm_dev=norm_u8[i],
-                _rec_dev=rec_u8[i],
+                _norm_dev=norm_u8[i // b][i % b],
+                _rec_dev=rec_u8[i // b][i % b],
             ))
         self._maybe_record(batch, valid, out, now)
         return out
@@ -592,9 +833,10 @@ class MultiCameraEngine(AutosaveControls):
 
     def reset_stream(self, i: int) -> None:
         """Task or camera change on one stream: reset its EMA state only."""
+        j, row = divmod(i, self._block)
         with torch.inference_mode():  # the state tensors were made under it
-            self.maps[i] = 0.0
-            self.scalars[i] = 0.0
+            self._maps[j][row] = 0.0
+            self._scalars[j][row] = 0.0
         self.score_ma[i] = 0.0
         self.anomalous[i] = False
         self.anomalous_start[i] = None
