@@ -310,6 +310,29 @@ script exits non-zero without printing its final line.
       the losses within 1e-6, the 2-step update within ZM_FP8_UPDATE_GAP, the float8 codes of
       the split leaves halved a rank; ms a step and max_memory_allocated a rank.
 
+  (tf) the reference's TF log directories and the log-directory doctor, at the flagship of
+      configs/config.yml (float32, seed 0). (tf1) whether tensorflow, sklearn and tensorstore
+      import on this machine (in child processes; none is used); the seeded weights written as
+      a reference log directory in the Keras 2 keys by testing.write_reference_logdir (5.38 GB
+      of TensorBundle data with their CRC-32Cs, timed), imported by
+      tools/import_tf_checkpoint_torch.py --device cuda in a child process (its seconds to read
+      the bundle, to put it on the card and to save, and its peak host RSS: the child's own
+      VmHWM, since the ru_maxrss of a child started by fork and exec carries its parent's);
+      the saved directory reloaded equals the source bit for bit, and 32 synthetic frames
+      through the engine on it (kernel 1) give the source engine's scores and counts exactly
+      (cudnn.deterministic in both). (tf2) tools/validate_logdir_torch.py --json in a fresh
+      process for each case, with its wall seconds, peak RSS and torch.cuda.is_initialized()
+      (False): the imported directory (no error; the warnings for optimizer/ and
+      train_state.json missing, nothing else); after tools/quantize_checkpoint_torch.py (no
+      staleness); after a changed decoder was imported into the same directory (the provenance
+      mismatch, naming the quantize tool); a copy whose config.yml says latent_dimensions 1000
+      (three shape errors, exit code 2); tests/data/jax_logdirs/global_f32 (without
+      tensorstore, the one error naming tools/convert_logdir_torch.py) and its converted copy
+      (usable). (tf3) between those, the imported directory's int8 sidecar booted by
+      ops/quant.py::load_int8_serving_model, 32 frames w8a8: kernel 10 twice a frame on the
+      tensor cores, kernel 1 once, scores finite, reconstructions within 8 grey levels of the
+      float engine's.
+
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.
@@ -5521,11 +5544,334 @@ def phase_zm(dev):
     return {"ticks": ticks_out, "launches": mesh_launches}
 
 
+TF_FRAMES = 32
+TF_MODULES = ("tensorflow", "sklearn", "tensorstore")
+TF_CHILD = r"""
+import json, os, resource, runpy, sys, threading, time
+
+
+def resident():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def high_water():
+    try:
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmHWM:"))
+    except (OSError, StopIteration):
+        return None
+
+
+peak = [resident()]
+done = threading.Event()
+
+
+def sample():  # the resident set every 10 ms, where the kernel keeps no high-water mark
+    while not done.wait(0.01):
+        peak[0] = max(peak[0], resident())
+
+
+threading.Thread(target=sample, daemon=True).start()
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+after_import = resident()
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+    code = 0
+except SystemExit as stop:
+    code = stop.code
+t2 = time.perf_counter()
+done.set()
+peak[0] = max(peak[0], resident())
+hwm = high_water()
+print(json.dumps({"code": code, "torch_import_s": t1 - t0, "tool_s": t2 - t1,
+                  "peak_rss": hwm if hwm is not None else peak[0],
+                  "peak_rss_source": "VmHWM" if hwm is not None else "VmRSS every 10 ms",
+                  "rss_after_torch_import": after_import,
+                  "ru_maxrss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def run_tool(args, timeout):
+    """A tool of tools/ in a child process: (its standard output without the last line, the
+    last line's record: exit code, seconds to import torch and to run the tool, the process's
+    peak RSS, its resident set once torch is imported (CUDA's libraries: gigabytes on the card's
+    machine) and whether it initialized CUDA, plus the process's wall seconds). The peak is
+    the child's own high-water mark (VmHWM), or, where the kernel keeps none, its resident set
+    sampled every 10 ms; ru_maxrss is printed beside it, but a child started by fork and exec
+    may carry its parent's high-water mark across the exec there."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TF_CHILD, os.path.join(REPO, "tools", args[0]),
+                           *args[1:]], capture_output=True, text=True, timeout=timeout, cwd=REPO)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0 and proc.stdout.strip(), (args, proc.stdout[-3000:],
+                                                          proc.stderr[-3000:])
+    lines = proc.stdout.strip().splitlines()
+    record = json.loads(lines[-1])
+    record["wall_s"] = wall
+    return "\n".join(lines[:-1]), record
+
+
+def module_imports(name):
+    """'imports', 'fails to import' or 'not installed', tried in a child process."""
+    import importlib.util
+
+    if importlib.util.find_spec(name) is None:
+        return "not installed"
+    proc = subprocess.run([sys.executable, "-c", f"import {name}"], capture_output=True,
+                          timeout=300, cwd=REPO)
+    return "imports" if proc.returncode == 0 else "fails to import"
+
+
+def tf_doctor(log_dir):
+    """tools/validate_logdir_torch.py --json on ``log_dir`` in a fresh process: (report, exit
+    code, the process's record from run_tool)."""
+    text, record = run_tool(["validate_logdir_torch.py", log_dir, "--json"], timeout=300)
+    return json.loads(text[text.index("{"):]), record["code"], record
+
+
+def log_doctor(label, report, record):
+    log(f"  doctor, {label}: exit code {record['code']}, {len(report['errors'])} error(s), "
+        f"{len(report['warnings'])} warning(s); {record['wall_s']:.3f} s of process (torch's "
+        f"import {record['torch_import_s']:.3f} s, the doctor {record['tool_s']:.3f} s), peak "
+        f"RSS {record['peak_rss'] / 2**30:.3f} GiB ({record['peak_rss_source']}; ru_maxrss "
+        f"{record['ru_maxrss'] / 2**30:.3f} GiB), of which torch's import "
+        f"{record['rss_after_torch_import'] / 2**30:.3f} GiB and the doctor "
+        f"{(record['peak_rss'] - record['rss_after_torch_import']) / 2**30:.3f} GiB; "
+        f"torch.cuda.is_initialized() {record['cuda_initialized']}")
+    for line in report["errors"] + report["warnings"]:
+        log(f"    {line[:200]}")
+    assert record["cuda_initialized"] is False, label
+
+
+def tf_engine_run(model, config, settings, dev, qparams=None):
+    """TF_FRAMES synthetic frames through the live engine (kernel 1 a frame; with the int8
+    tree, kernel 10 twice a frame); (results, launches by kernel entry)."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.stream.capture import SyntheticSource
+    from trustedai_cl_vae_ad_tpu_torch.stream.run import build_engine, run_stream
+
+    engine = build_engine(model, config, anomaly_settings=settings, qparams=qparams)
+    engine.warmup(frame_shape=(240, 320, 3))
+    torch.cuda.synchronize(dev)
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    results = []
+    run_stream(engine, SyntheticSource(n_frames=TF_FRAMES, anomaly_frames=range(20, 24), seed=0),
+               on_result=results.append, log=lambda m: None)
+    torch.cuda.synchronize(dev)
+    launches = launch_counts(stream_score, moments, int8_gemm)
+    assert len(results) == TF_FRAMES
+    return results, launches
+
+
+def tf_import_cli(ref, dst):
+    """tools/import_tf_checkpoint_torch.py ref dst --device cuda in a child process: its
+    seconds (read, onto the card, saved) and run_tool's record."""
+    import re
+
+    text, record = run_tool(["import_tf_checkpoint_torch.py", ref, dst, "--device", "cuda"],
+                            timeout=600)
+    assert record["code"] == 0, text[-3000:]
+    m = re.search(r"read ([0-9.]+) s, onto the device ([0-9.]+) s, saved ([0-9.]+) s", text)
+    assert m, text[-3000:]
+    record.update(zip(("read_s", "load_s", "save_s"), (float(v) for v in m.groups())))
+    return record
+
+
+def tf_bits(t):
+    import torch
+
+    return t.contiguous().view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype])
+
+
+def phase_tf(dev):
+    """The reference's TF log directories and the log-directory doctor at the flagship: (tf1)
+    import a Keras 2 reference directory of the seeded weights; (tf2) the doctor at each stage;
+    (tf3) the w8a8 boot of the imported directory's int8 sidecar."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch import testing
+    from trustedai_cl_vae_ad_tpu_torch.bridge import params_to_flax
+    from trustedai_cl_vae_ad_tpu_torch.config import load_config, save_config
+    from trustedai_cl_vae_ad_tpu_torch.ops import quant
+    from trustedai_cl_vae_ad_tpu_torch.registry import (
+        load_model_from_config,
+        load_model_from_directory,
+    )
+    from trustedai_cl_vae_ad_tpu_torch.stream.run import resolve_camera
+
+    available = {name: module_imports(name) for name in TF_MODULES}
+    log("  on this machine: " + ", ".join(f"{name} {v}" for name, v in available.items()))
+    has_tensorstore = available["tensorstore"] == "imports"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tf_")
+    ref, dst = os.path.join(tmp, "reference"), os.path.join(tmp, "imported")
+    out = {"launches": {}}
+
+    def add(counts):
+        for kernel, n in counts.items():
+            out["launches"][kernel] = out["launches"].get(kernel, 0) + n
+
+    try:
+        # (tf1) the seeded flagship as the reference writes it, then imported by the CLI
+        config = load_config(os.path.join(REPO, "configs", "config.yml"))
+        settings = resolve_camera(os.path.join(REPO, "configs", "cam_config.yml"))[0]
+        source = load_model_from_config(config, seed=0, device=dev)
+        flax = params_to_flax(source.params)
+        t0 = time.perf_counter()
+        testing.write_reference_logdir(ref, config, flax)
+        write_s = time.perf_counter() - t0
+        bundle = sum(os.path.getsize(os.path.join(r, f)) for r, _d, fs in os.walk(ref)
+                     for f in fs if ".data-" in f)
+        log(f"  (tf1) reference directory of the seeded flagship in Keras 2 keys: "
+            f"{bundle:,} bytes of bundle data written in {write_s:.3f} s "
+            f"({bundle / write_s / 1e9:.3f} GB/s, CRC-32C included)")
+        imp = tf_import_cli(ref, dst)
+        log(f"  (tf1) tools/import_tf_checkpoint_torch.py --device cuda in a child process: read "
+            f"{imp['read_s']:.3f} s (warm page cache: the bundle was just written), onto the card "
+            f"{imp['load_s']:.3f} s, saved {imp['save_s']:.3f} s; {imp['wall_s']:.3f} s of "
+            f"process (torch's import {imp['torch_import_s']:.3f} s); peak host RSS "
+            f"{imp['peak_rss'] / 2**30:.3f} GiB ({imp['peak_rss_source']}; ru_maxrss "
+            f"{imp['ru_maxrss'] / 2**30:.3f} GiB), of which torch's import "
+            f"{imp['rss_after_torch_import'] / 2**30:.3f} GiB")
+        out["tf1"] = dict(imp, write_s=write_s, bundle_bytes=bundle)
+        imported, _ = load_model_from_directory(dst, device=dev)
+        for key, t in source.params.items():
+            got = imported.params[key]
+            assert got.dtype == t.dtype and got.shape == t.shape, key
+            assert torch.equal(tf_bits(got), tf_bits(t)), key
+        n_params = sum(t.numel() for t in imported.params.values())
+        log(f"  (tf1) {n_params:,} parameters imported, saved and reloaded equal the seeded "
+            "source bit for bit")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # the same algorithms in both runs
+        try:
+            got, launches = tf_engine_run(imported, config, settings, dev)
+            ref_results, _ = tf_engine_run(source, config, settings, dev)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        assert launches["stream_score_cluster"] == TF_FRAMES, launches
+        add(launches)
+        for a, b in zip(got, ref_results):
+            assert (a.pixel_count == b.pixel_count and
+                    (a.score == b.score or (np.isnan(a.score) and np.isnan(b.score)))), (a, b)
+        assert_scores_finite(got, "imported engine")
+        log(f"  (tf1) {TF_FRAMES} frames through the engine on the imported weights: scores and "
+            "counts equal the source engine's; kernel 1 launched "
+            f"{launches['stream_score_cluster']} times")
+        float_recs = [r.reconstruction_u8.astype(np.float32) for r in got]
+        changed_decoder = {"decoder": flax["decoder"]}
+        del imported, source, flax, ref_results
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (tf2) the doctor, a fresh process for each case
+        report, rc, cost = tf_doctor(dst)
+        log_doctor("the imported directory", report, cost)
+        assert report["errors"] == [] and rc == 0, report
+        assert len(report["warnings"]) == 2, report["warnings"]
+        assert any(w.startswith("optimizer/ missing") for w in report["warnings"])
+        assert any(w.startswith("train_state.json missing") for w in report["warnings"])
+        # what the doctor adds to a process that has imported torch: no weight payload
+        assert cost["peak_rss"] - cost["rss_after_torch_import"] < 0.1 * bundle, cost
+        out["tf2"] = {"imported": cost}
+        text_q, record_q = run_tool(["quantize_checkpoint_torch.py", "-m", dst, "--device", "cuda"],
+                                    timeout=600)
+        assert record_q["code"] == 0, text_q[-3000:]
+        log(f"  (tf2) tools/quantize_checkpoint_torch.py: {record_q['wall_s']:.3f} s of process")
+        report, rc, cost = tf_doctor(dst)
+        log_doctor("after quantize_checkpoint_torch.py", report, cost)
+        assert report["errors"] == [] and len(report["warnings"]) == 2, report
+        assert report["info"]["quantized"] is True
+
+        # (tf3) the w8a8 boot of that sidecar: kernel 10 twice a frame, kernel 1 once
+        t0 = time.perf_counter()
+        booted, _cfg = quant.load_int8_serving_model(dst, device=dev, log=lambda m: None)
+        torch.cuda.synchronize(dev)
+        boot_s = time.perf_counter() - t0
+        got_q, launches_q = tf_engine_run(booted, config, settings, dev, qparams=booted.qparams)
+        assert launches_q["int8_gemm_mma"] == 2 * TF_FRAMES and launches_q["int8_gemm"] == 0, (
+            launches_q)
+        assert launches_q["stream_score_cluster"] == TF_FRAMES, launches_q
+        add(launches_q)
+        assert_scores_finite(got_q, "w8a8 engine")
+        rec_gap = max(float(np.abs(r.reconstruction_u8.astype(np.float32) - f).mean())
+                      for r, f in zip(got_q, float_recs))
+        assert rec_gap < 8.0, rec_gap
+        log(f"  (tf3) int8 boot of the imported directory's sidecar {boot_s:.3f} s; {TF_FRAMES} "
+            f"frames w8a8: kernel 10 launched {launches_q['int8_gemm_mma']} times (mma), kernel 1 "
+            f"{launches_q['stream_score_cluster']}; reconstructions within {rec_gap:.3f} grey "
+            "levels of the float engine's (mean a frame, at most)")
+        out["tf3"] = {"boot_s": boot_s, "rec_gap": rec_gap}
+        del booted
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (tf2) changed weights imported into the same directory: the sidecar is stale
+        changed = os.path.join(tmp, "changed")
+        os.makedirs(changed)
+        os.symlink(os.path.join(ref, "encoder"), os.path.join(changed, "encoder"))
+        bias = changed_decoder["decoder"]["Dense_0"]["bias"]
+        changed_decoder["decoder"]["Dense_0"]["bias"] = bias + np.float32(0.5)
+        testing.write_reference_logdir(changed, config, changed_decoder, parts=("decoder",))
+        del changed_decoder
+        gc.collect()
+        imp2 = tf_import_cli(changed, dst)
+        log(f"  (tf2) changed decoder imported into the same directory: read {imp2['read_s']:.3f}"
+            f" s, onto the card {imp2['load_s']:.3f} s, saved {imp2['save_s']:.3f} s")
+        # the remaining cases read and change nothing: their processes run side by side
+        drift = os.path.join(tmp, "drift")
+        os.makedirs(drift)
+        os.symlink(os.path.join(dst, "rounds"), os.path.join(drift, "rounds"))
+        os.symlink(os.readlink(os.path.join(dst, "current")), os.path.join(drift, "current"))
+        bad = load_config(os.path.join(dst, "config.yml"))
+        bad["model"]["latent_dimensions"] = 1000
+        save_config(bad, os.path.join(drift, "config.yml"))
+        cases = {"after importing changed weights": dst,
+                 "a copy with latent_dimensions 1000": drift,
+                 "tests/data/jax_logdirs/global_f32 (JAX layout)":
+                     os.path.join(JAX_LOGDIRS, "global_f32"),
+                 "tests/data/jax_logdirs/converted/global_f32":
+                     os.path.join(JAX_LOGDIRS, "converted", "global_f32")}
+        with ThreadPoolExecutor(len(cases)) as pool:
+            verdicts = dict(zip(cases, pool.map(tf_doctor, cases.values())))
+        for label, (report, rc, cost) in verdicts.items():
+            log_doctor(label, report, cost)
+        report, rc, _ = verdicts["after importing changed weights"]
+        assert report["errors"] == [] and len(report["warnings"]) == 3, report
+        assert any("DIFFERENT float checkpoint" in w and "quantize_checkpoint_torch.py" in w
+                   for w in report["warnings"]), report["warnings"]
+        report, rc, _ = verdicts["a copy with latent_dimensions 1000"]
+        assert rc == 2 and len(report["errors"]) == 3, report
+        assert all("drift" in e for e in report["errors"]), report["errors"]
+        report, rc, _ = verdicts["tests/data/jax_logdirs/global_f32 (JAX layout)"]
+        if has_tensorstore:
+            assert report["errors"] == [] and rc == 0, report
+        else:
+            assert rc == 2 and len(report["errors"]) == 1, report
+            assert ("tensorstore" in report["errors"][0]
+                    and "tools/convert_logdir_torch.py" in report["errors"][0]), report
+        report, rc, _ = verdicts["tests/data/jax_logdirs/converted/global_f32"]
+        assert report["errors"] == [] and rc == 0, report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..z to run after the build (for "
-                             "finding a fault); the final line is then not printed")
+                        help="comma-separated subset of c..z, zm, tf to run after the build "
+                             "(for finding a fault); the final line is then not printed")
     parser.add_argument("--worker", action="store_true",
                         help="(internal) run one rank of phase (z)'s or (zm)'s two-process "
                              "runs")
@@ -5643,6 +5989,8 @@ def main(argv=None):
         "and with a model axis, offline scoring over a mesh", lambda: phase_z(dev))
     run("zm", "the multi-camera engine on a device mesh; adam_fp8 with ZeRO-1 and on a model "
         "axis over two processes", lambda: phase_zm(dev))
+    run("tf", "the reference's TF log directories imported at the flagship; the log-directory "
+        "doctor on each stage; the w8a8 boot of the imported directory", lambda: phase_tf(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -5722,6 +6070,10 @@ def main(argv=None):
     # one-entry and the two-entry mesh in float and w8a8, and fleet CL over the two-entry mesh
     for entry in kernels:
         entry["launches_multicam_mesh"] = out["zm"]["launches"].get(entry["name"], 0)
+    # (tf)'s paths on the imported weights, each counted from zero and summed: the float engine
+    # on the imported directory (tf1) and the w8a8 engine booted from its int8 sidecar (tf3)
+    for entry in kernels:
+        entry["launches_tf_import"] = out["tf"]["launches"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

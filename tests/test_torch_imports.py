@@ -19,7 +19,9 @@ FORBIDDEN = ("jax", "flax", "optax", "orbax", "trustedai_cl_vae_ad_tpu", "camera
              "r18_conv_dw",
              # the JAX package's builder CLIs, which the *_torch.py builders carry over
              "build_raite_json_from_directory", "build_veri_dataset", "build_virat_dataset",
-             "fix_raite_event_data", "coco_validator")
+             "fix_raite_event_data", "coco_validator",
+             # the JAX package's checkpoint tools, which the *_torch.py tools carry over
+             "validate_logdir", "import_tf_checkpoint", "export_tf_checkpoint")
 ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "do_anomaly_detection_torch.py",
                 "kernel_bounds_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
                 "profile_stream_torch.py", "profile_train_torch.py", "serve_torch.py",
@@ -27,7 +29,9 @@ ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "do_anomaly_detecti
                 "build_veri_dataset_torch.py", "build_virat_dataset_torch.py",
                 "coco_validator_torch.py", "fix_raite_event_data_torch.py",
                 os.path.join("tools", "quantize_checkpoint_torch.py"),
-                os.path.join("tools", "convert_logdir_torch.py"))
+                os.path.join("tools", "convert_logdir_torch.py"),
+                os.path.join("tools", "validate_logdir_torch.py"),
+                os.path.join("tools", "import_tf_checkpoint_torch.py"))
 
 
 def _port_sources():
@@ -56,6 +60,7 @@ import build_raite_json_from_directory_torch, build_veri_dataset_torch, build_vi
 import coco_validator_torch, fix_raite_event_data_torch
 sys.path.insert(0, {os.path.join(REPO, "tools")!r})
 import quantize_checkpoint_torch, convert_logdir_torch
+import validate_logdir_torch, import_tf_checkpoint_torch
 print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
 """
     env = dict(os.environ, PYTHONPATH=REPO, TCVAE_PLATFORM="cpu", TCVAE_CPU_DEVICES="1")
@@ -82,7 +87,7 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "data/builders/raite_json.py", "data/builders/fix_raite.py",
                 "data/builders/veri.py", "data/builders/virat.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/collectives.py", "parallel/dp.py",
-                "parallel/zero.py", "parallel/tp.py"):
+                "parallel/zero.py", "parallel/tp.py", "train/tf_import.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
     # the multi-camera engine on a mesh and adam_fp8 on one: their modules above, their
     # JAX-parity tests beside the rest
@@ -94,7 +99,9 @@ def test_the_slices_new_modules_are_in_the_walk():
             "build_virat_dataset_torch.py", "coco_validator_torch.py",
             "fix_raite_event_data_torch.py",
             os.path.join("tools", "quantize_checkpoint_torch.py"),
-            os.path.join("tools", "convert_logdir_torch.py")} <= sources
+            os.path.join("tools", "convert_logdir_torch.py"),
+            os.path.join("tools", "validate_logdir_torch.py"),
+            os.path.join("tools", "import_tf_checkpoint_torch.py")} <= sources
 
 
 def test_port_sources_have_no_jax_import():
@@ -150,6 +157,42 @@ convert_logdir_torch.convert(logdir, os.path.join(tempfile.mkdtemp(), "converted
 assert "tensorstore" in sys.modules
 print(json.dumps(sorted(k for k in sys.modules
                         if k.split(".")[0] in {FORBIDDEN!r} + ("jaxlib",))))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO, TCVAE_PLATFORM="cpu", TCVAE_CPU_DEVICES="1")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_doctor_and_the_tf_importer_load_no_jax_and_no_tensorflow(tmp_path):
+    """tools/validate_logdir_torch.py on a JAX-written directory and on a
+    port directory, and tools/import_tf_checkpoint_torch.py without --verify
+    on a reference directory in the Keras 2 layout, leave no jax, flax,
+    optax, orbax, keras or tensorflow module in ``sys.modules``."""
+    data = os.path.join(REPO, "tests", "data", "jax_logdirs")
+    ref = str(tmp_path / "ref")
+    out = str(tmp_path / "out")
+    code = f"""
+import json, os, sys
+sys.path.insert(0, {os.path.join(REPO, "tools")!r})
+import import_tf_checkpoint_torch, validate_logdir_torch
+from trustedai_cl_vae_ad_tpu_torch import testing
+from trustedai_cl_vae_ad_tpu_torch.bridge import params_to_flax
+from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
+config = {{"data": {{"image_size": [16, 16, 3]}},
+          "loss": {{"kurtosis": 1.8, "w_kl_divergence": 0.0, "w_kurtosis": 1e-4, "w_mse": 1.0,
+                   "w_skew": 0.0, "w_z_l1_reg": 0.0}},
+          "model": {{"type": "KurtosisGlobal", "decoder_dense_filters": 4,
+                    "latent_dimensions": 8, "layers": [4]}},
+          "training": {{"batch_size": 8, "beta": 1e-6, "learning_rate": 1e-3, "max_epochs": 1}}}}
+model = load_model_from_config(config, device="cpu")
+testing.write_reference_logdir({ref!r}, config, params_to_flax(model.params))
+assert import_tf_checkpoint_torch.main([{ref!r}, {out!r}, "--device", "cpu"]) == 0
+assert validate_logdir_torch.main([{out!r}]) == 0
+assert validate_logdir_torch.main([os.path.join({data!r}, "global_f32")]) == 0
+print(json.dumps(sorted(k for k in sys.modules
+                        if k.split(".")[0] in {FORBIDDEN!r} + ("jaxlib", "keras", "tensorflow"))))
 """
     env = dict(os.environ, PYTHONPATH=REPO, TCVAE_PLATFORM="cpu", TCVAE_CPU_DEVICES="1")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

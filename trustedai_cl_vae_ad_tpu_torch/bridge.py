@@ -35,6 +35,7 @@ in the layouts above. The encoder's first Dense needs no reordering of its
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict
 
 import numpy as np
@@ -60,12 +61,38 @@ def _inverse(perm):
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
-    """A CPU tensor of ``a`` in its own dtype; bfloat16 (ml_dtypes) crosses as
-    its uint16 bit patterns."""
-    a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+    """A CPU tensor holding one C-order copy of ``a``, in its own dtype: a
+    transposed view or a memory-mapped array is copied once, by torch's
+    parallel copy; bfloat16 (ml_dtypes) crosses as its 16-bit patterns."""
+    bf16 = a.dtype.name == "bfloat16"
+    with warnings.catch_warnings():
+        # a read-only array (a memory-mapped shard) is only read: the copy owns its memory
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        t = torch.from_numpy(a.view(np.int16) if bf16 else a)
+    t = t.clone(memory_format=torch.contiguous_format)
+    return t.view(torch.bfloat16) if bf16 else t
+
+
+def state_dict_key(part: str, layer: str, leaf: str) -> str:
+    """The port's state-dict key of the flax leaf ``part/layer/leaf``."""
+    if leaf not in ("kernel", "bias"):
+        raise KeyError(f"unknown flax leaf {part}/{layer}/{leaf}")
+    return f"{part}.layers.{layer}.{'weight' if leaf == 'kernel' else 'bias'}"
+
+
+def shape_from_flax(layer: str, leaf: str, shape) -> tuple:
+    """The port's shape of a flax leaf of ``shape``."""
+    if leaf == "kernel":
+        return tuple(int(shape[i]) for i in _perm(layer))
+    return tuple(int(d) for d in shape)
+
+
+def shape_to_flax(key: str, shape) -> tuple:
+    """The flax shape of the port's tensor ``key`` of ``shape``."""
+    _part, _layers, layer, name = key.split(".")
+    if name != "weight":
+        return tuple(int(d) for d in shape)
+    return tuple(int(shape[i]) for i in _inverse(_perm(layer)))
 
 
 def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
@@ -75,14 +102,8 @@ def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
         for layer, leaves in tree[part].items():
             for leaf, arr in leaves.items():
                 a = np.asarray(arr)
-                if leaf == "kernel":
-                    a = a.transpose(_perm(layer))
-                    name = "weight"
-                elif leaf == "bias":
-                    name = "bias"
-                else:
-                    raise KeyError(f"unknown flax leaf {part}/{layer}/{leaf}")
-                out[f"{part}.layers.{layer}.{name}"] = _tensor(a)
+                key = state_dict_key(part, layer, leaf)
+                out[key] = _tensor(a.transpose(_perm(layer)) if leaf == "kernel" else a)
     return out
 
 

@@ -1,6 +1,6 @@
 """Parity fixtures and checks shared by the tests and ``chip_smoke.py``: the
-stream scorer's, then the training step's, then the dense-update kernels'
-(at the end of the file).
+stream scorer's, then the training step's, then the dense-update kernels',
+and at the end writers of the reference's TF log directories.
 
 One place states the inputs and the tolerances with which an implementation
 of the stream-scorer update (the CUDA kernel, the plain PyTorch version, the
@@ -21,6 +21,9 @@ JAX package's functions) is held against a reference:
 
 from __future__ import annotations
 
+import functools
+import os
+import struct
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -219,3 +222,261 @@ def shifted(t, offset: int):
     view = buf[offset:].view(t.shape)
     view.copy_(t)
     return view
+
+
+# -- the reference's log directories (train/tf_import.py) ------------------------------
+#
+# The reference saves a trained model as Keras SavedModels, whose variables are
+# a TensorFlow TensorBundle. TensorFlow 2.16 and later write Keras 3's keys only,
+# so these writers are how the reference's own Keras 2 keys are made for a test,
+# and how chip_smoke.py makes a flagship-size reference directory without
+# TensorFlow. TF's reader checks every block's and every tensor's CRC32C.
+
+_CRC32C_POLY = 0x82F63B78  # CRC-32C (Castagnoli), reflected
+_CRC_CHUNKS = 1 << 20  # chunks a buffer is split into, each run as one lane
+
+
+@functools.lru_cache(maxsize=1)
+def _crc_tables():
+    """The byte table of the reflected CRC-32C and two 16-bit tables that
+    step the register over one little-endian 32-bit word: for w = crc ^ word,
+    the new register is lo[w & 0xFFFF] ^ hi[w >> 16]."""
+    table = np.zeros((4, 256), np.uint32)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ (_CRC32C_POLY if c & 1 else 0)
+        table[0, i] = c
+    for k in range(1, 4):
+        table[k] = (table[k - 1] >> 8) ^ table[0][table[k - 1] & 0xFF]
+    idx = np.arange(1 << 16, dtype=np.uint32)
+    lo = table[3][idx & 0xFF] ^ table[2][idx >> 8]
+    hi = table[1][idx & 0xFF] ^ table[0][idx >> 8]
+    return table[0], lo, hi
+
+
+def _gf2_times(mat, vec: int) -> int:
+    out = 0
+    j = 0
+    while vec:
+        if vec & 1:
+            out ^= mat[j]
+        vec >>= 1
+        j += 1
+    return out
+
+
+def _zero_bytes_op(n: int, squares: list) -> np.ndarray:
+    """The 32 columns (GF(2)) of the linear map that feeds ``n`` zero bytes
+    through a raw CRC-32C register (no pre- or post-conditioning);
+    ``squares[k]``, the map of 2**k zero bytes, is extended as needed."""
+    if not squares:
+        m = [_CRC32C_POLY] + [1 << (j - 1) for j in range(1, 32)]  # one zero bit
+        for _ in range(3):
+            m = [_gf2_times(m, col) for col in m]
+        squares.append(m)
+    op = [1 << j for j in range(32)]
+    k = 0
+    while n:
+        while len(squares) <= k:
+            squares.append([_gf2_times(squares[-1], col) for col in squares[-1]])
+        if n & 1:
+            op = [_gf2_times(squares[k], col) for col in op]
+        n >>= 1
+        k += 1
+    return np.array(op, np.uint32)
+
+
+def _apply_op(op: np.ndarray, v: np.ndarray) -> np.ndarray:
+    out = np.zeros_like(v)
+    for j in range(32):
+        out ^= op[j] * ((v >> np.uint32(j)) & np.uint32(1))
+    return out
+
+
+def _raw_crc_rows(words: np.ndarray, out: np.ndarray) -> None:
+    """The raw CRC-32C (register from 0) of each row of ``words`` (rows of
+    little-endian 32-bit words) into ``out``: every row is one lane of the
+    same numpy operations, a word at a time."""
+    _, lo_table, hi_table = _crc_tables()
+    crc = np.zeros(words.shape[0], np.uint32)
+    lo, hi = np.empty_like(crc), np.empty_like(crc)
+    for start in range(0, words.shape[1], 64):
+        block = np.ascontiguousarray(words[:, start:start + 64].T)  # a word of every row, in a row
+        for w in block:
+            np.bitwise_xor(crc, w, out=crc)
+            np.bitwise_and(crc, 0xFFFF, out=lo)
+            np.right_shift(crc, 16, out=hi)
+            np.take(lo_table, lo, out=crc)
+            np.take(hi_table, hi, out=hi)
+            np.bitwise_xor(crc, hi, out=crc)
+    out[:] = crc
+
+
+def crc32c(data) -> int:
+    """CRC-32C (Castagnoli) of ``data`` (bytes or a numpy array's bytes), as
+    TensorFlow's ``crc32c::Value``. The buffer is cut into up to 2^20
+    equal chunks whose CRCs run side by side as numpy lanes on a few threads;
+    the chunks' CRCs are then joined pairwise (the CRC of two pieces is the
+    first's register fed the second's length in zero bytes, xor the
+    second's), so a 5 GB buffer takes seconds, not the hour of a Python byte
+    loop."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    byte_table = _crc_tables()[0]
+    squares: list = []
+    buf = (np.ascontiguousarray(data).reshape(-1).view(np.uint8) if isinstance(data, np.ndarray)
+           else np.frombuffer(bytes(data), np.uint8))
+    n = buf.size
+    chunk = max(256, (-(-n // _CRC_CHUNKS) + 3) & ~3)
+    count = n // chunk
+    raw = 0
+    if count:
+        crcs = np.zeros(count, np.uint32)
+        words = buf[:count * chunk].view(np.uint32).reshape(count, chunk // 4)
+        n_threads = min(8, os.cpu_count() or 1) if count >= 1 << 16 else 1
+        bounds = np.linspace(0, count, n_threads + 1).astype(int)
+        with ThreadPoolExecutor(n_threads) as pool:
+            list(pool.map(lambda i: _raw_crc_rows(words[bounds[i]:bounds[i + 1]],
+                                                  crcs[bounds[i]:bounds[i + 1]]),
+                          range(n_threads)))
+        # join pairwise; chunks of zeros in front change nothing of a raw CRC
+        size = 1 << (count - 1).bit_length()
+        v = np.concatenate([np.zeros(size - count, np.uint32), crcs])
+        span = chunk
+        while v.size > 1:
+            v = _apply_op(_zero_bytes_op(span, squares), v[0::2]) ^ v[1::2]
+            span *= 2
+        raw = int(v[0])
+    for b in buf[count * chunk:].tobytes():
+        raw = int(byte_table[(raw ^ b) & 0xFF]) ^ (raw >> 8)
+    # the standard CRC starts its register at all ones and inverts the result
+    init = int(_apply_op(_zero_bytes_op(n, squares), np.array([0xFFFFFFFF], np.uint32))[0])
+    return (raw ^ init ^ 0xFFFFFFFF) & 0xFFFFFFFF
+
+
+def masked_crc32c(data) -> int:
+    """The masked CRC-32C that LevelDB tables and TensorBundles store."""
+    crc = crc32c(data)
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+_TF_DTYPES = {"float32": 1, "float64": 2, "int32": 3, "uint8": 4, "int16": 5, "int8": 6,
+              "int64": 9, "bool": 10, "bfloat16": 14, "uint16": 17, "float16": 19,
+              "uint32": 22, "uint64": 23}
+_TABLE_MAGIC = 0xDB4775248B80FB57
+_RESTART_INTERVAL = 16
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _field(number: int, payload: bytes) -> bytes:  # a length-delimited protobuf field
+    return _varint(number << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _table_block(entries, restart_interval: int) -> bytes:
+    """A LevelDB-format block of sorted (key, value) entries: keys
+    prefix-compressed against the previous one, restarting every
+    ``restart_interval`` entries, then the restart offsets and their count."""
+    out = bytearray()
+    restarts = []
+    prev = b""
+    for i, (key, value) in enumerate(entries):
+        shared = 0
+        if i % restart_interval == 0:
+            restarts.append(len(out))
+        else:
+            while shared < min(len(prev), len(key)) and prev[shared] == key[shared]:
+                shared += 1
+        out += _varint(shared) + _varint(len(key) - shared) + _varint(len(value))
+        out += key[shared:] + value
+        prev = key
+    if not restarts:
+        restarts = [0]
+    out += b"".join(struct.pack("<I", r) for r in restarts) + struct.pack("<I", len(restarts))
+    return bytes(out)
+
+
+def write_tf_bundle(prefix: str, tensors: dict, block_size: int = 262144) -> None:
+    """Write ``tensors`` ({key: numpy array}; bfloat16 as ml_dtypes) as a
+    one-shard TensorBundle, as TensorFlow's ``BundleWriter`` lays it out:
+    ``<prefix>.data-00000-of-00001`` holds the tensors' bytes, and
+    ``<prefix>.index`` is a table of the ``BundleHeaderProto`` under key ""
+    and one ``BundleEntryProto`` per tensor (dtype, shape, offset, size,
+    masked CRC-32C of the bytes): data blocks of about ``block_size`` bytes
+    with restart points, an empty metaindex block, an index block, each
+    block followed by its type byte and masked CRC-32C, and the 48-byte
+    footer."""
+    entries = [(b"", _varint(1 << 3) + _varint(1) + _field(3, _varint(1 << 3) + _varint(1)))]
+    offset = 0
+    os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
+    with open(prefix + ".data-00000-of-00001", "wb") as data:
+        for key in sorted(tensors, key=lambda k: k.encode("utf-8")):
+            a = np.asarray(tensors[key])
+            raw = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+            data.write(memoryview(raw))
+            shape = b"".join(_field(2, _varint(1 << 3) + _varint(int(d))) for d in a.shape)
+            entry = (_varint(1 << 3) + _varint(_TF_DTYPES[a.dtype.name]) + _field(2, shape)
+                     + _varint(4 << 3) + _varint(offset) + _varint(5 << 3) + _varint(raw.size)
+                     + _varint(6 << 3 | 5) + struct.pack("<I", masked_crc32c(raw)))
+            entries.append((key.encode("utf-8"), entry))
+            offset += raw.size
+
+    index = bytearray()
+
+    def emit(block: bytes) -> bytes:  # the block with its trailer; returns its handle
+        handle = _varint(len(index)) + _varint(len(block))
+        index.extend(block + b"\x00" + struct.pack("<I", masked_crc32c(block + b"\x00")))
+        return handle
+
+    handles = []
+    pending = []
+    for i, entry in enumerate(entries):
+        pending.append(entry)
+        if i == len(entries) - 1 or sum(len(k) + len(v) for k, v in pending) >= block_size:
+            handles.append((pending[-1][0], emit(_table_block(pending, _RESTART_INTERVAL))))
+            pending = []
+    metaindex = emit(_table_block([], 1))
+    index_handle = emit(_table_block(handles, 1))
+    footer = metaindex + index_handle
+    index += footer + b"\x00" * (40 - len(footer)) + struct.pack("<Q", _TABLE_MAGIC)
+    with open(prefix + ".index", "wb") as f:
+        f.write(bytes(index))
+
+
+def write_reference_logdir(directory: str, config: dict, flax_params: dict,
+                           parts=("encoder", "decoder")) -> None:
+    """A log directory as the reference writes it, for the weights
+    ``flax_params`` ({'encoder': {layer: {'kernel', 'bias'}}, 'decoder': ...}
+    of numpy arrays in flax's layouts, which are Keras's): ``config.yml``
+    and ``encoder/variables/`` + ``decoder/variables/`` bundles under the
+    reference's Keras 2 keys (``layer_with_weights-N/kernel/.ATTRIBUTES/
+    VARIABLE_VALUE``), N in network order. The SavedModels' graphs are not
+    written: what ``train/tf_import.py`` reads is there, a serving signature
+    is not. ``parts`` names the SavedModels to write (``flax_params`` needs
+    only those)."""
+    from trustedai_cl_vae_ad_tpu_torch.config import save_config
+    from trustedai_cl_vae_ad_tpu_torch.train.tf_import import (
+        decoder_layer_names,
+        encoder_layer_names,
+    )
+
+    os.makedirs(directory, exist_ok=True)
+    names_of = {"encoder": encoder_layer_names(config), "decoder": decoder_layer_names(config)}
+    for part in parts:
+        names = names_of[part]
+        tensors = {f"layer_with_weights-{i}/{leaf}/.ATTRIBUTES/VARIABLE_VALUE":
+                   flax_params[part][name][leaf]
+                   for i, name in enumerate(names) for leaf in ("kernel", "bias")}
+        write_tf_bundle(os.path.join(directory, part, "variables", "variables"), tensors)
+    save_config(config, os.path.join(directory, "config.yml"))

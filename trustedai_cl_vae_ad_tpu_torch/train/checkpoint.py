@@ -54,6 +54,9 @@ a list in the flattened parameter tree's order (``mu/<i>``: an array, or
 ``{q, scale, scale_next}`` for a quantized leaf); the parameters' keys in
 the encoder's and decoder's ``_METADATA`` give each index its name
 (``bridge.fp8_moments_from_optax``).
+
+``param_specs`` gives the parameters' shapes and dtypes in either layout
+without reading a payload, for ``tools/validate_logdir_torch.py``.
 """
 
 from __future__ import annotations
@@ -71,6 +74,8 @@ from trustedai_cl_vae_ad_tpu_torch.bridge import (
     fp8_moments_from_optax,
     opt_state_from_optax,
     params_from_flax,
+    shape_from_flax,
+    state_dict_key,
 )
 from trustedai_cl_vae_ad_tpu_torch.train.orbax_read import (
     MANIFEST_FILE,
@@ -78,6 +83,8 @@ from trustedai_cl_vae_ad_tpu_torch.train.orbax_read import (
     is_orbax_subtree,
     read_subtree,
     subtree_keys,
+    subtree_shapes,
+    subtree_specs,
 )
 
 PARTS = ("encoder", "decoder")
@@ -463,8 +470,46 @@ def restore_params(logdir: str, map_location="cpu") -> Dict[str, torch.Tensor]:
 def _param_names(base: str) -> List[str]:
     """The state-dict keys of a JAX round's parameters, from its subtrees'
     ``_METADATA`` alone (no array is read)."""
-    return [f"{part}.layers.{layer}.{'weight' if leaf == 'kernel' else leaf}"
+    return [state_dict_key(part, layer, leaf)
             for part in PARTS for layer, leaf in subtree_keys(os.path.join(base, part))]
+
+
+def _orbax_param_spec(part: str, keys: tuple, shape: tuple):
+    """(state-dict key, the port's shape) of a JAX leaf; a leaf that is not a
+    parameter of the CVAE keeps its flax path and shape."""
+    try:
+        layer, leaf = keys
+        return state_dict_key(part, layer, leaf), shape_from_flax(layer, leaf, shape)
+    except (KeyError, ValueError):
+        return ".".join((part,) + tuple(keys)), tuple(shape)
+
+
+def param_specs(logdir: str, parts=PARTS) -> Dict[str, Tuple[tuple, Optional[torch.dtype]]]:
+    """{state-dict key: (shape, dtype)} of the parameters in the round that
+    ``resolve_round_dir`` selects, in either layout, with no weight payload
+    read. The port's ``params.pt`` is opened memory-mapped (``torch.load(mmap=
+    True)`` reads the archive's records, not the data pages); a JAX subtree
+    gives its shapes and dtypes from the leaves' zarr metadata through
+    tensorstore, or, where tensorstore does not import, its shapes from
+    ``_METADATA`` and dtype None."""
+    base = resolve_round_dir(logdir)
+    out: Dict[str, Tuple[tuple, Optional[torch.dtype]]] = {}
+    for part in parts:
+        path = os.path.join(base, part)
+        if _subtree_layout(path, part) == "port":
+            state = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu",
+                               weights_only=True, mmap=True)
+            out.update({k: (tuple(t.shape), t.dtype) for k, t in state.items()})
+            continue
+        try:
+            specs = subtree_specs(path)
+        except ImportError:
+            specs = {keys: (shape, None) for keys, shape in subtree_shapes(path).items()}
+        for keys, (shape, dtype) in specs.items():
+            key, shape = _orbax_param_spec(part, keys, shape)
+            dtype = getattr(torch, dtype, None) if dtype is not None else None
+            out[key] = (shape, dtype if isinstance(dtype, torch.dtype) else None)
+    return out
 
 
 def _optax_adam_state(tree: dict, path: str) -> dict:

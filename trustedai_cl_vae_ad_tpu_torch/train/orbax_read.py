@@ -22,6 +22,11 @@ the standard library and numpy, and a machine without tensorstore reads the
 port's own log directories, or those that ``tools/convert_logdir_torch.py``
 converted, with torch alone.
 
+``subtree_shapes`` reads the leaves' shapes from ``_METADATA`` alone, and
+``subtree_specs`` their shapes and dtypes from the zarr metadata through
+tensorstore, reading no array. Where tensorstore does not import, every read
+of an orbax subtree raises an ImportError that names the converter.
+
 Leaves come back as numpy arrays in their stored dtype; bfloat16 ones as
 ml_dtypes ``bfloat16``, which ``bridge.py`` moves into torch through their
 uint16 bits, exactly. Entries orbax records without data (``None``, an empty
@@ -74,18 +79,60 @@ def subtree_keys(path: str) -> list:
     return _leaf_keys(_metadata(path))
 
 
-def read_subtree(path: str) -> dict:
-    """The subtree at ``path`` as a nested dict {key: ... {key: numpy array}}
-    (sequence indices stay strings, as orbax writes them)."""
+def subtree_shapes(path: str) -> dict:
+    """{key path (a tuple of strings): shape} of each leaf with data, from the
+    subtree's ``_METADATA`` alone (each entry's ``value_metadata.write_shape``;
+    no tensorstore). That is the shape of the piece one process wrote: the
+    leaf's own shape unless the array was saved sharded, which only
+    ``subtree_specs`` sees."""
     meta = _metadata(path)
-    import tensorstore as ts
+    out = {}
+    for entry in meta["tree_metadata"].values():
+        value = entry.get("value_metadata", {})
+        if not value.get("skip_deserialize"):
+            keys = tuple(str(k["key"]) for k in entry["key_metadata"])
+            out[keys] = tuple(int(d) for d in value["write_shape"])
+    return out
 
+
+def import_tensorstore(path: str):
+    """The ``tensorstore`` module, or an ImportError that says why the port
+    needs it for ``path`` and what to do without it."""
+    try:
+        import tensorstore
+    except ImportError as err:
+        raise ImportError(
+            f"{path} is an orbax checkpoint of the JAX package, which the port reads only "
+            "through tensorstore, and tensorstore does not import here: convert the log "
+            "directory with tools/convert_logdir_torch.py where it does") from err
+    return tensorstore
+
+
+def _open_leaves(path: str):
+    """(keys, tensorstore handle) of each leaf with data; opening reads the
+    zarr metadata of a leaf, not its data."""
+    meta = _metadata(path)
+    ts = import_tensorstore(path)
     if not meta.get("use_ocdbt", True):
         raise ValueError(f"{path}: orbax wrote it without OCDBT, which this reader does not take")
     zarr3 = bool(meta.get("use_zarr3", False))
-    tree: dict = {}
     for keys in _leaf_keys(meta):
-        store = ts.open(_leaf_spec(path, keys, zarr3), open=True).result()
+        yield keys, ts.open(_leaf_spec(path, keys, zarr3), open=True, read=True).result()
+
+
+def subtree_specs(path: str) -> dict:
+    """{key path (a tuple of strings): (shape, dtype name)} of each leaf with
+    data, from the leaves' zarr metadata in the OCDBT store (through
+    tensorstore; no array is read)."""
+    return {tuple(keys): (tuple(int(d) for d in store.shape), store.dtype.name)
+            for keys, store in _open_leaves(path)}
+
+
+def read_subtree(path: str) -> dict:
+    """The subtree at ``path`` as a nested dict {key: ... {key: numpy array}}
+    (sequence indices stay strings, as orbax writes them)."""
+    tree: dict = {}
+    for keys, store in _open_leaves(path):
         node = tree
         for key in keys[:-1]:
             node = node.setdefault(key, {})
