@@ -62,6 +62,7 @@ from trustedai_cl_vae_ad_tpu_torch.stream.run import (
     run_all_cameras,
     run_stream,
 )
+from trustedai_cl_vae_ad_tpu_torch.utils.cli import add_device_argument, checked_device
 from trustedai_cl_vae_ad_tpu_torch.utils.metrics import MetricsWriter
 
 
@@ -77,8 +78,7 @@ def get_args(argv=None):
                         help="Model config YAML (e.g. configs/config.yml): random weights")
     parser.add_argument("--init-seed", type=int, default=0,
                         help="Seed of the random initial weights")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device (default cuda; never falls back to cpu)")
+    add_device_argument(parser)
     parser.add_argument("--source", "-s", "--rtsp-override", "--rtsp-overide",
                         dest="source", type=str, default=None,
                         help="Override source: 'synthetic', dir, file, index, or URL "
@@ -148,9 +148,7 @@ def get_args(argv=None):
         return args  # merging loads no model and needs no device
     if (args.model_dir is None) == (args.config is None):
         parser.error("give exactly one of -m/--model-dir and --config")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        parser.error(f"--device {args.device}: CUDA is not available")
+    checked_device(parser, args.device)
     return args
 
 

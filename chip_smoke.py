@@ -8,9 +8,10 @@ dense-kernel update probes, the convolution weight-gradient kernel with its prob
 crash-atomic checkpoints, and the live application's autosave, recording and fleet
 continual learning, and the scoring surfaces (the HTTP server and the offline
 two-pass CLI), JAX-written log directories and the COCO-JSON data path, the dataset
-builders and adam_fp8, parallel/ (data parallelism, ZeRO-1, a model axis), and the
-multi-camera engine on a device mesh with adam_fp8 on one; any failure raises and the
-script exits non-zero without printing its final line.
+builders and adam_fp8, parallel/ (data parallelism, ZeRO-1, a model axis), the
+multi-camera engine on a device mesh with adam_fp8 on one, the reference's TF log
+directories with the log-directory doctor, and the latent tools with the moment examples;
+any failure raises and the script exits non-zero without printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
   (b) build: nvcc builds the stream-scorer (one block a frame and one
@@ -332,6 +333,27 @@ script exits non-zero without printing its final line.
       ops/quant.py::load_int8_serving_model, 32 frames w8a8: kernel 10 twice a frame on the
       tensor cores, kernel 1 once, scores finite, reconstructions within 8 grey levels of the
       float engine's.
+  (lt) the latent tools and the moment examples, kernel 3 counted from zero over both. (lt1)
+      the seeded flagship of configs/config.yml (float32, seed 0) saved to a temporary log
+      directory whose config.yml points at a saved dataset of 256 + 64 frames at 224x300;
+      each tool through its main() and argv on cuda, its wall seconds and its model load's:
+      output_reconstructions_torch.py (4 x 320 PNGs that decode, no .npy left, the first 8
+      frames' errors within rtol 1e-4 of the same frames through the port on the CPU),
+      interpolate_torch.py (k = 10, N = 10), sample_latent_space_torch.py,
+      plot_j_diagram_torch.py on three PNGs of different sizes (-n 11; the decodes finite,
+      in [0, 1]), similarity_analysis_torch.py -f (256*255/2 pairs in distances.json, one
+      histogram a latent column, kernel 3's moments equal the plain version's at phase (i)'s
+      tolerances, 1000 distances equal float64 numpy's at rtol 1e-5; the seconds of the
+      distances, of distances.json and of the figures), plot_umap_torch.py --standardize
+      --interpolate (the PCA's components equal a float64 numpy SVD of what it was fitted
+      on, up to sign, at 1e-4; the fit's seconds). (lt2) kurtosis_example for each
+      distribution, kurtosis_single_example (200 steps at (16, 32)), kurtosis_pso (300 steps,
+      P = B = 64, D = 8), gamma_example and quick_camera_streamer synthetic -n 30, each timed:
+      kernel 3's forward on each kurtosis example's first input (the swarm laid out as
+      (B, P*D)) and its backward on the first step's input and upstream gradient, launched
+      uncounted, equal the plain versions, and the first step's gradient equals the plain
+      backward's. Every kernel 3 launch on cluster, none on moments.cu; matplotlib and sklearn
+      never loaded.
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -5867,10 +5889,356 @@ def phase_tf(dev):
     return out
 
 
+# phase (lt): the latent tools and the moment examples at the flagship's width. The saved
+# dataset is 256 train and 64 validation frames at the model's size, as phase (w) makes them
+LT_TRAIN, LT_VAL = 256, 64
+LT_J_SIZES = [(240, 320), (180, 200), (300, 260)]  # the J-diagram's three images, (h, w)
+LT_CPU_FRAMES = 8  # frames whose reconstruction error is checked against the CPU
+LT_PAIRS = 1000  # distances checked against float64 numpy
+LT_PAGES = 200  # latent columns whose histogram page is timed both ways
+LT_TOOLS = ("output_reconstructions_torch", "interpolate_torch", "sample_latent_space_torch",
+            "plot_j_diagram_torch", "similarity_analysis_torch", "plot_umap_torch")
+
+
+def decode_all(paths):
+    """Every PNG of ``paths`` opened and decoded (a pool of 8); returns how many."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def load(path):
+        with Image.open(path) as img:
+            img.load()
+            assert img.size[0] > 0 and img.size[1] > 0, path
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(load, paths))
+    return len(paths)
+
+
+def pngs(directory):
+    return sorted(os.path.join(directory, f) for f in os.listdir(directory) if f.endswith(".png"))
+
+
+def perdim_check(mo, z, gout=None):
+    """Kernel 3's forward (and, given the upstream gradient of the moments, its backward) at
+    the path's input z, launched uncounted, against the plain versions (phase (i)'s
+    tolerances); returns (forward error, backward error or None, the kernel's moments)."""
+    import torch
+
+    out = mo._launch("perdim_forward", "cluster", z)
+    ref = torch.stack(mo.perdim_moments_reference(z))
+    close_moments(out, ref)
+    if gout is None:
+        return float((out - ref).abs().max()), None, out
+    grad = mo._launch("perdim_backward", "cluster", z, out, gout)
+    grad_ref = mo.perdim_moments_backward_reference(z, out, gout)
+    scale = float(grad_ref.abs().max())
+    torch.testing.assert_close(grad, grad_ref, rtol=1e-4, atol=1e-6 * scale)
+    return float((out - ref).abs().max()), float((grad - grad_ref).abs().max()), out
+
+
+def lt_tools(dev, tmp, record):
+    """(lt1): the six latent tools through their main() on the saved seeded flagship."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import interpolate_torch
+    import output_reconstructions_torch
+    import plot_j_diagram_torch
+    import plot_umap_torch
+    import sample_latent_space_torch
+    import similarity_analysis_torch
+    from trustedai_cl_vae_ad_tpu_torch import registry
+    from trustedai_cl_vae_ad_tpu_torch.config import save_config
+    from trustedai_cl_vae_ad_tpu_torch.data.saved_dataset import save_dataset
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+    from trustedai_cl_vae_ad_tpu_torch.viz import latent
+    from trustedai_cl_vae_ad_tpu_torch.viz.plots import histogram_panel
+
+    t0 = time.perf_counter()
+    model, config = registry.load_model_from_config_path(
+        os.path.join(REPO, "configs", "config.yml"), seed=0, device="cuda")
+    h, w, c = config["data"]["image_size"]
+    n_params = sum(p.numel() for p in model.core.parameters())
+    ds = os.path.join(tmp, "dataset")
+    for split, n, seed in (("train", LT_TRAIN, 1), ("validation", LT_VAL, 2)):
+        frames = smooth_frames(np.random.RandomState(seed), n, h, w, c)
+        save_dataset(os.path.join(ds, split),
+                     [{"image": frames, "filepath": [f"{split}/{i}.png" for i in range(n)]}])
+    config["data"] = dict(config["data"], dataset_path=ds)
+    logdir = os.path.join(tmp, "model")
+    model.save_model(logdir, include_optimizer=False)
+    save_config(config, os.path.join(logdir, "config.yml"))
+    del model
+    torch.cuda.empty_cache()
+    images = []
+    rng = np.random.RandomState(3)
+    for i, (ih, iw) in enumerate(LT_J_SIZES):
+        images.append(os.path.join(tmp, f"attribute_{i}.png"))
+        Image.fromarray(smooth_frames(rng, 1, ih, iw, 3)[0]).save(images[-1])
+    record["setup_s"] = time.perf_counter() - t0
+    log(f"  the seeded flagship ({n_params} parameters) saved with a dataset of {LT_TRAIN} + "
+        f"{LT_VAL} frames at {h}x{w} in {record['setup_s']:.1f} s")
+
+    loads, fits = [], []
+    load_model_from_directory, pca_fit = registry.load_model_from_directory, latent.PCAEmbedder.fit
+
+    def timed_load(*args, **kwargs):
+        t = time.perf_counter()
+        out = load_model_from_directory(*args, **kwargs)
+        torch.cuda.synchronize(dev)
+        loads.append(time.perf_counter() - t)
+        return out
+
+    def recorded_fit(self, z):
+        t = time.perf_counter()
+        out = pca_fit(self, z)
+        torch.cuda.synchronize(dev)
+        fits.append((np.array(z), time.perf_counter() - t))
+        return out
+
+    out_dir = os.path.join(tmp, "out")
+    os.makedirs(out_dir)
+    runs = [
+        (output_reconstructions_torch, [logdir]),
+        (interpolate_torch, [logdir, "-k", "10", "-o", os.path.join(out_dir, "interpolate.png")]),
+        (sample_latent_space_torch, [logdir, "-o", os.path.join(out_dir, "latent_sample.png")]),
+        (plot_j_diagram_torch, [logdir, *images, "-o", os.path.join(out_dir, "j_diagram.png"),
+                                "-n", "11"]),
+        (similarity_analysis_torch, ["-m", logdir, "-d", ds, "-f"]),
+        (plot_umap_torch, [logdir, "-o", os.path.join(out_dir, "umap_plot.png"), "--standardize",
+                           "--interpolate", "-t", os.path.join(out_dir, "umap_interp.png")]),
+    ]
+    results, tools = {}, {}
+    registry.load_model_from_directory, latent.PCAEmbedder.fit = timed_load, recorded_fit
+    try:
+        for module, argv in runs:
+            name = module.__name__
+            t = time.perf_counter()
+            results[name] = module.main(argv + ["--device", "cuda"])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t
+            tools[name] = {"wall_s": wall, "load_s": loads[-1]}
+            log(f"  {name}: {wall:.3f} s, the model's load {loads[-1]:.3f} s of it "
+                f"({100 * loads[-1] / wall:.1f}%)")
+            torch.cuda.empty_cache()
+    finally:
+        registry.load_model_from_directory = load_model_from_directory
+        latent.PCAEmbedder.fit = pca_fit
+    record["tools"] = tools
+
+    # output_reconstructions: 4 x 320 PNGs, no sidecar left, the errors against the CPU
+    imgs = os.path.join(logdir, "imgs")
+    for kind in ("originals", "reconstructions", "errors", "heatmap"):
+        for split, n in (("train", LT_TRAIN), ("val", LT_VAL)):
+            d = os.path.join(imgs, kind, split)
+            assert sorted(os.listdir(d)) == sorted(f"{k}.png" for k in range(n)), (kind, split)
+    record["reconstruction_pngs"] = decode_all(
+        [p for kind in ("originals", "reconstructions", "errors", "heatmap")
+         for split in ("train", "val") for p in pngs(os.path.join(imgs, kind, split))])
+    assert record["reconstruction_pngs"] == 4 * (LT_TRAIN + LT_VAL)
+    decode_all([os.path.join(logdir, "reconstruction_hist.png")])
+    with open(os.path.join(logdir, "train_reconstruction_error.json")) as f:
+        train_err = json.load(f)
+    with open(os.path.join(logdir, "val_reconstruction_error.json")) as f:
+        assert len(json.load(f)) == LT_VAL
+    assert len(train_err) == LT_TRAIN
+    cpu_model, _ = registry.load_model_from_directory(logdir, device="cpu")
+    x = torch.from_numpy(smooth_frames(np.random.RandomState(1), LT_TRAIN, h, w, c)[:LT_CPU_FRAMES])
+    x = x.to(torch.float32) / 255.0
+    with torch.inference_mode():
+        cpu_err = torch.sqrt(torch.sum((x - cpu_model.core.call(x)) ** 2, dim=(1, 2, 3))).numpy()
+    del cpu_model
+    card_err = np.array([train_err[str(k)] for k in range(LT_CPU_FRAMES)])
+    np.testing.assert_allclose(card_err, cpu_err, rtol=1e-4)
+    record["reconstruction_err_vs_cpu"] = float(np.max(np.abs(card_err / cpu_err - 1)))
+    log(f"  reconstruction errors of {LT_CPU_FRAMES} frames against the CPU's: within "
+        f"{record['reconstruction_err_vs_cpu']:.3g} (relative; allowed 1e-4)")
+
+    # the decodes: shapes, finite, in [0, 1]
+    for name, shape in (("interpolate_torch", (12, 10, h, w, c)),
+                        ("sample_latent_space_torch", (100, h, w, c)),
+                        ("plot_j_diagram_torch", (121, h, w, c))):
+        arr = results[name]
+        assert arr.shape == shape and np.isfinite(arr).all(), (name, arr.shape)
+        assert arr.min() >= 0.0 and arr.max() <= 1.0, name
+    decode_all(pngs(out_dir))
+    assert len(pngs(out_dir)) == 5, pngs(out_dir)
+
+    # similarity: the pairs, 2000 histograms, kernel 3 and the distances against the plain math
+    sim = results["similarity_analysis_torch"]
+    sim_dir = os.path.join(logdir, "similarity")
+    with open(os.path.join(sim_dir, "distances.json")) as f:
+        lookup = json.load(f)
+    pairs = sum(len(v) for v in lookup.values())
+    assert pairs == LT_TRAIN * (LT_TRAIN - 1) // 2, pairs
+    hists = [p for p in pngs(sim_dir) if os.path.basename(p).startswith("latent_hist_")]
+    assert len(hists) == sim["z"].shape[1] == config["model"]["latent_dimensions"], len(hists)
+    record["similarity_pngs"] = decode_all(pngs(sim_dir))
+    z = torch.from_numpy(sim["z"]).to(dev)
+    ref_mean, ref_var, _skew, ref_kurt = mo.perdim_moments_reference(z)
+    close_moments(torch.stack([torch.from_numpy(sim["mean"]), torch.from_numpy(sim["std"]) ** 2,
+                               torch.from_numpy(sim["kurtosis"])]).to(dev),
+                  torch.stack([ref_mean, ref_var, ref_kurt]))
+    z64 = sim["z"].astype(np.float64)
+    zs = (z64 - sim["mean"]) / np.where(sim["std"] == 0, 1.0, sim["std"])
+    pick = np.random.RandomState(4)
+    i, j = pick.randint(0, LT_TRAIN, LT_PAIRS), pick.randint(0, LT_TRAIN, LT_PAIRS)
+    j = np.where(i == j, (j + 1) % LT_TRAIN, j)
+    euc = np.sqrt(np.sum((zs[i] - zs[j]) ** 2, axis=1))
+    cos = 1.0 - np.sum(zs[i] * zs[j], axis=1) / (np.linalg.norm(zs[i], axis=1)
+                                                  * np.linalg.norm(zs[j], axis=1))
+    np.testing.assert_allclose(sim["euclidean"][i, j], euc, rtol=1e-5)
+    np.testing.assert_allclose(sim["cosine"][i, j], cos, rtol=1e-5, atol=1e-6)
+    record["similarity_s"] = sim["seconds"]
+    log(f"  similarity: {pairs} pairs in distances.json, {len(hists)} latent histograms; "
+        f"distances {sim['seconds']['distances']:.3f} s, distances.json "
+        f"{sim['seconds']['distances_json']:.3f} s, the figures "
+        f"{sim['seconds']['histograms']:.3f} s; kernel 3's moments of the {tuple(z.shape)} latents "
+        f"equal the plain version's; {LT_PAIRS} distances equal float64 numpy's")
+
+    # a latent page's drawing, opaque bars drawn (the tool's path) against the same bars
+    # blended into the float plot area (the several-series path; alpha costs it nothing)
+    page_ms = {}
+    for label, alpha in (("drawn", None), ("blended", 0.65)):
+        t = time.perf_counter()
+        for idx in range(LT_PAGES):
+            histogram_panel({"z": sim["z"][:, idx]}, f"Latent Element #:{idx} Histogram",
+                            density=True, xlabel="Latent Space Value", ylabel="Density",
+                            alpha=alpha)
+        page_ms[label] = 1e3 * (time.perf_counter() - t) / LT_PAGES
+    record["hist_page_ms"] = page_ms
+    log(f"  a latent histogram page drawn on the host, over {LT_PAGES} columns: opaque bars "
+        f"drawn {page_ms['drawn']:.3f} ms, blended {page_ms['blended']:.3f} ms")
+
+    # the PCA against a float64 numpy SVD of what it was fitted on
+    (fitted, fit_s), = fits
+    centred = fitted.astype(np.float64) - fitted.astype(np.float64).mean(axis=0)
+    vt = np.linalg.svd(centred, full_matrices=False)[2][:2]
+    comps = results["plot_umap_torch"][0].components_
+    for k in range(2):
+        gap = min(np.abs(comps[k] - vt[k]).max(), np.abs(comps[k] + vt[k]).max())
+        assert gap < 1e-4, (k, gap)
+    emb = results["plot_umap_torch"]
+    assert emb[1].shape == (LT_TRAIN, 2) and emb[2].shape == (LT_VAL, 2)
+    record["pca_s"] = fit_s
+    log(f"  PCA of {fitted.shape}: fit {fit_s:.3f} s; its components equal a float64 numpy "
+        f"SVD's up to sign within 1e-4")
+
+
+def lt_examples(dev, record):
+    """(lt2): the four moment examples and the stream viewer at their default sizes."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    import gamma_example_torch
+    import kurtosis_example_torch
+    import kurtosis_pso_torch
+    import kurtosis_single_example_torch
+    import quick_camera_streamer_torch
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    examples = {}
+    errors = {}
+
+    def run(label, module, argv):
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            result = module.main(argv)
+        torch.cuda.synchronize(dev)
+        examples[label] = time.perf_counter() - t
+        lines = buf.getvalue().splitlines()
+        log(f"  {label}: {examples[label]:.3f} s; {lines[-2] if len(lines) > 1 else ''}")
+        return result
+
+    try:
+        for dist in sorted(kurtosis_example_torch.DISTRIBUTIONS):
+            res = run(f"kurtosis_example {dist}", kurtosis_example_torch,
+                      ["--distribution", dist, "-o", os.path.join(out_dir, f"k_{dist}.png"),
+                       "--device", "cuda"])
+            fwd_err, _, got = perdim_check(mo, torch.from_numpy(res["x"]).to(dev))
+            close_moments(torch.stack([torch.from_numpy(m) for m in res["moments"]]).to(dev),
+                          got)
+            errors[f"kurtosis_example {dist}"] = fwd_err
+        res = run("kurtosis_single_example", kurtosis_single_example_torch,
+                  ["-o", os.path.join(out_dir, "single.png"), "--device", "cuda"])
+        eps = res["x0"] + 1e-5 * res["noise0"]
+        leaf = torch.stack(mo.perdim_moments_reference(eps)).requires_grad_(True)
+        meu, _var, skew, kurt = leaf.unbind(0)
+        loss = (torch.mean((kurt - 3.0) ** 2) + torch.sqrt(torch.sum(meu ** 2))
+                + torch.mean(skew ** 2))
+        (gout,) = torch.autograd.grad(loss, leaf)
+        fwd_err, bwd_err, moments_out = perdim_check(mo, eps, gout)
+        grad_ref = mo.perdim_moments_backward_reference(eps, moments_out, gout)
+        torch.testing.assert_close(res["grad0"], grad_ref, rtol=1e-4,
+                                   atol=1e-6 * float(grad_ref.abs().max()))
+        errors["kurtosis_single_example"] = (fwd_err, bwd_err)
+        res = run("kurtosis_pso", kurtosis_pso_torch,
+                  ["-o", os.path.join(out_dir, "pso.png"), "--device", "cuda"])
+        pos0 = res["pos0"]
+        P, B, D = pos0.shape
+        errors["kurtosis_pso"] = perdim_check(
+            mo, pos0.permute(1, 0, 2).reshape(B, P * D).contiguous())[0]
+        assert torch.isfinite(res["gbest_fit"])
+        run("gamma_example", gamma_example_torch, [])
+        assert run("quick_camera_streamer synthetic -n 30", quick_camera_streamer_torch,
+                   ["synthetic", "-n", "30", "-o", os.path.join(out_dir, "frames")]) == 30
+        assert len(pngs(os.path.join(out_dir, "frames"))) == 30
+        decode_all(pngs(out_dir))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    record["examples_s"] = examples
+    record["example_errors"] = errors
+    log(f"  kernel 3 at the examples' inputs against the plain versions (uncounted launches): "
+        f"{errors}")
+
+
+def phase_lt(dev):
+    """The latent tools and the moment examples on the card: (lt1) the six tools at the
+    flagship's width on a saved seeded model and dataset, (lt2) the examples at their
+    default sizes; kernel 3's launches counted over both."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_latent_")
+    record = {}
+    try:
+        reset_launch_counts(stream_score, moments, int8_gemm)
+        lt_tools(dev, tmp, record)
+        lt_examples(dev, record)
+        torch.cuda.synchronize(dev)
+        record["launches"] = launch_counts(stream_score, moments, int8_gemm)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = record["launches"]
+    for op in ("perdim_forward", "perdim_backward"):
+        assert counts[f"moments_cluster_{op}"] > 0 and counts[f"moments_{op}"] == 0, counts
+    leaked = [m for m in ("matplotlib", "sklearn") if m in sys.modules]
+    assert not leaked, leaked
+    record["s"] = time.perf_counter() - t_phase
+    log(f"  kernel 3 launches over the phase: forward {counts['moments_cluster_perdim_forward']} "
+        f"cluster, {counts['moments_perdim_forward']} blocks; backward "
+        f"{counts['moments_cluster_perdim_backward']} cluster, "
+        f"{counts['moments_perdim_backward']} blocks; other kernels "
+        f"{ {k: v for k, v in counts.items() if 'perdim' not in k and v} }; matplotlib and "
+        f"sklearn not loaded; phase (lt) ran {record['s']:.1f} s")
+    return record
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..z, zm, tf to run after the build "
+                        help="comma-separated subset of c..z, zm, tf, lt to run after the build "
                              "(for finding a fault); the final line is then not printed")
     parser.add_argument("--worker", action="store_true",
                         help="(internal) run one rank of phase (z)'s or (zm)'s two-process "
@@ -5991,6 +6359,8 @@ def main(argv=None):
         "axis over two processes", lambda: phase_zm(dev))
     run("tf", "the reference's TF log directories imported at the flagship; the log-directory "
         "doctor on each stage; the w8a8 boot of the imported directory", lambda: phase_tf(dev))
+    run("lt", "the latent tools at the flagship's width and the moment examples, kernel 3 on "
+        "their path", lambda: phase_lt(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -6074,6 +6444,10 @@ def main(argv=None):
     # on the imported directory (tf1) and the w8a8 engine booted from its int8 sidecar (tf3)
     for entry in kernels:
         entry["launches_tf_import"] = out["tf"]["launches"].get(entry["name"], 0)
+    # (lt)'s path, counted from zero: the six latent tools on the saved flagship and the
+    # moment examples (kernel 3 forward and backward)
+    for entry in kernels:
+        entry["launches_latent_tools"] = out["lt"]["launches"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -27,6 +27,8 @@ import os
 
 
 def get_args(argv=None):
+    from trustedai_cl_vae_ad_tpu_torch.utils.cli import add_device_argument, checked_device
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--model-dir", "-m", required=True, type=str, help="Model directory")
     parser.add_argument("--dataset-path", "-d", required=True, type=str, help="Dataset directory")
@@ -46,15 +48,9 @@ def get_args(argv=None):
         "--quantize", action="store_true",
         help="int8-quantize the big dense kernels for both scoring passes (ops/quant.py)",
     )
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device (default cuda; never falls back to cpu)")
+    add_device_argument(parser)
     args = parser.parse_args(argv)
-
-    import torch
-
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        parser.error(f"--device {args.device}: no CUDA device is available "
-                     "(pass --device cpu to score on the CPU)")
+    checked_device(parser, args.device)
     if not os.path.isdir(args.model_dir):
         parser.error(f"--model-dir {args.model_dir} is not a directory")
     if not os.path.isdir(args.dataset_path):

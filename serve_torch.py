@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from trustedai_cl_vae_ad_tpu_torch.models.cvae import normalize_image_input
+from trustedai_cl_vae_ad_tpu_torch.utils.cli import add_device_argument
 
 
 class MicroBatcher:
@@ -405,8 +406,7 @@ def main(argv=None):
     parser.add_argument("--max-wait-ms", type=float, default=5.0)
     parser.add_argument("--quantize", action="store_true",
                         help="int8-quantize the big dense kernels for serving (ops/quant.py)")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device (default cuda; never falls back to cpu)")
+    add_device_argument(parser)
     args = parser.parse_args(argv)
     server = build_server(args.model_dir, args.port, args.stats, args.threshold,
                           args.max_batch, args.max_wait_ms, quantize=args.quantize,

@@ -127,3 +127,61 @@ def test_figures_without_matplotlib(tmp_path, monkeypatch):
     bars = (hist[..., 2] > 150) & (hist[..., 0] < 140)  # the first series' blue
     assert red.sum() > 100 and bars.sum() > 100
     assert (tmp_path / "flat.png").stat().st_size > 0
+
+
+def test_labelled_grid_layout(tmp_path, monkeypatch):
+    """The tools' grids, with matplotlib unimportable: a blank cell stays white,
+    each image sits in its cell scaled by a whole factor (to 64 pixels a side
+    at least), a row with a label gets a band above its images."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    rng = np.random.RandomState(8)
+    a, b, c = (rng.rand(16, 12, 3) for _ in range(3))
+    plots.labelled_grid([[(a, "X0"), None, (b, "X1")], [None, c, None]],
+                        str(tmp_path / "grid.png"), title="J-Diagram")
+    with Image.open(tmp_path / "grid.png") as img:
+        page = np.asarray(img.convert("RGB"))
+    scale, pad, band, head = 4, 4, 16, 30  # ceil(64 / 16); a one-line title's band
+    cell_h, cell_w = 16 * scale, 12 * scale
+    assert page.shape == (head + pad + band + 2 * (cell_h + pad), pad + 3 * (cell_w + pad), 3)
+    y0 = head + pad + band
+    np.testing.assert_array_equal(page[y0:y0 + cell_h:scale, pad:pad + cell_w:scale],
+                                  np.round(255 * a).astype(np.uint8))
+    x2 = pad + 2 * (cell_w + pad)
+    np.testing.assert_array_equal(page[y0:y0 + cell_h:scale, x2:x2 + cell_w:scale],
+                                  np.round(255 * b).astype(np.uint8))
+    y1, x1 = y0 + cell_h + pad, pad + cell_w + pad
+    np.testing.assert_array_equal(page[y1:y1 + cell_h:scale, x1:x1 + cell_w:scale],
+                                  np.round(255 * c).astype(np.uint8))
+    assert (page[y0:y0 + cell_h, x1:x1 + cell_w] == 255).all()  # the blank cell
+    assert (page[head + pad:y0, pad:pad + cell_w] < 128).any()  # the label "X0"
+    plots.labelled_grid([[rng.rand(70, 90, 1) for _ in range(2)]], str(tmp_path / "big.png"))
+    with Image.open(tmp_path / "big.png") as img:
+        assert img.size == (4 + 2 * (90 + 4), 4 + 70 + 4)  # no band, no title, scale 1
+
+
+def test_histogram_panels_scatter_and_bars(tmp_path, monkeypatch):
+    """Many overlaid series in one pass, panels composed on one page, the
+    scatter's series and the bars drawn in their colours, without matplotlib."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    rng = np.random.RandomState(9)
+    z = rng.randn(64, 300)
+    many = plots.histogram_panel({str(i): z[:, i] for i in range(300)}, "columns",
+                                 alpha=0.35, legend=False, density=True)
+    one = plots.histogram_panel({"z": z[:, 0]}, "one column\nN= 64", density=True)
+    bars = plots.bar_panel(np.array([1.5, 2.0, -0.5]), "kurtosis", hline=1.8,
+                           hline_label="analytic 1.80")
+    assert many.size == one.size == bars.size == (640, 480)
+    plots.panels([many, one, bars], str(tmp_path / "panels.png"), "summary", cols=2)
+    with Image.open(tmp_path / "panels.png") as img:
+        assert img.size == (1280, 30 + 2 * 480)
+    arr = np.asarray(many).astype(int)
+    assert ((arr[..., 2] > 150) & (arr[..., 0] < 200) & (arr[..., 0] != arr[..., 2])).sum() > 100
+    blue = np.asarray(bars).astype(int)
+    assert ((blue[..., 0] == 31) & (blue[..., 1] == 119) & (blue[..., 2] == 180)).sum() > 1000
+    plots.scatter(str(tmp_path / "scatter.png"), {"training": rng.randn(50, 2),
+                                                  "validation": rng.randn(20, 2) + 3},
+                  "PCA Embeddings\nLatent Dim: 8")
+    with Image.open(tmp_path / "scatter.png") as img:
+        pts = np.asarray(img.convert("RGB")).astype(int)
+    for rgb in plots._SERIES_RGB[:2]:
+        assert (np.abs(pts - np.array(rgb)).sum(axis=-1) == 0).sum() > 20, rgb

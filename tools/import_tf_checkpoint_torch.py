@@ -51,20 +51,16 @@ def verify(ref_dir: str, model, config: dict) -> tuple:
 
 
 def main(argv=None):
+    from trustedai_cl_vae_ad_tpu_torch.utils.cli import add_device_argument, checked_device
+
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("ref_dir", help="reference log directory (encoder/ decoder/ config.yml)")
     parser.add_argument("out_dir", help="log directory to write the port's checkpoint into")
     parser.add_argument("--verify", action="store_true",
                         help="run the SavedModels too (needs tensorflow) and assert MSE < 1e-5")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device the model is imported onto (default cuda; never "
-                             "falls back to cpu)")
+    add_device_argument(parser)
     args = parser.parse_args(argv)
-
-    import torch
-
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        parser.error(f"--device {args.device}: CUDA is not available")
+    checked_device(parser, args.device)
     from trustedai_cl_vae_ad_tpu_torch.config import save_config
     from trustedai_cl_vae_ad_tpu_torch.train.tf_import import import_tf_checkpoint
 

@@ -21,20 +21,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(argv=None):
+    from trustedai_cl_vae_ad_tpu_torch.utils.cli import add_device_argument, checked_device
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--model-dir", "-m", required=True)
     parser.add_argument("--min-elems", type=int, default=None,
                         help="quantize Dense kernels with at least this many elements "
                              "(default ops/quant.DEFAULT_MIN_ELEMS)")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device the quantization pass runs on (default cuda; "
-                             "never falls back to cpu)")
+    add_device_argument(parser)
     args = parser.parse_args(argv)
-
-    import torch
-
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        parser.error(f"--device {args.device}: CUDA is not available")
+    checked_device(parser, args.device)
     from trustedai_cl_vae_ad_tpu_torch.ops.quant import (
         quantize_params,
         save_quantized_checkpoint,

@@ -53,6 +53,7 @@ from trustedai_cl_vae_ad_tpu_torch.parallel.mesh import (
 from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
 from trustedai_cl_vae_ad_tpu_torch.train.checkpoint import has_optimizer
 from trustedai_cl_vae_ad_tpu_torch.train.loop import evaluate, load_train_state, train_model
+from trustedai_cl_vae_ad_tpu_torch.utils.cli import add_device_argument, checked_device
 
 
 def get_args(argv=None):
@@ -61,8 +62,7 @@ def get_args(argv=None):
     parser.add_argument("--dry-run", action="store_true", help="Quit before executing training")
     parser.add_argument("--resume", type=str, default=None, metavar="LOGDIR",
                         help="Resume from a previous log dir (weights and Adam moments)")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device (default cuda; never falls back to cpu)")
+    add_device_argument(parser)
     parser.add_argument("--seed", type=int, default=0,
                         help="Seed of the initial weights and of the training noise")
     parser.add_argument("--no-parallel", action="store_true", help="Disable data-parallel mesh")
@@ -78,9 +78,7 @@ def get_args(argv=None):
     args = parser.parse_args(argv)
     if args.coordinator is not None and (args.num_processes is None or args.process_id is None):
         parser.error("--coordinator requires --num-processes and --process-id")
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        parser.error(f"--device {args.device}: no CUDA device is available "
-                     "(pass --device cpu to train on the CPU)")
+    checked_device(parser, args.device)
     return args
 
 

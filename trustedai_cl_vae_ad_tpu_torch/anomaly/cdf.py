@@ -3,8 +3,9 @@
 Counterpart of ``CDFObject``, ``normal_ppf`` and ``threshold_from_cdf`` in
 ``trustedai_cl_vae_ad_tpu/anomaly/cdf.py`` (numpy only, as there): a
 histogram CDF with searchsorted lookups, and the robust tail-extrapolated
-threshold. ``BSTProb`` and the timing CLI are not ported; the stream does
-not use them.
+threshold, and ``benchmark_reset``, the timing loop that
+``examples/gamma_example_torch.py`` runs. ``BSTProb`` is not ported; nothing
+of the port uses it.
 """
 
 from __future__ import annotations
@@ -48,6 +49,20 @@ class CDFObject:
         idx = np.clip(np.searchsorted(self.cdf, p, side="left"), 0, len(self.cdf) - 1)
         out = self.bin_edges[1:][idx]
         return float(out) if np.isscalar(p) else out
+
+
+def benchmark_reset(n_runs: int = 1000, alpha: float = 2.0, beta: float = 4.0, n: int = 10000):
+    """Seconds of ``n_runs`` resets of a CDFObject on n Gamma(alpha, 1/beta)
+    draws from numpy's global random state, printed and returned."""
+    import time
+
+    cdf = CDFObject(np.random.gamma(shape=alpha, scale=1.0 / beta, size=(n,)))
+    t0 = time.perf_counter()
+    for _ in range(n_runs):
+        cdf.reset(np.random.gamma(shape=alpha, scale=1.0 / beta, size=(n,)))
+    dt = time.perf_counter() - t0
+    print(f"Time Delta for {n_runs} runs: {dt} s, {dt / n_runs} s/frame")
+    return dt
 
 
 def normal_ppf(p: float) -> float:

@@ -13,9 +13,9 @@ Counterpart of ``trustedai_cl_vae_ad_tpu/data/loader.py``:
   * ``dataset: synthetic`` -> seeded noise frames (``n_train``, ``n_val``;
     ``synthetic_frame_size: [W, H]`` makes the frames at another size than
     ``image_size``, so that the device resize runs);
-  * any other ``dataset`` name is a TensorFlow Datasets catalog entry, which
-    needs ``tensorflow_datasets`` and the dataset downloaded beforehand
-    (``data_dir``): not ported (ROADMAP queue 1 item 1), it raises.
+  * any other ``dataset`` name is a TensorFlow Datasets catalog entry. The
+    port leaves that branch out: it needs ``tensorflow_datasets`` and the
+    dataset downloaded beforehand (``data_dir``), and it raises, saying so.
 
 ``device_cache: true`` keeps every split's preprocessed batches in device
 memory after the first epoch (``data/ingest.py::DeviceCachedStream``), within
@@ -192,9 +192,10 @@ def load_data(config: dict, device="cuda") -> dict:
         where = data_config.get("data_dir") or "tensorflow_datasets' default data_dir"
         raise NotImplementedError(
             f"catalog dataset {dataset_name!r} needs tensorflow_datasets and the dataset "
-            f"downloaded beforehand into {where} (tfds.load(..., download=False)), and is not "
-            "ported yet (ROADMAP.md queue 1 item 1); use dataset: raite (COCO JSON), "
-            "dataset_path (a saved dataset directory) or dataset: synthetic")
+            f"downloaded beforehand into {where} (tfds.load(..., download=False)); the PyTorch "
+            "port reads no catalog dataset, so that it needs neither TensorFlow nor a download. "
+            "Use dataset: raite (COCO JSON), dataset_path (a saved dataset directory) or "
+            "dataset: synthetic")
 
     raise ValueError(
         "No dataset configured: set data.dataset (raite / synthetic) or data.dataset_path "
