@@ -10,8 +10,9 @@ continual learning, and the scoring surfaces (the HTTP server and the offline
 two-pass CLI), JAX-written log directories and the COCO-JSON data path, the dataset
 builders and adam_fp8, parallel/ (data parallelism, ZeRO-1, a model axis), the
 multi-camera engine on a device mesh with adam_fp8 on one, the reference's TF log
-directories with the log-directory doctor, and the latent tools with the moment examples;
-any failure raises and the script exits non-zero without printing its final line.
+directories with the log-directory doctor, the latent tools with the moment examples, and the
+Qt shells with the TF export tool; any failure raises and the script exits non-zero without
+printing its final line.
 
   (a) device: the card's name and power limit, torch version, TF32 flags;
   (b) build: nvcc builds the stream-scorer (one block a frame and one
@@ -206,7 +207,7 @@ any failure raises and the script exits non-zero without printing its final line
       round is committed after the drain, and load_engine_from_directory
       restores parameters and Adam moments equal bit for bit to clones taken
       at the autosave and scores a fixed frame from a copied scorer state with
-      the original's bits; one synchronous autosave (the override, on the
+      the original's bits (both under cudnn.deterministic); one synchronous autosave (the override, on the
       frame it blocks); the scorer once a frame on the cluster kernel. Then 16
       cameras (one dropping every 4th tick), a ring of 4 ticks, CL period 1 s,
       recording on, 32 ticks at 20 ticks/s through run_all_cameras: a fleet CL
@@ -279,11 +280,13 @@ any failure raises and the script exits non-zero without printing its final line
       last within Y_LOSS_RTOL of each other; adam_fp8 on the card against the CPU's update.
   (z) parallel/ (data parallelism over the global batch, ZeRO-1, a model axis, scoring over
       a mesh). (z1) train_torch.py's main on configs/config.yml at flagship width (float32 +
-      adam, 2 training and 1 validation batches of 256 synthetic 240x320 frames), once through
+      adam, 2 training and 1 validation batches of 256 synthetic 240x320 frames) through
       --coordinator 127.0.0.1:<port> --num-processes 1 --process-id 0 (NCCL, the data-parallel
-      path at world size 1) and once with --no-parallel: the losses equal at 1e-5 relative,
-      kernel 2 launched once forward a step and once backward a training step, all cluster,
-      both ways; each step's ms. (z2) two processes of this script (--worker) on the one
+      path at world size 1), against the same training without a process group: phase (h)'s
+      train_model run, the same config, data and seed (with --phases naming z without h, the
+      CLI once more with --no-parallel): the losses equal at 1e-5 relative, kernel 2 launched
+      once forward a step and once backward a training step, all cluster, both ways; each
+      step's ms, synchronized and timed alone in both. (z2) two processes of this script (--worker) on the one
       card joined by gloo (NCCL refuses two ranks on one GPU; gloo carries CUDA tensors), the
       flagship float32 + adam + ZeRO-1, each rank its 128 rows of one seeded 256-frame batch,
       2 steps, against this process's 2 steps on the whole batch: the losses equal on both
@@ -303,13 +306,16 @@ any failure raises and the script exits non-zero without printing its final line
       kernel 10 at M = 8 against their plain versions. (zm3) fleet CL, K = 16, a ring of 4
       ticks, 2 steps over the two-entry mesh against no mesh from the same seed: the losses
       within 1e-6, the 2-step update within 0.05 (update_gap). (zm4) two processes of this
-      script (--worker --job zm) on the one card by gloo: on identical injected gradients each
+      script (--worker --job zm) on the one card by gloo (this process runs its one-process
+      references while they start): on identical injected gradients each
       rank's blocks of the flagship Dense weights' q, scale, scale_next and parameter after 2
       adam_fp8 steps equal one process's bits, ZeRO-1 and (data 1, model 2); then the
       flagship bfloat16 with adam_fp8, 2 steps of one seeded 256-frame batch with ZeRO-1 and
       on (data 1, model 2), under cudnn.deterministic as the one process it is held against:
-      the losses within 1e-6, the 2-step update within ZM_FP8_UPDATE_GAP, the float8 codes of
-      the split leaves halved a rank; ms a step and max_memory_allocated a rank.
+      the losses within 1e-6, the 2-step update within ZM_FP8_UPDATE_GAP (0.25), the float8
+      codes of the split leaves halved a rank; ms a step and max_memory_allocated a rank; then
+      the same two runs with float32 parameters at the same batch of 256 (the losses within
+      1e-4, the 2-step update within 0.05).
 
   (tf) the reference's TF log directories and the log-directory doctor, at the flagship of
       configs/config.yml (float32, seed 0). (tf1) whether tensorflow, sklearn and tensorstore
@@ -325,8 +331,8 @@ any failure raises and the script exits non-zero without printing its final line
       process for each case, with its wall seconds, peak RSS and torch.cuda.is_initialized()
       (False): the imported directory (no error; the warnings for optimizer/ and
       train_state.json missing, nothing else); after tools/quantize_checkpoint_torch.py (no
-      staleness); after a changed decoder was imported into the same directory (the provenance
-      mismatch, naming the quantize tool); a copy whose config.yml says latent_dimensions 1000
+      staleness); after a changed decoder was imported into the same directory by
+      train/tf_import.py in this process (the provenance mismatch, naming the quantize tool); a copy whose config.yml says latent_dimensions 1000
       (three shape errors, exit code 2); tests/data/jax_logdirs/global_f32 (without
       tensorstore, the one error naming tools/convert_logdir_torch.py) and its converted copy
       (usable). (tf3) between those, the imported directory's int8 sidecar booted by
@@ -335,7 +341,8 @@ any failure raises and the script exits non-zero without printing its final line
       float engine's.
   (lt) the latent tools and the moment examples, kernel 3 counted from zero over both. (lt1)
       the seeded flagship of configs/config.yml (float32, seed 0) saved to a temporary log
-      directory whose config.yml points at a saved dataset of 256 + 64 frames at 224x300;
+      directory whose config.yml points at a saved dataset of 256 + 64 frames at 224x300 (made
+      once a run: phase (qt) takes the same directory);
       each tool through its main() and argv on cuda, its wall seconds and its model load's:
       output_reconstructions_torch.py (4 x 320 PNGs that decode, no .npy left, the first 8
       frames' errors within rtol 1e-4 of the same frames through the port on the CPU),
@@ -354,6 +361,26 @@ any failure raises and the script exits non-zero without printing its final line
       uncounted, equal the plain versions, and the first step's gradient equals the plain
       backward's. Every kernel 3 launch on cluster, none on moments.cu; matplotlib and sklearn
       never loaded.
+  (qt) the Qt shells through tests/qt_stub.py (the PyQt5 stand-in of their tests; whether
+      PyQt5 and tensorflow import here is printed) on (lt1)'s saved flagship, under
+      cudnn.deterministic. (qt1) camera_streamer_qt_torch's window, built as its main() builds
+      it with --warmup 480x640, over 4 x 64 synthetic 480x640 frames, 64 in each view mode
+      (each pane equal to its mode's image of the tick's result), then a recording toggled over
+      8 ticks (labels.json of 8 images) and CL switched on through its checkbox for 4 ticks
+      (continuous_learning_period_ms 0: a step a tick, finite losses); a StreamingEngine from
+      the same directory, process_frame alone on the same frames, gives every score and count
+      bit for bit and, with CL as the window set it, the same launches; a --quantize window
+      over the first 32 frames: kernel 10 twice a tick (mma), kernel 1 once, scores finite,
+      reconstructions within 8 grey levels of the float window's; each tick's p50 / p95
+      through the window beside process_frame's alone, float and w8a8. (qt2) the decoder
+      window at the flagship's 2000 spinboxes on the engine's model: three set and the timer
+      fired draw model.decode's image bit for bit; the redraw's and the decode's p50; then
+      decoder_generator_qt_torch.py --decode-z (2000 values) and --histogram as child
+      processes on cuda (PNGs of 300x224 and 640x480 that decode; matplotlib never loaded).
+      (qt3) tools/export_tf_checkpoint_torch.py --device cuda as a child beside them: where
+      tensorflow does not import it exits non-zero with the exporter's error and writes no
+      SavedModel, else its export is imported back bit for bit. Kernel 1 and kernel 10 counted
+      over the windows' ticks, by arrangement.
 
 ``--phases b,i`` runs a subset (a build always comes first) and prints no
 final line. Before the last line it prints the kernels' JSON line and the nvidia-smi
@@ -1242,11 +1269,12 @@ def phase_h(model_type="KurtosisGlobal", train_steps=2, loss_update=None, bf16_s
         data = load_data(config)
         model = load_model_from_config(config, seed=0)
         assert model.device.type == "cuda" and type(model.core).__name__ == f"{model_type}CVAE"
-        moments.reset_counts()
-        t0 = time.perf_counter()
-        train_model(config, model, data, log_every=1)
-        torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
+        with StepRecorder() as recorder:
+            t0 = time.perf_counter()
+            train_model(config, model, data, log_every=1)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            steps = recorder.run(total_s)
         launched = counts()
         arrangements = {op: dict(c) for op, c in moments.moments_arrangements.items()}
         peak = torch.cuda.max_memory_allocated()
@@ -1294,7 +1322,7 @@ def phase_h(model_type="KurtosisGlobal", train_steps=2, loss_update=None, bf16_s
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
-    result = {"launched": launched, "arrangements": arrangements}
+    result = {"launched": launched, "arrangements": arrangements, "steps": steps}
     if not bf16_steps:
         return result
 
@@ -3090,10 +3118,17 @@ def persistence_single(tmp, cam_config):
     maps, scalars = engine.score_state.maps.clone(), engine.score_state.scalars.clone()
     fixed = SyntheticSource(n_frames=1, anomaly_frames=range(1), seed=9).read()
     scored = []
-    for e in (engine, reloaded):
-        e.score_state = StreamScoreState(maps.clone(), scalars.clone())
-        r = e.process_frame(fixed, now=1000.0)
-        scored.append((r.score, r.pixel_count, r.norm_err_u8, r.reconstruction_u8))
+    # cuDNN's default algorithms give other bits from call to call (one float32 ulp of a
+    # reconstruction, which now and then crosses a grey level): both engines use the same
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for e in (engine, reloaded):
+            e.score_state = StreamScoreState(maps.clone(), scalars.clone())
+            r = e.process_frame(fixed, now=1000.0)
+            scored.append((r.score, r.pixel_count, r.norm_err_u8, r.reconstruction_u8))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     (s0, c0, n0, r0), (s1, c1, n1, r1) = scored
     assert (s0 == s1 or (np.isnan(s0) and np.isnan(s1))) and c0 == c1, scored
     assert np.array_equal(n0, n1) and np.array_equal(r0, r1)
@@ -4597,53 +4632,75 @@ def free_port():
         return sock.getsockname()[1]
 
 
+class StepRecorder:
+    """While active, wraps VAEModel.train_step: each training step synchronized and timed
+    alone; ``run(seconds)`` gives the losses, the ms and whether it ran on a mesh, a step,
+    and the launches of kernels 1, 2, 3 and 10 since the recorder started."""
+
+    def __enter__(self):
+        import torch
+
+        from trustedai_cl_vae_ad_tpu_torch.models.wrapper import VAEModel
+        from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+
+        self.steps, self.original = [], VAEModel.train_step
+        original, steps = self.original, self.steps
+
+        def train_step(model, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = original(model, *args, **kwargs)
+            value = float(loss["loss"])
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t0) * 1e3, value, model.mesh is not None))
+            return loss
+
+        reset_launch_counts(stream_score, moments, int8_gemm)
+        VAEModel.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        from trustedai_cl_vae_ad_tpu_torch.models.wrapper import VAEModel
+
+        VAEModel.train_step = self.original
+
+    def run(self, seconds):
+        from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+
+        return {"ms": [r[0] for r in self.steps], "losses": [r[1] for r in self.steps],
+                "on_mesh": [r[2] for r in self.steps], "seconds": seconds,
+                "launches": launch_counts(stream_score, moments, int8_gemm)}
+
+
 def z_cli_run(config_path, extra):
     """train_torch.py's main in this process, in a temporary working directory (its logs,
-    a 16 GB checkpoint, are deleted after): the losses and ms of each training step (each
-    synchronized and timed alone by a wrapper of VAEModel.train_step), and the launches of
-    kernels 1, 2, 3 and 10 in the run."""
+    a 16 GB checkpoint, are deleted after): StepRecorder's record of the run."""
     import torch
 
     import train_torch
-    from trustedai_cl_vae_ad_tpu_torch.models.wrapper import VAEModel
-    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
-
-    record = []
-    original = VAEModel.train_step
-
-    def train_step(self, *args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = original(self, *args, **kwargs)
-        value = float(loss["loss"])
-        torch.cuda.synchronize()
-        record.append(((time.perf_counter() - t0) * 1e3, value, self.mesh is not None))
-        return loss
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_z1_")
     cwd = os.getcwd()
-    reset_launch_counts(stream_score, moments, int8_gemm)
-    VAEModel.train_step = train_step
     try:
-        os.chdir(workdir)
-        t0 = time.perf_counter()
-        train_torch.main([config_path, *extra])
-        seconds = time.perf_counter() - t0
+        with StepRecorder() as recorder:
+            os.chdir(workdir)
+            t0 = time.perf_counter()
+            train_torch.main([config_path, *extra])
+            run = recorder.run(time.perf_counter() - t0)
     finally:
-        VAEModel.train_step = original
         os.chdir(cwd)
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return {"ms": [r[0] for r in record], "losses": [r[1] for r in record],
-            "on_mesh": [r[2] for r in record], "seconds": seconds,
-            "launches": launch_counts(stream_score, moments, int8_gemm)}
+    return run
 
 
-def phase_z1(dev):
+def phase_z1(dev, plain=None):
     """(z1) train_torch.py at flagship width, float32 + adam, 2 training and 1 validation
-    batches of 256 synthetic frames: through a process group of one (NCCL) and with
-    --no-parallel. The same losses; kernel 2 once forward a step and once backward a
-    training step, all on the cluster kernel, both ways."""
+    batches of 256 synthetic frames, through a process group of one (NCCL), against the
+    same training without one: ``plain``, phase (h)'s train_model run of this config (what
+    --no-parallel runs) when it ran in this process, else the CLI with --no-parallel. The
+    same losses; kernel 2 once forward a step and once backward a training step, all on the
+    cluster kernel, both ways."""
     import torch
 
     from trustedai_cl_vae_ad_tpu_torch.config import load_config, save_config, validate_config
@@ -4659,7 +4716,7 @@ def phase_z1(dev):
         save_config(config, path)
         runs = {"parallel": z_cli_run(path, ["--coordinator", f"127.0.0.1:{free_port()}",
                                              "--num-processes", "1", "--process-id", "0"]),
-                "no_parallel": z_cli_run(path, ["--no-parallel"])}
+                "no_parallel": plain or z_cli_run(path, ["--no-parallel"])}
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     assert not torch.distributed.is_initialized()
@@ -4672,8 +4729,9 @@ def phase_z1(dev):
         assert launches["moments_cluster_global_forward"] == Z_STEPS + VAL_STEPS, launches
         assert launches["moments_cluster_global_backward"] == Z_STEPS, launches
         assert launches["moments_global_forward"] == launches["moments_global_backward"] == 0
-        log(f"  {name}: train_torch.py, float32 adam, batch {BATCH}, {Z_STEPS} + {VAL_STEPS} "
-            f"steps in {run['seconds']:.1f} s of CLI (load, save, figures included); ms a "
+        how = "phase (h)'s train_model" if name == "no_parallel" and plain else "train_torch.py"
+        log(f"  {name}: {how}, float32 adam, batch {BATCH}, {Z_STEPS} + {VAL_STEPS} "
+            f"steps in {run['seconds']:.1f} s (load, save, figures included); ms a "
             f"step {[round(v, 3) for v in run['ms']]}; losses {run['losses']}; kernel 2 "
             f"{launches['moments_cluster_global_forward']} forward, "
             f"{launches['moments_cluster_global_backward']} backward, all cluster")
@@ -5022,11 +5080,12 @@ def phase_z4(dev):
     return out
 
 
-def phase_z(dev):
-    """parallel/ on the card: the training CLI through a process group (z1), data
-    parallelism with ZeRO-1 and tensor parallelism over two processes (z2, z3), offline
-    scoring over a one-device mesh (z4)."""
-    return {"z1": phase_z1(dev), "z23": phase_z23(dev), "z4": phase_z4(dev)}
+def phase_z(dev, h=None):
+    """parallel/ on the card: the training CLI through a process group (z1; ``h``, phase
+    (h)'s record when it ran, gives the run without one), data parallelism with ZeRO-1 and
+    tensor parallelism over two processes (z2, z3), offline scoring over a one-device mesh
+    (z4)."""
+    return {"z1": phase_z1(dev, h and h["steps"]), "z23": phase_z23(dev), "z4": phase_z4(dev)}
 
 
 ZM_STREAMS, ZM_TICKS, ZM_TRACED = 16, 32, 8
@@ -5035,7 +5094,9 @@ ZM_CL_RING, ZM_CL_PERIOD_MS = 4, 1000.0
 # 4th tick and at the 8th
 ZM_CL_NOW = (0.1, 0.2, 0.3, 1.05, 1.1, 1.2, 1.3, 2.1)
 ZM_FP8_STEPS = 2
-ZM_FP8_UPDATE_GAP = 0.25  # the bfloat16 2-step update against one process's (zm_fp8_ranks)
+# the 2-step update against one process's (zm_fp8_ranks), by the parameters' dtype
+ZM_FP8_UPDATE_GAP = {"bfloat16": 0.25, "float32": 0.05}
+ZM_FP8_PRECISIONS = tuple(ZM_FP8_UPDATE_GAP)
 ZM_DENSE = {"decoder.layers.Dense_0.weight": (134400, 2000),
             "encoder.layers.Dense_0.weight": (4000, 268800)}
 
@@ -5245,12 +5306,12 @@ def update_gap(got, ref, start):
     return float(np.linalg.norm(d - d_one)) / norm if norm else float(np.linalg.norm(d))
 
 
-def fp8_flagship():
-    """The flagship in bfloat16 with training.optimizer adam_fp8."""
+def fp8_flagship(precision="bfloat16"):
+    """The flagship in ``precision`` with training.optimizer adam_fp8."""
     from trustedai_cl_vae_ad_tpu_torch.train.bench_step import flagship_config
 
     config = flagship_config()
-    config["training"].update(precision="bfloat16", optimizer="adam_fp8")
+    config["training"].update(precision=precision, optimizer="adam_fp8")
     return config
 
 
@@ -5347,45 +5408,46 @@ def zm_worker(rank, world, store, out):
     dev = torch.device("cuda", 0)
     initialize_distributed(f"file://{store}", world, rank, backend="gloo", device=dev)
     result = {"bits": fp8_sharded_bits(dev, world)}
-    config = fp8_flagship()
-    x = seeded_frames(dev, config)
-    for part, shape, zero1 in (("zero1", (world, 1), True), ("model", (1, world), False)):
-        model = load_model_from_config(config, seed=0, device=dev)
-        model.compile(mesh=make_mesh(*shape, devices=[dev]), zero1=zero1)
-        reset_launch_counts(stream_score, moments, int8_gemm)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, ms = timed_steps(model, x, ZM_FP8_STEPS)
-        opt = model.optimizer
-        result[part] = {
-            "losses": losses, "ms": ms, "peak": torch.cuda.max_memory_allocated(),
-            "optimizer": type(opt).__name__, "bytes": fp8_leaf_bytes(opt),
-            "zero1_dims": dict(opt.sharded()) if zero1 else {},
-            "tp_dims": {k: d for k, d in model.tp_dims.items() if d is not None},
-            "samples": param_samples(model),
-            "launches": launch_counts(stream_score, moments, int8_gemm)}
-        del model, opt
-        gc.collect()
-        torch.cuda.empty_cache()
+    for precision in ZM_FP8_PRECISIONS:
+        config = fp8_flagship(precision)
+        x = seeded_frames(dev, config)
+        result[precision] = {}
+        for part, shape, zero1 in (("zero1", (world, 1), True), ("model", (1, world), False)):
+            model = load_model_from_config(config, seed=0, device=dev)
+            model.compile(mesh=make_mesh(*shape, devices=[dev]), zero1=zero1)
+            reset_launch_counts(stream_score, moments, int8_gemm)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = timed_steps(model, x, ZM_FP8_STEPS)
+            opt = model.optimizer
+            result[precision][part] = {
+                "losses": losses, "ms": ms, "peak": torch.cuda.max_memory_allocated(),
+                "optimizer": type(opt).__name__, "bytes": fp8_leaf_bytes(opt),
+                "zero1_dims": dict(opt.sharded()) if zero1 else {},
+                "tp_dims": {k: d for k, d in model.tp_dims.items() if d is not None},
+                "samples": param_samples(model),
+                "launches": launch_counts(stream_score, moments, int8_gemm)}
+            del model, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        del x
     distributed_teardown()
     with open(out, "w") as f:
         json.dump(result, f)
     return 0
 
 
-def zm_fp8_ranks(dev):
-    """adam_fp8 on two gloo ranks of the one card against one process: the flagship in
-    bfloat16, ZM_FP8_STEPS steps of one seeded 256-frame batch with ZeRO-1 (data 2) and on a
-    (data 1, model 2) mesh, through the (z2)/(z3) worker harness."""
+def zm_fp8_single(dev, precision):
+    """One process's ZM_FP8_STEPS adam_fp8 steps of the flagship in ``precision`` on one seeded
+    256-frame batch under cudnn.deterministic: (its record, the parameters' samples before)."""
     import gc
 
-    import numpy as np
     import torch
 
     from trustedai_cl_vae_ad_tpu_torch.ops.adam8 import AdamFp8
     from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_config
 
-    config = fp8_flagship()
+    config = fp8_flagship(precision)
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     # cuDNN's default algorithms give other bits from run to run (phase z3): the one process
@@ -5406,28 +5468,50 @@ def zm_fp8_ranks(dev):
     single = {"losses": losses, "ms": ms, "peak": torch.cuda.max_memory_allocated(),
               "resident_before": resident, "bytes": fp8_leaf_bytes(model.optimizer),
               "samples": param_samples(model)}
-    log(f"  one process, bfloat16 adam_fp8, batch {BATCH}, cudnn.deterministic: losses {losses}; "
-        f"ms a step {[round(v, 3) for v in ms]}; max_memory_allocated "
+    log(f"  one process, {precision} adam_fp8, batch {BATCH}, cudnn.deterministic: losses "
+        f"{losses}; ms a step {[round(v, 3) for v in ms]}; max_memory_allocated "
         f"{single['peak'] / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB allocated before)")
     del model, x
     gc.collect()
     torch.cuda.empty_cache()
+    return single, initial
+
+
+def zm_fp8_ranks(dev):
+    """adam_fp8 on two gloo ranks of the one card against one process: the flagship in
+    bfloat16, then with float32 parameters, ZM_FP8_STEPS steps of one seeded 256-frame batch
+    with ZeRO-1 (data 2) and on a (data 1, model 2) mesh, through the (z2)/(z3) worker harness.
+    The one process's runs take place while the ranks start (their interpreters import torch
+    on the host), so each rank's first seconds overlap them. Returns {precision: {part: the
+    largest update gap over the ranks}}."""
+    import numpy as np
 
     directory = tempfile.mkdtemp(prefix="chip_smoke_zm_")
     try:
         outs = [os.path.join(directory, f"rank{r}.json") for r in range(Z_RANKS)]
+        # each rank writes to a file: nothing reads a pipe while this process runs its steps
+        logs = [open(os.path.join(directory, f"rank{r}.log"), "w+") for r in range(Z_RANKS)]
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker",
                                    "--job", "zm", "--rank", str(r), "--world", str(Z_RANKS),
                                    "--store", os.path.join(directory, "store"), "--out", outs[r]],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                                  stdout=logs[r], stderr=subprocess.STDOUT, text=True)
                  for r in range(Z_RANKS)]
         try:
-            texts = [p.communicate(timeout=Z_WORKER_TIMEOUT_S)[0] for p in procs]
+            singles, initials = {}, {}
+            for precision in ZM_FP8_PRECISIONS:
+                singles[precision], initials[precision] = zm_fp8_single(dev, precision)
+            for p in procs:
+                p.wait(timeout=Z_WORKER_TIMEOUT_S)
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+            texts = []
+            for f in logs:
+                f.seek(0)
+                texts.append(f.read())
+                f.close()
         for p, text in zip(procs, texts):
             assert p.returncode == 0, text[-4000:]
         ranks = []
@@ -5440,51 +5524,63 @@ def zm_fp8_ranks(dev):
     for rank, r in enumerate(ranks):
         log(f"  rank {rank}, injected gradients, {ZM_FP8_STEPS} steps: this rank's blocks of q, "
             f"scale, scale_next and the parameter equal one process's AdamFp8: {r['bits']}")
-    checks = {}
-    for part in ("zero1", "model"):
-        for rank, r in enumerate(ranks):
-            got = r[part]
-            loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], single["losses"]))
-            gaps = {k: update_gap(v, single["samples"][k], initial[k])
-                    for k, v in got["samples"].items()}
-            worst = max(gaps, key=gaps.get)
-            checks[(part, rank)] = (loss_gap, gaps)
-            split = got["zero1_dims"] if part == "zero1" else got["tp_dims"]
-            log(f"  {part} rank {rank} ({got['optimizer']}): losses {got['losses']} against one "
-                f"process's {single['losses']} (largest gap {loss_gap:.3e} relative); parameter "
-                f"updates: largest gap {gaps[worst]:.3e} ({worst}), median "
-                f"{float(np.median(list(gaps.values()))):.3e} over {len(gaps)} tensors; ms a "
-                f"step {[round(v, 3) for v in got['ms']]}; max_memory_allocated "
-                f"{got['peak'] / 2**30:.3f} GiB; split {split}; float8 bytes of the split "
-                f"leaves {sum(got['bytes'][k]['fp8'] for k in split)} (one process "
-                f"{sum(single['bytes'][k]['fp8'] for k in split)})")
     for r in ranks:
         assert all(v for part in r["bits"].values() for v in part.values()), r["bits"]
-    # the optimizer's bits on the same gradients are checked above. In bfloat16, Adam's first
-    # two steps move an entry by about +-lr, and the gradients' extra bfloat16 rounding on a
-    # mesh (each rank's partial sum, then their sum) flips the sign of near-zero gradients:
-    # on an H100 (80GB HBM3, 700 W) the 2-step update gaps read 0.088 (ZeRO-1) and 0.179 (the
-    # model axis) with default and with deterministic cuDNN alike, where float32 reads 0.0075
-    # (z2). A skipped or wrong update gives about 1; the bound for this bfloat16 run is 0.25
-    for (part, rank), (loss_gap, gaps) in checks.items():
-        assert loss_gap <= 1e-6, (part, rank, ranks[rank][part]["losses"], single["losses"])
-        assert all(v <= ZM_FP8_UPDATE_GAP for v in gaps.values()), (part, rank, gaps)
-    assert all(r["zero1"]["losses"] == ranks[0]["zero1"]["losses"] for r in ranks)
-    for r in ranks:
-        z, m = r["zero1"], r["model"]
-        assert z["optimizer"] == "Zero1" and m["optimizer"] == "AdamFp8"
-        assert set(ZM_DENSE) <= set(z["zero1_dims"]) and set(ZM_DENSE) <= set(m["tp_dims"])
-        for name, want in single["bytes"].items():
-            if name in z["zero1_dims"]:  # the codes and the scales' columns both halved
-                assert z["bytes"][name] == {"fp8": want["fp8"] // 2,
-                                            "other": want["other"] // 2}, name
-            else:
-                assert z["bytes"][name] == want, name
-            if name in m["tp_dims"]:  # the codes halved; a scale row is whole on each rank
-                assert m["bytes"][name]["fp8"] == want["fp8"] // 2, name
-        for part in (z, m):
-            assert part["launches"]["moments_cluster_global_forward"] == ZM_FP8_STEPS
-            assert part["launches"]["moments_cluster_global_backward"] == ZM_FP8_STEPS
+    worst_gaps = {}
+    for precision in ZM_FP8_PRECISIONS:
+        single, initial = singles[precision], initials[precision]
+        checks = {}
+        for part in ("zero1", "model"):
+            for rank, r in enumerate(ranks):
+                got = r[precision][part]
+                loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], single["losses"]))
+                gaps = {k: update_gap(v, single["samples"][k], initial[k])
+                        for k, v in got["samples"].items()}
+                worst = max(gaps, key=gaps.get)
+                checks[(part, rank)] = (loss_gap, gaps)
+                split = got["zero1_dims"] if part == "zero1" else got["tp_dims"]
+                log(f"  {precision} {part} rank {rank} ({got['optimizer']}): losses "
+                    f"{got['losses']} against one process's {single['losses']} (largest gap "
+                    f"{loss_gap:.3e} relative); parameter updates: largest gap {gaps[worst]:.3e} "
+                    f"({worst}), median {float(np.median(list(gaps.values()))):.3e} over "
+                    f"{len(gaps)} tensors; ms a step {[round(v, 3) for v in got['ms']]}; "
+                    f"max_memory_allocated {got['peak'] / 2**30:.3f} GiB; split {split}; float8 "
+                    f"bytes of the split leaves {sum(got['bytes'][k]['fp8'] for k in split)} (one "
+                    f"process {sum(single['bytes'][k]['fp8'] for k in split)})")
+        worst_gaps[precision] = {part: max(max(checks[(part, rank)][1].values())
+                                           for rank in range(len(ranks)))
+                                 for part in ("zero1", "model")}
+        # the optimizer's bits on the same gradients are checked above. In bfloat16, Adam's
+        # first two steps move an entry by about +-lr, and the gradients' extra bfloat16
+        # rounding on a mesh (each rank's partial sum, then their sum) flips the sign of
+        # near-zero gradients: on an H100 (80GB HBM3, 700 W) the 2-step update gaps read 0.088
+        # (ZeRO-1) and 0.179 (the model axis) with default and with deterministic cuDNN alike,
+        # and 0.0118 and 0.0117 with float32 parameters. A skipped or wrong update gives
+        # about 1
+        for (part, rank), (loss_gap, gaps) in checks.items():
+            assert loss_gap <= 1e-6 if precision == "bfloat16" else loss_gap <= 1e-4, (
+                precision, part, rank, ranks[rank][precision][part]["losses"], single["losses"])
+            assert all(v <= ZM_FP8_UPDATE_GAP[precision] for v in gaps.values()), (
+                precision, part, rank, gaps)
+        assert all(r[precision]["zero1"]["losses"] == ranks[0][precision]["zero1"]["losses"]
+                   for r in ranks)
+        for r in ranks:
+            z, m = r[precision]["zero1"], r[precision]["model"]
+            assert z["optimizer"] == "Zero1" and m["optimizer"] == "AdamFp8"
+            assert set(ZM_DENSE) <= set(z["zero1_dims"]) and set(ZM_DENSE) <= set(m["tp_dims"])
+            for name, want in single["bytes"].items():
+                if name in z["zero1_dims"]:  # the codes and the scales' columns both halved
+                    assert z["bytes"][name] == {"fp8": want["fp8"] // 2,
+                                                "other": want["other"] // 2}, name
+                else:
+                    assert z["bytes"][name] == want, name
+                if name in m["tp_dims"]:  # the codes halved; a scale row is whole on each rank
+                    assert m["bytes"][name]["fp8"] == want["fp8"] // 2, name
+            for part in (z, m):
+                assert part["launches"]["moments_cluster_global_forward"] == ZM_FP8_STEPS
+                assert part["launches"]["moments_cluster_global_backward"] == ZM_FP8_STEPS
+    log(f"  the 2-step update gap, largest over the ranks and tensors: {worst_gaps}")
+    return worst_gaps
 
 
 def phase_zm(dev):
@@ -5562,8 +5658,8 @@ def phase_zm(dev):
     assert all(v <= 0.05 for v in gaps.values()), gaps
     assert two["launches"]["stream_score_cluster"] == 2 * len(ZM_CL_NOW), two["launches"]
 
-    zm_fp8_ranks(dev)
-    return {"ticks": ticks_out, "launches": mesh_launches}
+    fp8_gaps = zm_fp8_ranks(dev)
+    return {"ticks": ticks_out, "launches": mesh_launches, "fp8_update_gaps": fp8_gaps}
 
 
 TF_FRAMES = 32
@@ -5614,20 +5710,23 @@ print(json.dumps({"code": code, "torch_import_s": t1 - t0, "tool_s": t2 - t1,
                   "peak_rss_source": "VmHWM" if hwm is not None else "VmRSS every 10 ms",
                   "rss_after_torch_import": after_import,
                   "ru_maxrss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
-                  "cuda_initialized": torch.cuda.is_initialized()}))
+                  "cuda_initialized": torch.cuda.is_initialized(),
+                  "matplotlib_loaded": "matplotlib" in sys.modules}))
 """
 
 
-def run_tool(args, timeout):
-    """A tool of tools/ in a child process: (its standard output without the last line, the
-    last line's record: exit code, seconds to import torch and to run the tool, the process's
-    peak RSS, its resident set once torch is imported (CUDA's libraries: gigabytes on the card's
-    machine) and whether it initialized CUDA, plus the process's wall seconds). The peak is
-    the child's own high-water mark (VmHWM), or, where the kernel keeps none, its resident set
-    sampled every 10 ms; ru_maxrss is printed beside it, but a child started by fork and exec
-    may carry its parent's high-water mark across the exec there."""
+def run_tool(args, timeout, where="tools"):
+    """A script of ``where`` (tools/ by default; "" for the repo's root) in a child process:
+    (its standard output without the last line, the last line's record: exit code, seconds to
+    import torch and to run the tool, the process's peak RSS, its resident set once torch is
+    imported (CUDA's libraries: gigabytes on the card's machine), whether it initialized CUDA
+    and whether matplotlib was loaded, plus the process's wall seconds and the end of its
+    standard error). The peak is the child's own high-water mark (VmHWM), or, where the kernel
+    keeps none, its resident set sampled every 10 ms; ru_maxrss is printed beside it, but a
+    child started by fork and exec may carry its parent's high-water mark across the exec
+    there."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", TF_CHILD, os.path.join(REPO, "tools", args[0]),
+    proc = subprocess.run([sys.executable, "-c", TF_CHILD, os.path.join(REPO, where, args[0]),
                            *args[1:]], capture_output=True, text=True, timeout=timeout, cwd=REPO)
     wall = time.perf_counter() - t0
     assert proc.returncode == 0 and proc.stdout.strip(), (args, proc.stdout[-3000:],
@@ -5635,6 +5734,7 @@ def run_tool(args, timeout):
     lines = proc.stdout.strip().splitlines()
     record = json.loads(lines[-1])
     record["wall_s"] = wall
+    record["stderr"] = proc.stderr[-3000:]
     return "\n".join(lines[:-1]), record
 
 
@@ -5731,6 +5831,7 @@ def phase_tf(dev):
         load_model_from_directory,
     )
     from trustedai_cl_vae_ad_tpu_torch.stream.run import resolve_camera
+    from trustedai_cl_vae_ad_tpu_torch.train.tf_import import import_tf_checkpoint
 
     available = {name: module_imports(name) for name in TF_MODULES}
     log("  on this machine: " + ", ".join(f"{name} {v}" for name, v in available.items()))
@@ -5743,6 +5844,7 @@ def phase_tf(dev):
         for kernel, n in counts.items():
             out["launches"][kernel] = out["launches"].get(kernel, 0) + n
 
+    doctors = ThreadPoolExecutor(1)
     try:
         # (tf1) the seeded flagship as the reference writes it, then imported by the CLI
         config = load_config(os.path.join(REPO, "configs", "config.yml"))
@@ -5766,6 +5868,8 @@ def phase_tf(dev):
             f"{imp['ru_maxrss'] / 2**30:.3f} GiB), of which torch's import "
             f"{imp['rss_after_torch_import'] / 2**30:.3f} GiB")
         out["tf1"] = dict(imp, write_s=write_s, bundle_bytes=bundle)
+        # (tf2)'s first doctor reads the imported directory beside this process's checks of it
+        doctor = doctors.submit(tf_doctor, dst)
         imported, _ = load_model_from_directory(dst, device=dev)
         for key, t in source.params.items():
             got = imported.params[key]
@@ -5797,7 +5901,7 @@ def phase_tf(dev):
         torch.cuda.empty_cache()
 
         # (tf2) the doctor, a fresh process for each case
-        report, rc, cost = tf_doctor(dst)
+        report, rc, cost = doctor.result()
         log_doctor("the imported directory", report, cost)
         assert report["errors"] == [] and rc == 0, report
         assert len(report["warnings"]) == 2, report["warnings"]
@@ -5847,9 +5951,19 @@ def phase_tf(dev):
         testing.write_reference_logdir(changed, config, changed_decoder, parts=("decoder",))
         del changed_decoder
         gc.collect()
-        imp2 = tf_import_cli(changed, dst)
-        log(f"  (tf2) changed decoder imported into the same directory: read {imp2['read_s']:.3f}"
-            f" s, onto the card {imp2['load_s']:.3f} s, saved {imp2['save_s']:.3f} s")
+        # in this process, as the CLI imports and saves (tf1 ran the CLI itself)
+        imp2 = {}
+        changed_model, changed_config = import_tf_checkpoint(changed, device=dev, timings=imp2)
+        t0 = time.perf_counter()
+        changed_model.save_model(dst, include_optimizer=False)
+        save_config(changed_config, os.path.join(dst, "config.yml"))
+        imp2["save_s"] = time.perf_counter() - t0
+        del changed_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  (tf2) changed decoder imported into the same directory (train/tf_import.py in this "
+            f"process): read {imp2['read_s']:.3f} s, onto the card {imp2['load_s']:.3f} s, saved "
+            f"{imp2['save_s']:.3f} s")
         # the remaining cases read and change nothing: their processes run side by side
         drift = os.path.join(tmp, "drift")
         os.makedirs(drift)
@@ -5885,6 +5999,7 @@ def phase_tf(dev):
         report, rc, _ = verdicts["tests/data/jax_logdirs/converted/global_f32"]
         assert report["errors"] == [] and rc == 0, report
     finally:
+        doctors.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -5938,26 +6053,18 @@ def perdim_check(mo, z, gout=None):
     return float((out - ref).abs().max()), float((grad - grad_ref).abs().max()), out
 
 
-def lt_tools(dev, tmp, record):
-    """(lt1): the six latent tools through their main() on the saved seeded flagship."""
+def seeded_flagship_logdir(tmp):
+    """The seeded flagship of configs/config.yml (float32, seed 0) saved to ``tmp``/model with
+    a config.yml whose data section points at a saved dataset of LT_TRAIN + LT_VAL smooth frames
+    at its size (``tmp``/dataset), as phases (lt) and (qt) take it: (log directory, dataset
+    directory, config, number of parameters)."""
     import numpy as np
     import torch
-    from PIL import Image
 
-    import interpolate_torch
-    import output_reconstructions_torch
-    import plot_j_diagram_torch
-    import plot_umap_torch
-    import sample_latent_space_torch
-    import similarity_analysis_torch
     from trustedai_cl_vae_ad_tpu_torch import registry
     from trustedai_cl_vae_ad_tpu_torch.config import save_config
     from trustedai_cl_vae_ad_tpu_torch.data.saved_dataset import save_dataset
-    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
-    from trustedai_cl_vae_ad_tpu_torch.viz import latent
-    from trustedai_cl_vae_ad_tpu_torch.viz.plots import histogram_panel
 
-    t0 = time.perf_counter()
     model, config = registry.load_model_from_config_path(
         os.path.join(REPO, "configs", "config.yml"), seed=0, device="cuda")
     h, w, c = config["data"]["image_size"]
@@ -5973,6 +6080,48 @@ def lt_tools(dev, tmp, record):
     save_config(config, os.path.join(logdir, "config.yml"))
     del model
     torch.cuda.empty_cache()
+    return logdir, ds, config, n_params
+
+
+_SHARED_FLAGSHIP = {}
+
+
+def shared_flagship_logdir():
+    """``seeded_flagship_logdir``'s (log directory, dataset directory, config, number of
+    parameters) and the seconds it took, made once a process: phases (lt) and (qt) share it
+    (the second finds it made). Its temporary directory is removed when the process exits."""
+    if not _SHARED_FLAGSHIP:
+        import atexit
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_flagship_")
+        atexit.register(shutil.rmtree, tmp, True)
+        t0 = time.perf_counter()
+        made = seeded_flagship_logdir(tmp)
+        _SHARED_FLAGSHIP["made"] = (*made, time.perf_counter() - t0)
+        return _SHARED_FLAGSHIP["made"]
+    return (*_SHARED_FLAGSHIP["made"][:4], 0.0)
+
+
+def lt_tools(dev, tmp, record):
+    """(lt1): the six latent tools through their main() on the saved seeded flagship."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import interpolate_torch
+    import output_reconstructions_torch
+    import plot_j_diagram_torch
+    import plot_umap_torch
+    import sample_latent_space_torch
+    import similarity_analysis_torch
+    from trustedai_cl_vae_ad_tpu_torch import registry
+    from trustedai_cl_vae_ad_tpu_torch.ops import moments as mo
+    from trustedai_cl_vae_ad_tpu_torch.viz import latent
+    from trustedai_cl_vae_ad_tpu_torch.viz.plots import histogram_panel
+
+    t0 = time.perf_counter()
+    logdir, ds, config, n_params, _made_s = shared_flagship_logdir()
+    h, w, c = config["data"]["image_size"]
     images = []
     rng = np.random.RandomState(3)
     for i, (ih, iw) in enumerate(LT_J_SIZES):
@@ -6235,10 +6384,439 @@ def phase_lt(dev):
     return record
 
 
+QT_FRAME = (480, 640)  # the camera's frames (h, w); the engine resizes them on the card
+QT_MODES = ("error", "reconstruction", "heatmap", "overlay")
+QT_MODE_TICKS, QT_REC_TICKS, QT_CL_TICKS, QT_W8A8_TICKS = 64, 8, 4, 32
+QT_LR = 1e-4  # the window's default lr dials, 1.0E-4
+QT_Z = {0: 0.7, 17: -1.3, 1999: 2.1}  # the decoder window's three set spinboxes
+QT_DECODES = 20  # timed redraws of the decoder window
+QT_EXPORT_ERROR = "export_tf_checkpoint requires tensorflow to build the SavedModels"
+
+
+class ListSource:
+    """A camera that delivers the given frames, one a read, then nothing."""
+    fps = 20.0
+
+    def __init__(self, frames):
+        self._frames = iter(frames)
+
+    def read(self):
+        return next(self._frames, None)
+
+    def release(self):
+        pass
+
+
+def qt_stub_module():
+    """tests/qt_stub.py (the PyQt5 stand-in the shells' tests drive them through), loaded by
+    its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("qt_stub", os.path.join(REPO, "tests",
+                                                                          "qt_stub.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def qt_settings():
+    import yaml
+
+    with open(os.path.join(REPO, "configs", "cam_config.yml")) as f:
+        return yaml.safe_load(f)["anomaly_settings"]
+
+
+def qt_window(csq, logdir, tmp, quantize):
+    """camera_streamer_qt_torch's window over ``logdir`` on cuda, built as main() builds it
+    (the arguments --warmup 480x640 [--quantize] give), scoring every tick; its autosave off
+    (phase (v) holds it) so that a tick after a CL step writes no 16 GB round."""
+    import types
+
+    import yaml
+
+    cam = os.path.join(tmp, "cam.yml")
+    with open(cam, "w") as f:
+        yaml.safe_dump({"camera_list": [{"name": "synthetic", "url": "synthetic", "fps": 20}],
+                        "anomaly_settings": qt_settings()}, f)
+    args = types.SimpleNamespace(cam_config=cam, cam_config_index=0, model_dir=logdir,
+                                 model_cache_dir=os.path.join(tmp, "cache"), quantize=quantize,
+                                 warmup=QT_FRAME, max_rss_mb=None, device="cuda")
+    w = csq.CameraStreamerMainWindow(args)
+    w.engine.inference_period_ms = 0.0
+    w.engine.model_cache_dir = None
+    return w
+
+
+def qt_ticks(w, frames, dev):
+    """One tick a frame through the window (grab_frame + update_draws, as its two timers
+    fire); (results, ms a tick)."""
+    import torch
+
+    w.source = ListSource(frames)
+    results, ms = [], []
+    for _ in frames:
+        t0 = time.perf_counter()
+        w.grab_frame()
+        w.update_draws()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        results.append(w.last_result)
+    torch.cuda.synchronize(dev)
+    return results, ms
+
+
+def qt_frames(engine, frames, dev):
+    """process_frame alone on each frame; (results, ms a frame)."""
+    import torch
+
+    results, ms = [], []
+    for frame in frames:
+        t0 = time.perf_counter()
+        results.append(engine.process_frame(frame))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize(dev)
+    return results, ms
+
+
+def p50_p95(ms):
+    import numpy as np
+
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 95))
+
+
+def same_scores(got, ref):
+    """How many results carry the same score (NaN matching NaN) and the same count."""
+    import math
+
+    return sum((g.score == r.score or math.isnan(g.score) and math.isnan(r.score))
+               and g.pixel_count == r.pixel_count for g, r in zip(got, ref))
+
+
+def qt_cam_windows(dev, tmp, logdir, config, record, add, qt_stub):
+    """(qt1) the camera window against the engine, and (qt2)'s decoder window on the engine's
+    model before its CL steps."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import camera_streamer_qt_torch as csq
+    from trustedai_cl_vae_ad_tpu_torch.ops import int8_gemm, moments, stream_score
+    from trustedai_cl_vae_ad_tpu_torch.stream.capture import SyntheticSource
+    from trustedai_cl_vae_ad_tpu_torch.stream.engine import StreamingEngine, load_engine_from_directory
+    from trustedai_cl_vae_ad_tpu_torch.viz.plots import jet_heatmap
+
+    n_view = len(QT_MODES) * QT_MODE_TICKS
+    source = SyntheticSource(width=QT_FRAME[1], height=QT_FRAME[0], fps=20.0,
+                             n_frames=n_view + QT_REC_TICKS + QT_CL_TICKS, seed=0)
+    frames = list(source)
+    view, rec, cl = (frames[:n_view], frames[n_view:n_view + QT_REC_TICKS],
+                     frames[n_view + QT_REC_TICKS:])
+
+    # the float window: four view modes, a recording, CL through its checkbox
+    w = qt_window(csq, logdir, tmp, quantize=False)
+    torch.cuda.synchronize(dev)
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    got, ms_mode = [], {}
+    for k, mode in enumerate(QT_MODES):
+        w.view_mode.setCurrentText(mode)
+        results, ms = qt_ticks(w, view[k * QT_MODE_TICKS:(k + 1) * QT_MODE_TICKS], dev)
+        got += results
+        ms_mode[mode] = ms
+        r = results[-1]  # the pane shows the mode's image of the last tick's maps
+        if mode == "error":
+            want = np.stack([r.norm_err_u8] * 3, -1)
+        elif mode == "reconstruction":
+            want = r.reconstruction_u8
+        else:
+            want = jet_heatmap(r.norm_err_u8)
+            if mode == "overlay":
+                want = (0.5 * want + 0.5 * r.reconstruction_u8).astype("uint8")
+        assert np.array_equal(w.error_label._pixmaps[-1].img.array, want), mode
+    float_recs = [r.reconstruction_u8.copy() for r in got[:QT_W8A8_TICKS]]
+    rec_dir = os.path.join(tmp, "recording")
+    os.makedirs(rec_dir)
+    qt_stub.QFileDialog.existing_dirs = [rec_dir]
+    w.engine.record_period_ms = 0.0
+    t0 = time.perf_counter()
+    w.record_btn.setChecked(True)
+    results, ms_rec = qt_ticks(w, rec, dev)
+    got += results
+    t1 = time.perf_counter()
+    w.record_btn.setChecked(False)
+    stop_s = time.perf_counter() - t1
+    view_launches = launch_counts(stream_score, moments, int8_gemm)
+    add(view_launches)
+    assert view_launches["stream_score_cluster"] == n_view + QT_REC_TICKS, view_launches
+    assert {k: v for k, v in view_launches.items() if k != "stream_score_cluster" and v} == {}
+    (instance,) = [d for d in os.listdir(rec_dir) if d.startswith("data_")]
+    with open(os.path.join(rec_dir, instance, "labels.json")) as f:
+        labels = json.load(f)
+    assert len(labels["images"]) == QT_REC_TICKS, len(labels["images"])
+    record["recording"] = {"images": len(labels["images"]), "ticks_s": t1 - t0,
+                           "terminate_s": stop_s, "tick_ms": ms_rec}
+
+    w.engine.continuous_learning_period_ms = 0.0
+    t0 = time.perf_counter()
+    w.cl_checkbox.setChecked(True)  # the optimizer's moments are allocated here
+    toggle_s = time.perf_counter() - t0
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    cl_results, cl_ms = qt_ticks(w, cl, dev)
+    window_cl = launch_counts(stream_score, moments, int8_gemm)
+    add(window_cl)
+    w.cl_checkbox.setChecked(False)
+    assert all(r.cl_stepped and np.isfinite(r.loss["loss"]) for r in cl_results)
+    assert abs(w.engine.model.learning_rate - QT_LR) < 1e-12
+    window_cl_losses = [r.loss["loss"] for r in cl_results]
+    w._close_engine()
+    del w, cl_results
+    qt_stub.QTimer.instances.clear()  # their slots hold the window, and so the engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the engine alone on the same frames: scores bit for bit; then the w8a8 engine on the
+    # same model; the decoder window on it; then CL as the window took it
+    engine = load_engine_from_directory(logdir, device=dev, anomaly_settings=qt_settings())
+    engine.inference_period_ms = 0.0
+    engine.warmup(frame_shape=(*QT_FRAME, 3))
+    ref, ms_alone = qt_frames(engine, view + rec, dev)
+    equal = same_scores(got, ref)
+    assert equal == len(got) == n_view + QT_REC_TICKS, (equal, len(got))
+    quantized = StreamingEngine(engine.model, config, anomaly_settings=qt_settings(),
+                                quantize=True)
+    quantized.inference_period_ms = 0.0
+    quantized.warmup(frame_shape=(*QT_FRAME, 3))
+    ref_q, ms_alone_q = qt_frames(quantized, view[:QT_W8A8_TICKS], dev)
+    del quantized
+    qt_decoder_window(dev, engine.model, config, record)
+    qt_stub.QTimer.instances.clear()
+    engine.continuous_learning_period_ms = 0.0
+    engine.enable_cont_learning = True
+    engine.set_learning_rate(QT_LR)
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    ref_cl, _ = qt_frames(engine, cl, dev)
+    engine_cl = launch_counts(stream_score, moments, int8_gemm)
+    assert engine_cl == window_cl and window_cl["stream_score_cluster"] == QT_CL_TICKS, (
+        window_cl, engine_cl)
+    engine_cl_losses = [r.loss["loss"] for r in ref_cl]
+    del engine, ref_cl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the w8a8 window on the first frames: kernel 10 twice a tick, kernel 1 once
+    wq = qt_window(csq, logdir, tmp, quantize=True)
+    torch.cuda.synchronize(dev)
+    reset_launch_counts(stream_score, moments, int8_gemm)
+    got_q, ms_q = qt_ticks(wq, view[:QT_W8A8_TICKS], dev)
+    q_launches = launch_counts(stream_score, moments, int8_gemm)
+    add(q_launches)
+    assert q_launches["int8_gemm_mma"] == 2 * QT_W8A8_TICKS and q_launches["int8_gemm"] == 0, (
+        q_launches)
+    assert q_launches["stream_score_cluster"] == QT_W8A8_TICKS and q_launches["stream_score"] == 0
+    assert_scores_finite(got_q, "the w8a8 window")
+    rec_gap = max(float(np.abs(r.reconstruction_u8.astype(np.float32) - f).mean())
+                  for r, f in zip(got_q, float_recs))
+    assert rec_gap < 8.0, rec_gap
+    equal_q = same_scores(got_q, ref_q)
+    wq._close_engine()
+    del wq
+    qt_stub.QTimer.instances.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    every = [v for ms in ms_mode.values() for v in ms]
+    record["ticks"] = {
+        "float": {"window": p50_p95(every), "alone": p50_p95(ms_alone[:n_view]),
+                  "by_mode": {m: p50_p95(v) for m, v in ms_mode.items()}},
+        "w8a8": {"window": p50_p95(ms_q), "alone": p50_p95(ms_alone_q)}}
+    record["cl"] = {"toggle_s": toggle_s, "tick_ms": cl_ms, "window_losses": window_cl_losses,
+                    "engine_losses": engine_cl_losses, "launches": window_cl}
+    record["w8a8"] = {"rec_gap": rec_gap, "equal_scores": equal_q, "launches": q_launches}
+    t = record["ticks"]
+    log(f"  (qt1) the window over {n_view} ticks of {QT_FRAME[0]}x{QT_FRAME[1]} frames, "
+        f"{QT_MODE_TICKS} a view mode, and {QT_REC_TICKS} recording: all {equal} scores and "
+        f"counts equal the engine's alone, bit for bit; launches "
+        f"{ {k: v for k, v in view_launches.items() if v} }")
+    log(f"  a tick through the window (grab_frame + update_draws), p50 / p95: float "
+        f"{t['float']['window'][0]:.3f} / {t['float']['window'][1]:.3f} ms, process_frame alone "
+        f"{t['float']['alone'][0]:.3f} / {t['float']['alone'][1]:.3f} ms; by view mode "
+        + ", ".join(f"{m} {v[0]:.3f} / {v[1]:.3f}" for m, v in t["float"]["by_mode"].items())
+        + f"; w8a8 {t['w8a8']['window'][0]:.3f} / {t['w8a8']['window'][1]:.3f} ms, alone "
+        f"{t['w8a8']['alone'][0]:.3f} / {t['w8a8']['alone'][1]:.3f} ms")
+    log(f"  recording: {QT_REC_TICKS} ticks in {record['recording']['ticks_s']:.3f} s "
+        f"(p50 {np.percentile(ms_rec, 50):.1f} ms a tick), labels.json of "
+        f"{len(labels['images'])} images, its close (labels and the model snapshot) "
+        f"{stop_s:.3f} s")
+    log(f"  CL through the checkbox: the toggle {toggle_s:.3f} s (Adam's moments), "
+        f"{QT_CL_TICKS} ticks {[round(v, 1) for v in cl_ms]} ms, losses {window_cl_losses} "
+        f"(the engine alone: {engine_cl_losses}); launches "
+        f"{ {k: v for k, v in window_cl.items() if v} }, equal to the engine's")
+    log(f"  the w8a8 window, {QT_W8A8_TICKS} ticks: kernel 10 {q_launches['int8_gemm_mma']} "
+        f"(mma), kernel 1 {q_launches['stream_score_cluster']}; reconstructions within "
+        f"{rec_gap:.3f} grey levels of the float window's (mean a frame, at most); "
+        f"{equal_q} of {QT_W8A8_TICKS} scores equal the w8a8 engine's alone")
+
+
+def qt_decoder_window(dev, model, config, record):
+    """(qt2) decoder_generator_qt_torch's window at the flagship's 2000 spinboxes: three set
+    and the debounce timer fired draw model.decode's image of that z bit for bit; the
+    redraw's and the decode's p50."""
+    import numpy as np
+    import torch
+
+    import decoder_generator_qt_torch as dgq
+
+    t0 = time.perf_counter()
+    w = dgq.DecoderGeneratorMainWindow(model, config)
+    build_s = time.perf_counter() - t0
+    assert len(w.spinboxes) == config["model"]["latent_dimensions"] == 2000
+    w.timer.fire()  # the first draw, of z = 0
+    for i, v in QT_Z.items():
+        w.spinboxes[i].setValue(v)
+    w.timer.fire()
+    z = np.zeros((1, 2000), np.float32)
+    for i, v in QT_Z.items():
+        z[0, i] = v
+    img = model.decode(z, apply_sigmoid=True)[0].cpu().numpy()
+    want = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+    assert np.array_equal(w.image_label._pixmaps[-1].img.array, want)
+    redraw, decode = [], []
+    rng = np.random.RandomState(7)
+    for _ in range(QT_DECODES):
+        w.spinboxes[int(rng.randint(2000))].setValue(float(rng.uniform(-3, 3)))
+        t0 = time.perf_counter()
+        w.timer.fire()
+        redraw.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        model.decode(z, apply_sigmoid=True).cpu()
+        decode.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize(dev)
+    record["decoder"] = {"build_s": build_s, "redraw_ms": p50_p95(redraw),
+                         "decode_ms": p50_p95(decode)}
+    log(f"  (qt2) the decoder window: 2000 spinboxes built in {build_s:.3f} s; three set and "
+        f"the timer fired draw model.decode's image bit for bit; a redraw p50 "
+        f"{np.percentile(redraw, 50):.3f} ms, the decode alone (to the host) "
+        f"{np.percentile(decode, 50):.3f} ms, over {QT_DECODES}")
+
+
+def qt_children(tmp, logdir, record, tf_state, qt_state):
+    """(qt2) the decoder's headless modes and (qt3) the export tool, each a child process on
+    cuda, all three at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    decoded, hist, exported = (os.path.join(tmp, n) for n in ("decoded.png", "latents.png",
+                                                                "exported"))
+    z = ",".join(str(v) for v in np.random.RandomState(9).uniform(-2, 2, 2000).round(4))
+    jobs = {
+        "decode_z": (["decoder_generator_qt_torch.py", logdir, f"--decode-z={z}", "-o", decoded,
+                      "--device", "cuda"], ""),
+        "histogram": (["decoder_generator_qt_torch.py", logdir, "--histogram", "-o", hist,
+                       "--device", "cuda"], ""),
+        "export": (["export_tf_checkpoint_torch.py", logdir, exported, "--device", "cuda"],
+                   "tools"),
+    }
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(run_tool, args, 600, where) for k, (args, where) in jobs.items()}
+        runs = {k: f.result() for k, f in futures.items()}
+    for name in ("decode_z", "histogram"):
+        text, rec = runs[name]
+        assert rec["code"] == 0, (name, text[-2000:], rec["stderr"])
+        assert rec["matplotlib_loaded"] is False, name
+    with Image.open(decoded) as img:
+        assert img.size == (300, 224) and img.mode == "RGB", (img.size, img.mode)
+        img.load()
+    with Image.open(hist) as img:
+        assert img.size == (640, 480) and img.mode == "RGB", (img.size, img.mode)
+        img.load()
+    text, rec = runs["export"]
+    if tf_state == "imports":
+        assert rec["code"] == 0, (text[-2000:], rec["stderr"])
+        export = qt_export_roundtrip(logdir, exported)
+    else:
+        assert rec["code"] != 0 and QT_EXPORT_ERROR in rec["stderr"], (rec["code"], rec["stderr"])
+        assert not os.path.exists(os.path.join(exported, "encoder")), os.listdir(exported)
+        export = "refused: tensorflow " + tf_state
+    record["children"] = {k: {f: v[1][f] for f in ("code", "wall_s", "torch_import_s", "tool_s",
+                                                     "matplotlib_loaded")}
+                          for k, v in runs.items()}
+    record["tensorflow"], record["pyqt5"], record["export"] = tf_state, qt_state, export
+    for k, v in record["children"].items():
+        log(f"  ({'qt3' if k == 'export' else 'qt2'}) {jobs[k][0][0]} {k}: exit code "
+            f"{v['code']}, {v['wall_s']:.3f} s of process (torch's import "
+            f"{v['torch_import_s']:.3f} s), matplotlib loaded {v['matplotlib_loaded']}")
+    log(f"  decoded PNG 300x224 RGB, histogram PNG 640x480 RGB; tensorflow {tf_state}, PyQt5 "
+        f"{qt_state} on this machine; the export tool: {export}")
+
+
+def qt_export_roundtrip(logdir, exported):
+    """Where tensorflow imports: the export read back by train/tf_import.py equals the log
+    directory's weights bit for bit."""
+    import torch
+
+    from trustedai_cl_vae_ad_tpu_torch.registry import load_model_from_directory
+    from trustedai_cl_vae_ad_tpu_torch.train.tf_import import import_tf_checkpoint
+
+    back, _ = import_tf_checkpoint(exported, device="cpu")
+    model, _ = load_model_from_directory(logdir, device="cpu")
+    for k, t in model.params.items():
+        assert torch.equal(tf_bits(back.params[k]), tf_bits(t)), k
+    return "exported and imported back bit for bit"
+
+
+def phase_qt(dev):
+    """The Qt shells and the TF export on the card: (qt1) the camera window through
+    tests/qt_stub.py against the engine alone, float and w8a8; (qt2) the decoder window and
+    its headless modes; (qt3) the export tool. Kernel 1's and kernel 10's launches on the
+    windows' ticks, counted from zero a run and summed."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    # what this machine has, asked before the stub stands in for PyQt5
+    tf_state, qt_state = module_imports("tensorflow"), module_imports("PyQt5")
+    saved = {k: v for k, v in sys.modules.items() if k == "PyQt5" or k.startswith("PyQt5.")}
+    qt_stub = qt_stub_module()
+    qt_stub.install()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_qt_")
+    record, launches = {}, {}
+
+    def add(counts):
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        logdir, _ds, config, n_params, record["setup_s"] = shared_flagship_logdir()
+        log(f"  the seeded flagship ({n_params} parameters) saved with a dataset of {LT_TRAIN} + "
+            f"{LT_VAL} frames: " + (f"made in {record['setup_s']:.1f} s" if record["setup_s"]
+                                    else "phase (lt)'s"))
+        # the window and the engine it is held against choose the same convolution algorithms
+        torch.backends.cudnn.deterministic = True
+        qt_cam_windows(dev, tmp, logdir, config, record, add, qt_stub)
+        torch.backends.cudnn.deterministic = deterministic
+        qt_children(tmp, logdir, record, tf_state, qt_state)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k in [k for k in sys.modules if k == "PyQt5" or k.startswith("PyQt5.")]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+    record["launches"] = launches
+    assert launches["stream_score"] == 0 and launches["int8_gemm"] == 0, launches
+    assert "matplotlib" not in sys.modules
+    record["s"] = time.perf_counter() - t_phase
+    log(f"  launches on the windows' ticks: { {k: v for k, v in launches.items() if v} }; "
+        f"matplotlib not loaded; phase (qt) ran "
+        f"{record['s']:.1f} s")
+    return record
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None,
-                        help="comma-separated subset of c..z, zm, tf, lt to run after the build "
+                        help="comma-separated subset of c..z, zm, tf, lt, qt to run after the build "
                              "(for finding a fault); the final line is then not printed")
     parser.add_argument("--worker", action="store_true",
                         help="(internal) run one rank of phase (z)'s or (zm)'s two-process "
@@ -6354,13 +6932,16 @@ def main(argv=None):
     run("y", "the dataset builders and configs/veri.yml with adam_fp8; the flagship's bf16 step "
         "with adam_fp8 beside adam_lean", lambda: phase_y(dev))
     run("z", "parallel/: train_torch.py through a process group, two processes with ZeRO-1 "
-        "and with a model axis, offline scoring over a mesh", lambda: phase_z(dev))
+        "and with a model axis, offline scoring over a mesh", lambda: phase_z(dev, out.get("h")))
     run("zm", "the multi-camera engine on a device mesh; adam_fp8 with ZeRO-1 and on a model "
         "axis over two processes", lambda: phase_zm(dev))
     run("tf", "the reference's TF log directories imported at the flagship; the log-directory "
         "doctor on each stage; the w8a8 boot of the imported directory", lambda: phase_tf(dev))
     run("lt", "the latent tools at the flagship's width and the moment examples, kernel 3 on "
         "their path", lambda: phase_lt(dev))
+    run("qt", "the Qt shells at the flagship's width through tests/qt_stub.py, kernels 1 and 10 "
+        "on the window's ticks; the decoder's headless modes; the TF export tool",
+        lambda: phase_qt(dev))
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(f"partial run (phases {sorted(out)}): no result line")
@@ -6448,6 +7029,10 @@ def main(argv=None):
     # moment examples (kernel 3 forward and backward)
     for entry in kernels:
         entry["launches_latent_tools"] = out["lt"]["launches"].get(entry["name"], 0)
+    # (qt)'s path, counted from zero a run and summed: the camera window's ticks, float (the
+    # four view modes, the recording, CL through its checkbox) and w8a8
+    for entry in kernels:
+        entry["launches_qt_shells"] = out["qt"]["launches"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

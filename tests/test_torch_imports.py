@@ -25,13 +25,16 @@ FORBIDDEN = ("jax", "flax", "optax", "orbax", "trustedai_cl_vae_ad_tpu", "camera
              # the JAX package's latent tools and examples, which the *_torch.py ones carry over
              "output_reconstructions", "interpolate", "sample_latent_space", "plot_j_diagram",
              "similarity_analysis", "plot_umap", "gamma_example", "kurtosis_example",
-             "kurtosis_single_example", "kurtosis_pso", "quick_camera_streamer")
+             "kurtosis_single_example", "kurtosis_pso", "quick_camera_streamer",
+             # the JAX package's Qt shells, which the *_torch.py shells carry over
+             "camera_streamer_qt", "decoder_generator_qt")
 LATENT_TOOLS = ("output_reconstructions_torch.py", "interpolate_torch.py",
                 "sample_latent_space_torch.py", "plot_j_diagram_torch.py",
                 "similarity_analysis_torch.py", "plot_umap_torch.py")
 EXAMPLES = tuple(os.path.join("examples", f) for f in (
     "gamma_example_torch.py", "kurtosis_example_torch.py", "kurtosis_single_example_torch.py",
     "kurtosis_pso_torch.py", "quick_camera_streamer_torch.py"))
+QT_SHELLS = ("camera_streamer_qt_torch.py", "decoder_generator_qt_torch.py")
 ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "do_anomaly_detection_torch.py",
                 "kernel_bounds_torch.py", "probe_r11_torch.py", "probe_r18_torch.py",
                 "profile_stream_torch.py", "profile_train_torch.py", "serve_torch.py",
@@ -41,7 +44,8 @@ ENTRY_POINTS = ("camera_streamer_torch.py", "chip_smoke.py", "do_anomaly_detecti
                 os.path.join("tools", "quantize_checkpoint_torch.py"),
                 os.path.join("tools", "convert_logdir_torch.py"),
                 os.path.join("tools", "validate_logdir_torch.py"),
-                os.path.join("tools", "import_tf_checkpoint_torch.py"), *LATENT_TOOLS, *EXAMPLES)
+                os.path.join("tools", "import_tf_checkpoint_torch.py"), *LATENT_TOOLS, *EXAMPLES,
+                *QT_SHELLS, os.path.join("tools", "export_tf_checkpoint_torch.py"))
 
 
 def _port_sources():
@@ -76,6 +80,7 @@ import plot_j_diagram_torch, similarity_analysis_torch, plot_umap_torch
 sys.path.insert(0, {os.path.join(REPO, "examples")!r})
 import gamma_example_torch, kurtosis_example_torch, kurtosis_single_example_torch
 import kurtosis_pso_torch, quick_camera_streamer_torch
+import camera_streamer_qt_torch, decoder_generator_qt_torch, export_tf_checkpoint_torch
 print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})))
 """
     env = dict(os.environ, PYTHONPATH=REPO, TCVAE_PLATFORM="cpu", TCVAE_CPU_DEVICES="1")
@@ -103,7 +108,7 @@ def test_the_slices_new_modules_are_in_the_walk():
                 "data/builders/veri.py", "data/builders/virat.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/collectives.py", "parallel/dp.py",
                 "parallel/zero.py", "parallel/tp.py", "train/tf_import.py", "viz/latent.py",
-                "utils/cli.py"):
+                "utils/cli.py", "train/tf_export.py"):
         assert os.path.join(PACKAGE, rel) in sources, rel
     # the multi-camera engine on a mesh and adam_fp8 on one: their modules above, their
     # JAX-parity tests beside the rest
@@ -118,7 +123,7 @@ def test_the_slices_new_modules_are_in_the_walk():
             os.path.join("tools", "convert_logdir_torch.py"),
             os.path.join("tools", "validate_logdir_torch.py"),
             os.path.join("tools", "import_tf_checkpoint_torch.py"), *LATENT_TOOLS,
-            *EXAMPLES} <= sources
+            *EXAMPLES, *QT_SHELLS, os.path.join("tools", "export_tf_checkpoint_torch.py")} <= sources
     assert len(LATENT_TOOLS) + len(EXAMPLES) == 11
 
 

@@ -544,6 +544,21 @@ def test_paced_reader_drains_a_live_source_on_a_thread():
     assert reader.source.released and not reader._drain._thread.is_alive()
 
 
+def test_paced_reader_hands_out_a_live_source_s_last_frame_once():
+    """A tick that comes only after a live source has ended still gets the
+    last frame the source delivered, once, and then None."""
+    import time
+
+    reader = PacedReader(_LiveSource([1, 2, 3]), fps=30.0, tick_fps=20.0)
+    deadline = time.monotonic() + 10.0
+    while not reader._drain.dead and time.monotonic() < deadline:
+        time.sleep(0.005)
+    assert reader._drain.dead and reader.source.exhausted
+    assert [reader.read() for _ in range(3)] == [3, None, None]
+    reader.release()
+    assert reader.source.released
+
+
 class _DroppingReader:
     """Delivers a frame on every tick but each ``every``-th."""
 

@@ -275,6 +275,7 @@ class _LiveDrainThread:
         self.source = source
         self._lock = threading.Lock()
         self._latest = None
+        self._fresh = False  # the newest frame has not been handed out yet
         self._stop = False
         self.dead = False  # set when the source is exhausted or the read raises
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -286,7 +287,7 @@ class _LiveDrainThread:
                 f = self.source.read()  # blocks until the camera's next frame
                 if f is not None:
                     with self._lock:
-                        self._latest = f
+                        self._latest, self._fresh = f, True
         except Exception as e:  # noqa: BLE001: a boundary that must report and end
             # a silently dead drain thread would hand out one frozen frame forever
             print(f"camera drain thread died: {e}")
@@ -294,9 +295,12 @@ class _LiveDrainThread:
             self.dead = True
 
     def read(self):
-        if self.dead:
-            return None  # an exhausted or failed source ends the stream
         with self._lock:
+            fresh, self._fresh = self._fresh, False
+            if self.dead:
+                # an exhausted or failed source ends the stream, once the last
+                # frame it delivered has been handed out
+                return self._latest if fresh else None
             return self._latest  # the newest frame; never blocks the tick
 
     def stop(self) -> bool:
