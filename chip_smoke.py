@@ -19,7 +19,7 @@ printing its final line.
       thread-block cluster a frame), the moments (on thread-block clusters,
       and moments.cu's blocks), the int8 GEMM (on CUDA cores and on the
       tensor cores), the dense-update and the convolution weight-gradient
-      kernels (ten sources) from csrc/ into build/, all at once, and logs
+      kernels (eleven sources) from csrc/ into build/, all at once, and logs
       each one's ptxas registers, shared memory and spills;
   (c) the scorer vs its plain PyTorch version on the card, 8-frame sequences
       at 224x300x3 and 37x53x3 (constant first frame, seeding, converged
@@ -123,17 +123,27 @@ printing its final line.
       PyTorch versions on the card: ragged (5, 37, 53) and (3, 1003, 250) and
       (64, 384, 256) in bfloat16 and float32, the probes' (768, 12800, 4000),
       (768, 12800, 4096) and (768, 2000, 13440) in bfloat16, views that do not
-      start on a 16-byte boundary, step counts 1 and 5, both tiles. The
+      start on a 16-byte boundary, step counts 1 and 5. The
       streaming copy and both streaming epilogues equal their plain versions
       bit for bit (the same operations in the same order, each rounded once);
       the product is within one step of its dtype of a float64 product
-      rounded once; w, mu, nu of the fused kernels are within one step of the
-      plain version on a small share of elements (the K sums are taken in
-      another order) and within 1/64 of the tensor's scale, as the archived
-      harness asks; two runs give equal bits; bad inputs raise. Times at
-      (768, 12800, 4000): CUDA-event median of 100 and back-to-back time of
-      each kernel, its bound, its plain version and the PyTorch calls that
-      compute the same function. The product alone takes the tensor cores
+      rounded once; w, mu, nu of the fused kernels, x (K, M) and (M, K), in
+      both arrangements (the CUDA-core tile kernel everywhere, the wgmma
+      kernel of csrc/dense_grad_adam_wgmma.cu where ops.dense_grad_adam's
+      fused_arrangement takes it), differ from the plain version on a small
+      share of elements (the K sums are taken in another order) and stay
+      within 1/64 of the tensor's scale, as the archived harness asks: the
+      CUDA-core arrangement within one step; the wgmma arrangement equals,
+      bit for bit, kernel 9's step applied to kernel 6's wgmma product of
+      the same operands, and the plain version wherever that product rounds
+      g alike, and elsewhere its g is within one step and w, mu, nu within
+      testing.FLIPPED_G_STEPS; two runs give equal bits; bad inputs raise,
+      and so does the wgmma launcher on operands off its rule. Times at
+      (768, 12800, 4000): CUDA-event median of 100 and back-to-back time
+      of each kernel, its bound, its plain version and the PyTorch calls
+      that compute the same function; the fused kernels also beside their
+      CUDA-core arrangement and the unfused pair (kernel 6 on wgmma, then
+      kernel 9) on the same operands. The product alone takes the tensor cores
       (csrc/dense_grad_wgmma.cu) for bfloat16 at multiples of 8 on 16-byte
       boundaries and the CUDA-core tile kernel otherwise, counted per
       arrangement at every shape above; then the tensor-core kernel alone:
@@ -146,16 +156,20 @@ printing its final line.
       torch.matmul(x.T, dz) (a yardstick only this script calls);
   (r) the probes at full width through probes/r11.py::run, as
       probe_r11_torch.py drives them: harness fused at enc (768, 268800,
-      4000) and dec (768, 2000, 134400), variants torch and fused, with the
-      check; harness diag, every variant; the encoder shape in the port's own
-      (out, in) layout (768, 4000, 268800). Each kernel's launch count equals
-      the steps taken, and dot_only's launches are all on the tensor cores; a
-      kernel variant allocates nothing in a step, the torch variant at least
-      one (M, N) gradient; at enc the whole state
-      after one step agrees with the plain version taken over row blocks of
-      M. Then the float32 epilogue on the flagship's two dense kernels beside
-      ops/adam.py's adam_lean step on a tensor of the same shape (logged, not
-      compared: they round mu differently).
+      4000) and dec (768, 2000, 134400), variants torch and fused, and at
+      enc4096 (768, 268800, 4096) variant fused, with the check; harness
+      diag, every variant; the encoder shape in the port's own (out, in)
+      layout (768, 4000, 268800); fused and fused_xt on float32 operands at
+      the diag shape. Each kernel's launch count equals the steps taken:
+      dot_only's launches and the bfloat16 fused ones all on the tensor
+      cores, the float32 fused ones on the CUDA cores; a kernel variant
+      allocates nothing in a step, the torch variant at least one (M, N)
+      gradient; at enc, dec and the port layout the whole state after one
+      step equals kernel 9 on kernel 6's product bit for bit, and agrees
+      with the plain version taken over row blocks of M as in (q). Then the
+      float32 epilogue on the flagship's two dense kernels beside ops/adam.py's
+      adam_lean step on a tensor of the same shape (logged, not compared:
+      they round mu differently).
   (s) the convolution weight-gradient kernels vs their plain PyTorch version
       and a float64 reference on the card. The CUDA-core kernel
       (csrc/conv_dw.cu): the archived check's two shapes, a ragged batch of 5
@@ -431,11 +445,19 @@ DGA_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/dense_grad_adam.cu"}
 # the bf16 product alone runs on the tensor cores (ops.dense_grad_adam.dense_grad_arrangement)
 DGW_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/dense_grad_wgmma.cu",
               "arrangement": "wgmma"}
+# kernels 4 and 5's two arrangements (ops.dense_grad_adam.fused_arrangement): the tensor-core
+# kernel, which bfloat16 operands on its rule take (every probe shape), and the CUDA-core tile
+# kernel, which takes the rest (the float32 probe steps of phase r)
+DGAW_SOURCE = {"route": "cuda", "source": f"{PACKAGE}/csrc/dense_grad_adam_wgmma.cu",
+               "arrangement": "wgmma"}
+DGA_CUDA_CORE = dict(DGA_SOURCE, arrangement="cuda_core")
 # name in the kernels' line -> (its counter in ops.dense_grad_adam.launches, the TPU kernel,
 # the source of the kernel that the main path launches)
 DGA_KERNELS = {
-    "dense_grad_adam_fused": ("fused", "benchmarks/r11_kernel.py:84", DGA_SOURCE),
-    "dense_grad_adam_fused_xt": ("fused_xt", "benchmarks/r11_diag.py:132", DGA_SOURCE),
+    "dense_grad_adam_fused_wgmma": ("fused", "benchmarks/r11_kernel.py:84", DGAW_SOURCE),
+    "dense_grad_adam_fused": ("fused", "benchmarks/r11_kernel.py:84", DGA_CUDA_CORE),
+    "dense_grad_adam_fused_xt_wgmma": ("fused_xt", "benchmarks/r11_diag.py:132", DGAW_SOURCE),
+    "dense_grad_adam_fused_xt": ("fused_xt", "benchmarks/r11_diag.py:132", DGA_CUDA_CORE),
     "dense_grad": ("dense_grad", "benchmarks/r11_diag.py:163", DGW_SOURCE),
     "stream_copy": ("stream_copy", "benchmarks/r11_diag.py:183", DGA_SOURCE),
     "adam_epilogue_bf16": ("epilogue_bf16", "benchmarks/r11_diag.py:207", DGA_SOURCE),
@@ -1770,15 +1792,17 @@ def fleet_readers(n_streams, n_ticks, width=320, height=240, motion=1.0):
     return readers + [DroppingReader(sources[-1], DROP_EVERY)]
 
 
-def run_fleet(engine, n_ticks, **reader_kwargs):
-    """run_all_cameras over fleet_readers; returns (summary, per-tick results)."""
+def run_fleet(engine, n_ticks, clock=None, **reader_kwargs):
+    """run_all_cameras over fleet_readers; returns (summary, per-tick results).
+    ``clock(n)``: the time of tick n that the engine's alarm hold sees (else
+    the host's clock)."""
     from trustedai_cl_vae_ad_tpu_torch.stream.run import run_all_cameras
 
     ticks = []
     names = [f"synthetic{i}" for i in range(engine.n_streams)]
     summary = run_all_cameras(engine, fleet_readers(engine.n_streams, n_ticks, **reader_kwargs),
                               names, on_tick=lambda tick, results: ticks.append(results),
-                              log=lambda m: None)
+                              log=lambda m: None, clock=clock)
     assert summary["ticks"] == n_ticks == len(ticks), summary["ticks"]
     for t, results in enumerate(ticks):
         dropped = (t + 1) % DROP_EVERY == 0
@@ -1823,7 +1847,10 @@ def phase_o():
                     int8_gemm.launches = 0
                     for arrangement in int8_gemm.int8_gemm_arrangements:
                         int8_gemm.int8_gemm_arrangements[arrangement] = 0
-                runs[name] = run_fleet(engine, n_ticks, width=64, height=40, motion=0.0)[1]
+                # the alarm's hold (0.05 s) ends by the tick's time: the readers' 20 fps on
+                # both devices, not the host's clock, whose ticks land either side of it
+                runs[name] = run_fleet(engine, n_ticks, clock=lambda n: n / 20.0, width=64,
+                                       height=40, motion=0.0)[1]
                 if name == "cuda" and quantize:
                     int8_counts = dict(int8_gemm.int8_gemm_arrangements)
                     # the encoder's two Dense layers (K = 768, 16) on the tensor cores, the
@@ -2119,7 +2146,7 @@ def phase_q(dev):
 
     from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
     from trustedai_cl_vae_ad_tpu_torch.probes import r11
-    from trustedai_cl_vae_ad_tpu_torch.testing import shifted, steps_apart
+    from trustedai_cl_vae_ad_tpu_torch.testing import FLIPPED_G_STEPS, shifted, steps_apart
 
     adam, names = r11.ADAM, ("w", "mu", "nu")
 
@@ -2201,11 +2228,28 @@ def phase_q(dev):
         assert worst <= max_steps and share <= max_share, (shape, dtype, "dense_grad", share,
                                                            worst)
         errs["dense_grad"] = float((got.double() - plain.double()).abs().max())
-        product_share, shares = share, [0.0]
+        product_share, shares, g_kernel, free_worst = share, [0.0], got, {}
+        # where kernel 6 rounds g as the plain float32 product does (the wgmma arrangement's
+        # g is kernel 6's, bit for bit); elsewhere one step apart (at the size of its terms)
+        same = g_kernel == plain if arrangement == "wgmma" else None
+        if same is not None:
+            _, g_steps = steps_apart(g_kernel, plain, floor=K * 2.0 ** -24 * float(
+                plain.float().abs().max()))
+            assert g_steps <= 1.0, (shape, "g of kernel 6 against the plain product", g_steps)
+        # the CUDA-core product, the CUDA-core fused kernels' mainloop, beside it
+        if bf16:
+            cuda_core_g = torch.empty_like(got)
+            dga._launch_dense_grad("cuda_core", x, dz, cuda_core_g)
+            cuda_core_flips = float((cuda_core_g != plain).float().mean())
+            del cuda_core_g
         del g64
 
-        # the fused kernels against the plain version: the K sums are taken in another
-        # order, which now and then flips the rounding of g and moves w, mu, nu by a step
+        # the fused kernels against the plain version, x (K, M) and (M, K), in both
+        # arrangements (the CUDA-core tile kernel launched directly where the rule takes the
+        # tensor cores): the K sums are taken in another order, which now and then flips the
+        # rounding of g and moves w, mu, nu by a step. The wgmma arrangement is kernel 9's
+        # step on kernel 6's wgmma product, bit for bit.
+        arrangements = set()
         for count in (1, 5):
             ref = state()
             dga.fused_dense_grad_adam_reference(x, dz, *ref, count=count, **adam)
@@ -2213,33 +2257,68 @@ def phase_q(dev):
             w_old = ops["w"].float()
             terms = [torch.maximum(w_old.abs(), (w_old - ref[0].float()).abs()),
                      torch.maximum(ops["mu"].float().abs(), plain.float().abs()), None]
-            for tile in dga.TILES:
-                for transposed in (False, True):
-                    got = state()
-                    dga.fused_dense_grad_adam(xt if transposed else x, dz, *got, count=count,
-                                              x_transposed=transposed, tile=tile, **adam)
+            composed = None
+            for transposed in (False, True):
+                lhs, key = (xt, "fused_xt") if transposed else (x, "fused")
+                rule = dga.fused_arrangement(lhs, dz, *state(), x_transposed=transposed)
+                for kind in ("cuda_core", "wgmma")[:1 + (rule == "wgmma")]:
+                    taken = dict(dga.fused_arrangements)
+                    runs = [state(), state()]
+                    for got in runs:
+                        if kind == rule:
+                            dga.fused_dense_grad_adam(lhs, dz, *got, count=count,
+                                                      x_transposed=transposed, **adam)
+                        else:
+                            dga._launch_fused(kind, lhs, dz, got,
+                                              dga.adam_scalars(count=count, **adam), transposed)
                     torch.cuda.synchronize()
-                    key = "fused_xt" if transposed else "fused"
+                    taken[rule] += 2 * (kind == rule)
+                    assert dga.fused_arrangements == taken, (shape, key, taken)
+                    got = runs[0]
+                    assert all(torch.equal(a, b) for a, b in zip(*runs)), \
+                        (shape, dtype, key, kind, count, "two runs differ")
                     for i, name in enumerate(names):
                         share, worst = steps_apart(got[i], ref[i], terms[i])
                         scale = float((got[i].float() - ref[i].float()).abs().max()
                                       / ref[i].float().abs().max())
-                        assert worst <= max_steps and share <= max_share and scale < 1 / 64, \
-                            (shape, dtype, tile, transposed, count, name, share, worst, scale)
+                        # the wgmma arrangement equals the plain version wherever g rounds
+                        # alike (the plain step is exact given g); elsewhere g is a step away,
+                        # which the step amplifies (nu ~ g g where nu is small, w where 9 mu +
+                        # g cancels, mu where mu and g are tiny): there it is kernel 9's step
+                        # from its own g (the composition below), within FLIPPED_G_STEPS
+                        limit = FLIPPED_G_STEPS if kind == "wgmma" else max_steps
+                        assert worst <= limit and share <= max_share and scale < 1 / 64, \
+                            (shape, dtype, key, kind, count, name, share, worst, scale)
+                        if kind == "wgmma":
+                            assert torch.equal(got[i][same], ref[i][same]), (shape, key, name)
+                            free_worst[name] = max(free_worst.get(name, 0.0), worst)
                         shares.append(share)
                         if i == 0:
-                            errs[key] = max(errs.get(key, 0.0), float(
+                            err_key = key if kind == "wgmma" else f"{key}:cuda_core"
+                            errs[err_key] = max(errs.get(err_key, 0.0), float(
                                 (got[i].float() - ref[i].float()).abs().max()))
                     assert not torch.equal(got[0], ops["w"]), "w did not move"
-            again = state()
-            dga.fused_dense_grad_adam(xt, dz, *again, count=count, x_transposed=True,
-                                      tile=dga.TILES[-1], **adam)
-            assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ"
+                    arrangements.add(kind)
+                    if kind != "wgmma":
+                        continue
+                    if composed is None:  # kernel 9 on kernel 6's wgmma product
+                        composed = state()
+                        dga.adam_epilogue_step(g_kernel, *composed, count=count, **adam)
+                    for name, a, b in zip(names, got, composed):
+                        assert torch.equal(a, b), (shape, key, count, name, steps_apart(a, b))
+        wgmma = ("; the wgmma fused kernels, x (K, M) and (M, K), equal kernel 9 on kernel "
+                 "6's product bit for bit, and the plain version wherever g rounds alike "
+                 f"({float((~same).float().mean()):.2e} of g rounds a step apart, up to "
+                 f"{g_steps:.2f}; there w, mu, nu up to "
+                 f"{ {k: round(v, 2) for k, v in free_worst.items()} } steps, within "
+                 f"{FLIPPED_G_STEPS:g}; the CUDA-core product's g rounds apart from the plain "
+                 f"product on {cuda_core_flips:.2e})" if "wgmma" in arrangements else "")
         log(f"  {shape} {str(dtype)[6:]}{' at +1 element' if offset else ''}: copy and "
             f"epilogues equal bit for bit; within {max_steps:g} step(s): the product "
             f"({arrangement}) of a "
             f"float64 product rounded once, on {product_share:.2e} of the elements, the fused "
-            f"kernels of the plain version, on at most {max(shares):.2e}")
+            f"kernels ({', '.join(sorted(arrangements))}) of the plain version, on at most "
+            f"{max(shares):.2e}{wgmma}")
         return errs
 
     before = dict(dga.launches)
@@ -2271,7 +2350,10 @@ def phase_q(dev):
                 g.float(), w.float(), mu.float(), nu.float(), count=1, arithmetic="bfloat16",
                 **adam), TypeError),
             ("a copy onto another source", lambda: dga.stream_copy(w, mu, nu, out=(mu, w, nu)),
-             ValueError)):
+             ValueError),
+            ("the wgmma fused launcher on operands off its rule (N = 6)", lambda: dga._launch_fused(
+                "wgmma", x, dz, (w, mu, nu), dga.adam_scalars(count=1, **adam), False),
+             RuntimeError)):
         expect_raises(call, error, what)
 
     # times at the archived harness's shape, beside bounds, plain versions and library calls
@@ -2336,9 +2418,29 @@ def phase_q(dev):
     records["dense_grad"].update(arrangement="wgmma", cuda_core_ms=median_ms(cuda_core, runs=20),
                                  cuda_core_device_ms=queued_ms(cuda_core, runs=20),
                                  **phase_q_tensor_cores(dev))
-    big = lambda: dga.fused_dense_grad_adam(x, dz, w, mu, nu, tile="big", **kw)  # noqa: E731
-    records["fused"]["big_tile_ms"] = median_ms(big)
-    records["fused"]["big_tile_device_ms"] = queued_ms(big)
+    # kernels 4 and 5 on the tensor cores beside their CUDA-core arrangement and the unfused
+    # pair (kernel 6 on wgmma writes g, kernel 9 steps from it) on the same operands
+    scalars = dga.adam_scalars(**kw)
+
+    def pair():
+        dga.dense_grad(x, dz, out=gbuf)
+        dga.adam_epilogue_step(gbuf, w, mu, nu, **kw)
+
+    pair_ms, pair_device_ms = median_ms(pair), queued_ms(pair)
+    hgmma = sass_instructions("dense_grad_adam_wgmma", "HGMMA")
+    assert hgmma, "no HGMMA instruction in the SASS of dense_grad_adam_wgmma"
+    log(f"  SASS of dense_grad_adam_wgmma: {len(hgmma)} HGMMA instructions, e.g. {hgmma[0]}")
+    for key, lhs, transposed in (("fused", x, False), ("fused_xt", xt, True)):
+        assert dga.fused_arrangement(lhs, dz, w, mu, nu, transposed) == "wgmma", key
+        forced = lambda: dga._launch_fused(  # noqa: E731
+            "cuda_core", lhs, dz, (w, mu, nu), scalars, transposed)
+        r = records[key]
+        records[f"{key}:cuda_core"] = dict(
+            r, arrangement="cuda_core", max_abs_err=errs[f"{key}:cuda_core"],
+            ms=median_ms(forced, runs=20), device_ms=queued_ms(forced, runs=20))
+        r.update(arrangement="wgmma", pair_ms=pair_ms, pair_device_ms=pair_device_ms,
+                 cuda_core_ms=records[f"{key}:cuda_core"]["ms"], sass_hgmma=len(hgmma),
+                 ptxas=ptxas_report("dense_grad_adam_wgmma"))
     assert all(torch.isfinite(t).all() for t in (w, mu, nu))
     for key, r in records.items():
         library = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -2346,15 +2448,24 @@ def phase_q(dev):
             f"({r['device_ms']:.4f} ms back to back), plain (median of 10) "
             f"{r['plain_ms']:.4f} ms, library calls (median of 20) {library}, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
-    log(f"  fused with 128 x 128 tiles: {records['fused']['big_tile_ms']:.4f} ms "
-        f"({records['fused']['big_tile_device_ms']:.4f} ms back to back)")
+    for key in ("fused", "fused_xt"):
+        r = records[key]
+        log(f"  {key} at {DGA_DIAG_SHAPE}: wgmma {r['ms']:.4f} ms ({r['device_ms']:.4f} back to "
+            f"back; {r['bound_ms'] / r['ms']:.1%} of the bound), CUDA-core arrangement (median "
+            f"of 20) {r['cuda_core_ms']:.4f} ms ({r['cuda_core_ms'] / r['ms']:.1f}x), the "
+            f"unfused pair kernel 6 + kernel 9 {pair_ms:.4f} ms ({pair_device_ms:.4f} back to "
+            f"back), torch.matmul + the plain epilogue {r['library_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.5f} ms")
     r = records["dense_grad"]
     log(f"  dense_grad at {DGA_DIAG_SHAPE}: wgmma {r['ms']:.4f} ms ({r['device_ms']:.4f} back to "
         f"back; {2 * K * M * N / r['ms'] / 1e9:.1f} TFLOP/s), CUDA-core arrangement (median of "
         f"20) {r['cuda_core_ms']:.4f} ms ({r['cuda_core_device_ms']:.4f}): "
         f"{r['cuda_core_ms'] / r['ms']:.1f}x; torch.matmul {r['library_ms']:.4f} ms; bound "
         f"{r['bound_ms']:.5f} ms")
-    return records
+    # keyed by the name in the kernels' line
+    return {name: records[counter + (":cuda_core" if source.get("arrangement") == "cuda_core"
+                                     else "")]
+            for name, (counter, _, source) in DGA_KERNELS.items()}
 
 
 def phase_q_tensor_cores(dev):
@@ -2455,27 +2566,46 @@ def phase_r(dev):
     from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
     from trustedai_cl_vae_ad_tpu_torch.ops.adam import make_optimizer
     from trustedai_cl_vae_ad_tpu_torch.probes import r11
-    from trustedai_cl_vae_ad_tpu_torch.testing import steps_apart
+    from trustedai_cl_vae_ad_tpu_torch.testing import FLIPPED_G_STEPS, steps_apart
 
     gib, adam, names = 2.0 ** 30, r11.ADAM, ("w", "mu", "nu")
-    for counts in (dga.launches, dga.dense_grad_arrangements):
+    for counts in (dga.launches, dga.dense_grad_arrangements, dga.fused_arrangements):
         for key in counts:
             counts[key] = 0
     expected = dict.fromkeys(dga.launches, 0)
+    # launches of kernels 4 and 5 by arrangement: bfloat16 on the rule (every shape driven
+    # here) takes the tensor cores, float32 the CUDA-core tile
+    by_arrangement = {key: dict.fromkeys(dga.fused_arrangements, 0)
+                      for key in ("fused", "fused_xt")}
     records = []
 
-    def drive(harness, variant, **job):
+    def drive(harness, variant, dtype=torch.bfloat16, **job):
         torch.cuda.empty_cache()
+        if dtype != torch.bfloat16:  # the operands r11.run would draw, in this dtype
+            K, M, N = job["shape"]
+            job["operands"] = r11.make_operands(
+                K, M, N, dev, torch.Generator(device=dev).manual_seed(0),
+                transposed_x=variant == "fused_xt", dtype=dtype)
+        taken = dict(dga.fused_arrangements)
         rec, state = r11.run(harness, variant, steps=DGA_STEPS, device=dev, seed=0, **job)
         K, M, N = rec["K"], rec["M"], rec["N"]
+        rec["dtype"] = str(dtype)[6:]
         if rec["kernel"]:
-            expected[rec["kernel"]] += r11.WARMUP + DGA_STEPS + ("check_shape" in rec)
+            n = r11.WARMUP + DGA_STEPS + ("check_shape" in rec)
+            expected[rec["kernel"]] += n
             # in place, no scratch: a step allocates nothing
             assert rec["temp_gb"] == 0.0, (variant, rec["temp_gb"])
         else:  # torch.matmul writes the (M, N) gradient
             assert rec["temp_gb"] >= M * N * 2 / gib, rec["temp_gb"]
+        if rec["kernel"] in by_arrangement:
+            kind = "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+            assert dga.fused_arrangements == dict(taken, **{kind: taken[kind] + n}), (
+                variant, dtype, taken, dga.fused_arrangements)
+            by_arrangement[rec["kernel"]][kind] += n
+            rec["arrangement"] = kind
         assert all(bool(torch.isfinite(t).all()) for t in state), (variant, "not finite")
-        first = r11.make_operands(K, M, N, dev, torch.Generator(device=dev).manual_seed(0))
+        first = r11.make_operands(K, M, N, dev, torch.Generator(device=dev).manual_seed(0),
+                                  dtype=dtype)
         if variant == "dot_only":
             assert bool((state[0] != 0).any())
         elif variant == "copy_only":
@@ -2488,50 +2618,77 @@ def phase_r(dev):
         check = (f", check at {tuple(rec['check_shape'])} "
                  f"{ {k: round(v, 5) for k, v in rec['max_err_vs_scale'].items()} }"
                  if "check_shape" in rec else "")
-        log(f"  {harness} {rec.get('shape', '')} {variant} ({K}, {M}, {N}): "
+        on = f", {rec['dtype']} on {rec['arrangement']}" if "arrangement" in rec else ""
+        log(f"  {harness} {rec.get('shape', '')} {variant} ({K}, {M}, {N}){on}: "
             f"{rec['event_ms']:.4f} ms a step by CUDA events, {rec['ms']:.4f} by the host clock, "
             f"floor {rec['floor_ms']:.4f} ms, a step allocates {rec['temp_gb']:.3f} GiB{check}")
 
     for shape_name in ("enc", "dec"):
         for variant in ("torch", "fused"):
             drive("fused", variant, shape_name=shape_name)
+    drive("fused", "fused", shape_name="enc4096")
     for variant in r11.DIAG_VARIANTS:
         drive("diag", variant)
     drive("fused", "fused", shape=DGA_PORT_LAYOUT, check=False)
+    for variant in ("fused", "fused_xt"):  # off the tensor cores' rule: the CUDA-core tile
+        drive("diag", variant, dtype=torch.float32, shape=DGA_DIAG_SHAPE)
 
-    # the whole state after one step at every full-width shape that was driven, against the
-    # plain version over row blocks of M (whole, enc's float32 temporaries would be 4.3 GB each)
+    # the whole state after one step at every full-width shape that was driven: equal, bit for
+    # bit, to kernel 9's step on kernel 6's wgmma product, and against the plain version over
+    # row blocks of M (whole, enc's float32 temporaries would be 4.3 GB each): equal wherever
+    # g rounds as the plain float32 product does; elsewhere g within a step and w, mu, nu
+    # within FLIPPED_G_STEPS; within 1/64 of each tensor's scale
     def whole_state(label, shape):
         torch.cuda.empty_cache()
         K, M, N = shape
         ops = r11.make_operands(K, M, N, dev, torch.Generator(device=dev).manual_seed(1))
         got = [ops[k].clone() for k in names]
         dga.fused_dense_grad_adam(ops["x"], ops["dz"], *got, count=1, **adam)
+        g = dga.dense_grad(ops["x"], ops["dz"])
+        composed = [ops[k].clone() for k in names]
+        dga.adam_epilogue_step(g, *composed, count=1, **adam)
         expected["fused"] += 1
+        expected["dense_grad"] += 1
+        expected["epilogue_f32"] += 1
+        by_arrangement["fused"]["wgmma"] += 1
+        assert all(torch.equal(a, b) for a, b in zip(got, composed)), (label, "composition")
+        del composed
         rows = max(1, DGA_BLOCK_ELEMENTS // N)
-        worst, differing, diff_max, ref_max = 0.0, 0, [0.0] * 3, [0.0] * 3
+        worst, differing, flipped, g_steps = dict.fromkeys(names, 0.0), 0, 0, 0.0
+        diff_max, ref_max = [0.0] * 3, [0.0] * 3
         for r0 in range(0, M, rows):
             r1 = min(r0 + rows, M)
             xb = ops["x"][:, r0:r1].contiguous()
             ref = [ops[k][r0:r1] for k in names]  # row blocks of a contiguous matrix: contiguous
             w_old = ref[0].float()
-            terms = [None, torch.maximum(ref[1].float().abs(), dga.dense_grad_reference(
-                xb, ops["dz"]).float().abs()), None]
+            plain_g = dga.dense_grad_reference(xb, ops["dz"])
+            same = g[r0:r1] == plain_g
+            flipped += int((~same).sum())
+            g_steps = max(g_steps, steps_apart(g[r0:r1], plain_g, floor=K * 2.0 ** -24 * float(
+                plain_g.float().abs().max()))[1])
+            terms = [None, torch.maximum(ref[1].float().abs(), plain_g.float().abs()), None]
             dga.fused_dense_grad_adam_reference(xb, ops["dz"], *ref, count=1, **adam)
             terms[0] = torch.maximum(w_old.abs(), (w_old - ref[0].float()).abs())
             for i in range(3):
                 block = got[i][r0:r1]
+                assert torch.equal(block[same], ref[i][same]), (label, names[i], r0)
                 share, steps = steps_apart(block, ref[i], terms[i])
-                worst, differing = max(worst, steps), differing + round(share * block.numel())
+                worst[names[i]] = max(worst[names[i]], steps)
+                differing += round(share * block.numel())
                 diff_max[i] = max(diff_max[i],
                                   float((block.float() - ref[i].float()).abs().max()))
                 ref_max[i] = max(ref_max[i], float(ref[i].float().abs().max()))
         scale = {k: d / r for k, d, r in zip(names, diff_max, ref_max)}
-        assert worst <= 1.0 and differing <= 0.01 * 3 * M * N and all(
-            v < 1 / 64 for v in scale.values()), (label, worst, differing, scale)
-        log(f"  {label} ({K}, {M}, {N}), one step, all of w, mu, nu against the plain version "
-            f"over blocks of {rows} rows: {differing} of {3 * M * N} elements differ, by at "
-            f"most {worst:.2f} steps; max error over scale "
+        assert g_steps <= 1.0 and all(v <= FLIPPED_G_STEPS for v in worst.values()) \
+            and flipped <= 0.01 * M * N and differing <= 0.01 * 3 * M * N and all(
+                v < 1 / 64 for v in scale.values()), (label, g_steps, worst, flipped, differing,
+                                                      scale)
+        log(f"  {label} ({K}, {M}, {N}), one step on wgmma, all of w, mu, nu: kernel 9 on kernel "
+            f"6's product bit for bit; against the plain version over blocks of {rows} rows, "
+            f"equal wherever g rounds alike ({flipped} of {M * N} g apart, by at most "
+            f"{g_steps:.2f} steps), {differing} of {3 * M * N} elements differ, by at most "
+            f"{ {k: round(v, 2) for k, v in worst.items()} } steps (limit "
+            f"{FLIPPED_G_STEPS:g}); max error over scale "
             f"{ {k: round(v, 5) for k, v in scale.items()} }")
 
     for label in ("enc", "dec"):
@@ -2542,7 +2699,14 @@ def phase_r(dev):
     # dot_only's bf16 product at (768, 12800, 4000) goes to the tensor cores, every launch
     arrangements = dict(dga.dense_grad_arrangements)
     assert arrangements == {"wgmma": expected["dense_grad"], "cuda_core": 0}, arrangements
-    log(f"  launches on this path: {launches}; dense_grad by arrangement: {arrangements}")
+    # the fused kernels: bfloat16 on wgmma, float32 on the CUDA cores, both launched
+    assert {k: sum(v.values()) for k, v in by_arrangement.items()} == {
+        k: launches[k] for k in by_arrangement}, (by_arrangement, launches)
+    assert dga.fused_arrangements == {kind: sum(v[kind] for v in by_arrangement.values())
+                                      for kind in dga.fused_arrangements}
+    assert all(n > 0 for v in by_arrangement.values() for n in v.values()), by_arrangement
+    log(f"  launches on this path: {launches}; dense_grad by arrangement: {arrangements}; "
+        f"fused and fused_xt by arrangement: {by_arrangement}")
 
     # what one pass over the bytes costs: the float32 epilogue on the flagship's two dense
     # kernels, first held bit for bit against its plain version over row blocks (same
@@ -2585,7 +2749,8 @@ def phase_r(dev):
             f"pass {rec['bound_ms']:.4f} ms")
         del ops, g, state, got, param, opt
     torch.cuda.empty_cache()
-    return {"launches": launches, "dense_grad_arrangements": arrangements, "records": records,
+    return {"launches": launches, "dense_grad_arrangements": arrangements,
+            "fused_arrangements": by_arrangement, "records": records,
             "flagship_epilogue": flagship}
 
 
@@ -6877,13 +7042,14 @@ def main(argv=None):
         list(pool.map(lambda build: build(),
                       (stream_score.build, stream_score.build_cluster, moments.build,
                        moments.build_blocks, int8_gemm.build, int8_gemm.build_mma, dense_grad_adam.build,
-                       dense_grad_adam.build_wgmma, conv_dw.build, conv_dw.build_wgmma)))
+                       dense_grad_adam.build_wgmma, dense_grad_adam.build_fused_wgmma,
+                       conv_dw.build, conv_dw.build_wgmma)))
     log(f"  stream_score, stream_score_cluster, moments_cluster, moments, int8_gemm, int8_gemm_mma, "
-        f"dense_grad_adam, dense_grad_wgmma, conv_dw and conv_dw_wgmma built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"dense_grad_adam, dense_grad_wgmma, dense_grad_adam_wgmma, conv_dw and conv_dw_wgmma "
+        f"built and loaded in {time.perf_counter() - t0:.1f} s")
     for kernel in ("stream_score", "stream_score_cluster", "moments_cluster", "moments", "int8_gemm",
-                   "int8_gemm_mma", "dense_grad_adam", "dense_grad_wgmma", "conv_dw",
-                   "conv_dw_wgmma"):
+                   "int8_gemm_mma", "dense_grad_adam", "dense_grad_wgmma", "dense_grad_adam_wgmma",
+                   "conv_dw", "conv_dw_wgmma"):
         for line in _build.build_log.get(kernel, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
@@ -6974,6 +7140,12 @@ def main(argv=None):
                     launches_fleet_cl_ticks=out["v"]["fleet"]["launches"][arrangement],
                     batched=out["n"][arrangement], **out["c"][arrangement])
     tiny_int8 = out["o"]["int8_arrangements"]
+
+    def dga_launches(counter, arrangement):
+        # (r)'s launches; kernels 4 and 5 by arrangement
+        by_arrangement = out["r"]["fused_arrangements"].get(counter)
+        return out["r"]["launches"][counter] if by_arrangement is None \
+            else by_arrangement[arrangement]
     kernels = [
         scorer_entry(STREAM_CLUSTER_KERNEL, "cluster"),
         scorer_entry(STREAM_KERNEL, "block"),
@@ -6985,8 +7157,9 @@ def main(argv=None):
             "cuda_core"], launches_frames=frame_int8["cuda_core"], **out["m"]["cuda_core"]),
         *moments_entries("global", out["f"], global_launches),
         *moments_entries("perdim", out["i"], perdim_launches),
-        *(dict(source, name=name, replaces=replaces, launches=out["r"]["launches"][counter],
-               **out["q"][counter]) for name, (counter, replaces, source) in DGA_KERNELS.items()),
+        *(dict(source, name=name, replaces=replaces,
+               launches=dga_launches(counter, source.get("arrangement")), **out["q"][name])
+          for name, (counter, replaces, source) in DGA_KERNELS.items()),
         dict(CONV_DW_KERNEL, launches=out["t"]["arrangements"]["cuda_core"],
              **out["s"]["conv1"]),
         dict(CONV_DW_WGMMA_KERNEL, launches=out["t"]["arrangements"]["wgmma"],

@@ -6,15 +6,17 @@ gradient product fused in (``--harness fused``) and taken apart
 Counterpart of ``benchmarks/r11_fused_dense_adam.py`` and
 ``benchmarks/r11_diag.py``; the variants and the record's keys are described
 in ``trustedai_cl_vae_ad_tpu_torch/probes/r11.py``. Every kernel is the port's
-own (``csrc/dense_grad_adam.cu``, built at first use); the ``torch`` variant
+own (``csrc/dense_grad_adam.cu``, and for bf16 on the tensor cores' rule
+``csrc/dense_grad_wgmma.cu`` and ``csrc/dense_grad_adam_wgmma.cu``, built at
+first use); the ``torch`` variant
 is the yardstick (``torch.matmul`` and the plain epilogue).
 
   --harness fused   --shapes enc,dec[,enc4096]  --variants torch,fused
                     (the flagship's dense kernels at batch 768; a kernel
                     variant is first held against the plain version at a
                     reduced shape unless --no-check)
-  --harness diag    --variants torch,fused,fused_xt,fused_big,dot_only,
-                    copy_only,epi_bf16,epi_only  [--N 4096] [--M ..] [--K ..]
+  --harness diag    --variants torch,fused,fused_xt,dot_only,copy_only,
+                    epi_bf16,epi_only  [--N 4096] [--M ..] [--K ..]
                     (K=768, M=12800, N=4000 unless overridden)
 
 Runs on the card unless ``--device cpu`` is given, which runs the plain
@@ -40,8 +42,8 @@ def main(argv=None):
     parser.add_argument("--harness", default="fused", choices=["fused", "diag"])
     parser.add_argument("--shapes", default="enc,dec", help="harness fused: names of shapes")
     parser.add_argument("--variants", default=None,
-                        help="default: torch,fused (fused); torch,fused,fused_xt,fused_big,"
-                             "dot_only,epi_only (diag)")
+                        help="default: torch,fused (fused); torch,fused,fused_xt,dot_only,"
+                             "epi_only (diag)")
     parser.add_argument("--steps", type=int, default=None, help="default 20 (fused), 50 (diag)")
     parser.add_argument("--no-check", action="store_true")
     parser.add_argument("--K", type=int, default=None, help="harness diag: override K")
@@ -65,11 +67,10 @@ def main(argv=None):
     if fused and (args.K or args.M or args.N):
         parser.error("--K, --M and --N belong to --harness diag; harness fused takes --shapes")
     variants = (args.variants or ("torch,fused" if fused else
-                                  "torch,fused,fused_xt,fused_big,dot_only,epi_only")).split(",")
+                                  "torch,fused,fused_xt,dot_only,epi_only")).split(",")
     for v in variants:
         if v in r11.TPU_ONLY:
-            parser.error(f"variant {v} compiles under TPU compiler options and has no "
-                         "counterpart on a GPU")
+            parser.error(f"variant {v} {r11.TPU_ONLY[v]} and has no counterpart on a GPU")
     steps = args.steps or (20 if fused else 50)
     card = "cpu"
     if args.device == "cuda":

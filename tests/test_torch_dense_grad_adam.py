@@ -247,7 +247,6 @@ def _bad_inputs():
         ("a vector", lambda: dga.dense_grad(x[0], dz), ValueError),
         ("an empty matrix", lambda: dga.dense_grad(x[:0], dz[:0]), ValueError),
         ("count 0", lambda: fused(count=0), ValueError),
-        ("an unknown tile", lambda: fused(tile="huge"), ValueError),
         ("an unknown arithmetic", lambda: epi(arithmetic="float16"), ValueError),
         ("out of another shape", lambda: dga.dense_grad(x, dz, out=torch.zeros(
             (6, 8), dtype=torch.bfloat16)), ValueError),
@@ -260,10 +259,10 @@ def _bad_inputs():
     ]
 
 
-@pytest.mark.parametrize("index", range(26))
+@pytest.mark.parametrize("index", range(25))
 def test_wrappers_raise_on_what_the_kernels_do_not_take(index):
     cases = _bad_inputs()
-    assert len(cases) == 26
+    assert len(cases) == 25
     what, call, error = cases[index]
     with pytest.raises(error):
         call()

@@ -207,12 +207,14 @@ def test_a_file_the_source_does_not_include_in_quotes_does_not_move_the_digest(t
     assert _build.source_digest(src, _build.NVCC_FLAGS) == before
 
 
-def test_a_source_without_package_headers_keeps_its_digest():
-    """No rebuild of the earlier sources: with no header of the package their
-    digest is the one of source and flags alone."""
+@pytest.mark.parametrize("name", ["moments", "int8_gemm_mma", "stream_score_cluster", "conv_dw"])
+def test_a_source_without_package_headers_keeps_its_digest(name):
+    """No rebuild of the sources that include no header of the package: their
+    digest is the one of source and flags alone. (dense_grad_adam.cu now
+    includes adam_step.cuh: tests/test_torch_dense_grad_adam_tc.py.)"""
     import hashlib
 
-    src = _build.CSRC / "dense_grad_adam.cu"
+    src = _build.CSRC / f"{name}.cu"
     assert _build.included_headers(src) == []
     old = hashlib.sha256(src.read_bytes() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
     assert _build.source_digest(src, _build.NVCC_FLAGS) == old

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from trustedai_cl_vae_ad_tpu_torch.testing import (
+    FLIPPED_G_STEPS,
     STARTS,
     compare_sequences,
     run_sequence,
@@ -1197,17 +1198,34 @@ def test_dense_grad_keeps_the_cuda_core_arrangement_off_the_rule(cuda_device, sh
     assert worst <= (1.0 if dtype == "bfloat16" else shape[0])
 
 
+def _fused_on_the_rule(shape, dtype, offset, x_transposed):
+    K, M, N = shape
+    return (dtype == "bfloat16" and M % 8 == 0 and N % 8 == 0 and not offset
+            and (K % 8 == 0 or not x_transposed))
+
+
+# (shape, dtype, x_transposed, arrangement): every shape in both layouts of x on the CUDA
+# cores (forced where the rule picks the tensor cores), and on wgmma where the rule takes it
+DGA_FUSED = [(s, d, xt, a) for s, d in DGA_SHAPES for xt in (False, True)
+             for a in ("cuda_core", "wgmma")
+             if a == "cuda_core" or _fused_on_the_rule(s, d, int(s == (3, 1003, 250)), xt)]
+
+
 @pytest.mark.parametrize("count", [1, 5])
-@pytest.mark.parametrize("tile", ["default", "big"])
-@pytest.mark.parametrize("x_transposed", [False, True], ids=["x_km", "x_mk"])
-@pytest.mark.parametrize("shape, dtype", DGA_SHAPES, ids=DGA_IDS)
-def test_fused_kernels_match_their_plain_version(cuda_device, shape, dtype, x_transposed, tile,
-                                                 count):
+@pytest.mark.parametrize("shape, dtype, x_transposed, arrangement", DGA_FUSED,
+                         ids=[f"{'x'.join(map(str, s))}-{d}-{'x_mk' if xt else 'x_km'}-{a}"
+                              for s, d, xt, a in DGA_FUSED])
+def test_fused_kernels_match_their_plain_version(cuda_device, shape, dtype, x_transposed,
+                                                 arrangement, count):
     """The K sums are taken in another order than the plain product's, which
     now and then flips the rounding of g: w, mu, nu within one bfloat16 step
     on at most 1% of the elements (float32: K steps, anywhere), and within
-    1/64 of the tensor's scale, as the archived harness asks. In place, and
-    two runs give equal bits."""
+    1/64 of the tensor's scale, as the archived harness asks. On wgmma, equal
+    wherever g rounds alike; elsewhere g is within one step and w, mu, nu
+    within FLIPPED_G_STEPS. In place, and two runs give equal bits. The rule's
+    own pick goes through the public function and is counted; the CUDA-core
+    kernel on operands the rule sends to the tensor cores is launched directly
+    and counts nothing."""
     from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
     from trustedai_cl_vae_ad_tpu_torch.probes.r11 import ADAM
 
@@ -1218,12 +1236,23 @@ def test_fused_kernels_match_their_plain_version(cuda_device, shape, dtype, x_tr
     again = [ops[k].clone() for k in DGA_NAMES]
     ref = [ops[k].clone() for k in DGA_NAMES]
     key = "fused_xt" if x_transposed else "fused"
-    before = dga.launches[key]
-    out = dga.fused_dense_grad_adam(x, ops["dz"], *got, count=count, x_transposed=x_transposed,
-                                    tile=tile, **ADAM)
-    dga.fused_dense_grad_adam(x, ops["dz"], *again, count=count, x_transposed=x_transposed,
-                              tile=tile, **ADAM)
-    assert dga.launches[key] == before + 2 and all(a is b for a, b in zip(out, got))
+    picked = dga.fused_arrangement(x, ops["dz"], *got, x_transposed=x_transposed)
+    before, taken = dga.launches[key], dict(dga.fused_arrangements)
+
+    def step(state):
+        if picked == arrangement:
+            return dga.fused_dense_grad_adam(x, ops["dz"], *state, count=count,
+                                             x_transposed=x_transposed, **ADAM)
+        dga._launch_fused(arrangement, x, ops["dz"], state,
+                          dga.adam_scalars(count=count, **ADAM), x_transposed)
+        return state
+
+    out = step(got)
+    step(again)
+    counted = 2 * (picked == arrangement)
+    taken[arrangement] += counted
+    assert dga.launches[key] == before + counted and dga.fused_arrangements == taken
+    assert all(a is b for a, b in zip(out, got))
     dga.fused_dense_grad_adam_reference(ops["x"], ops["dz"], *ref, count=count, **ADAM)
     torch.cuda.synchronize()
     # where its terms cancel, a sum is held to a step at the size of the terms
@@ -1231,13 +1260,154 @@ def test_fused_kernels_match_their_plain_version(cuda_device, shape, dtype, x_tr
              torch.maximum(ops["mu"].float().abs(),
                            dga.dense_grad_reference(ops["x"], ops["dz"]).float().abs()), None]
     max_steps, max_share = (1.0, 0.01) if dtype == "bfloat16" else (float(shape[0]), 1.0)
+    same = None
+    if arrangement == "wgmma":
+        # the plain step is exact given g (kernel 9 equals it bit for bit), so the kernel
+        # equals the plain version wherever kernel 6's wgmma product rounds g as the plain
+        # float32 product does. Elsewhere g is a step away (more where its K terms cancel),
+        # which the step amplifies: nu = b2 nu + (1 - b2) g g doubles it where nu is small,
+        # w's update where 9 mu + g cancels at count 1, mu where mu and g are both tiny.
+        # There the kernel is kernel 9's step from its own g
+        # (test_wgmma_fused_equals_kernel_9_on_kernel_6s_product).
+        g = dga.dense_grad(ops["x"], ops["dz"])
+        plain = dga.dense_grad_reference(ops["x"], ops["dz"])
+        same = g == plain
+        assert float((~same).float().mean()) <= max_share
+        _, g_steps = steps_apart(g, plain, floor=shape[0] * 2.0 ** -24 * float(
+            plain.float().abs().max()))
+        assert g_steps <= 1.0, g_steps
+        max_steps = FLIPPED_G_STEPS
     for i, name in enumerate(DGA_NAMES):
         assert torch.equal(got[i], again[i]), f"two runs differ in {name}"
         share, worst = steps_apart(got[i], ref[i], terms[i])
         scale = float((got[i].float() - ref[i].float()).abs().max() / ref[i].float().abs().max())
         assert worst <= max_steps and share <= max_share and scale < 1 / 64, \
             (name, share, worst, scale)
+        if same is not None:
+            assert torch.equal(got[i][same], ref[i][same]), name
     assert not torch.equal(got[0], ops["w"])
+
+
+# -- kernels 4 and 5 on the tensor cores (csrc/dense_grad_adam_wgmma.cu) ------------------------
+
+# (K, M, N): a K tail (3 and 100; 104 where x is (M, K), whose K must be a multiple of 8), M
+# and N off 128 (136 = 128 + 8; M = 1000 = 7 x 128 + 104, N = 4000 = 31 x 128 + 32), and the
+# decoder Dense's reduced check shape
+DGAW_SHAPES = [(3, 64, 128), (100, 256, 200), (104, 256, 200), (64, 384, 136),
+               (200, 1000, 4000), (768, 2000, 13440)]
+DGAW_COMPOSITION = [(s, xt) for s in DGAW_SHAPES for xt in (False, True)
+                    if s[0] % 8 == 0 or not xt]
+
+
+@pytest.mark.parametrize("count", [1, 5])
+@pytest.mark.parametrize("shape, x_transposed", DGAW_COMPOSITION,
+                         ids=[f"{'x'.join(map(str, s))}-{'x_mk' if xt else 'x_km'}"
+                              for s, xt in DGAW_COMPOSITION])
+def test_wgmma_fused_equals_kernel_9_on_kernel_6s_product(cuda_device, shape, x_transposed,
+                                                         count):
+    """Bit for bit: the same mainloop on the same tile map, the same rounding of
+    g to bfloat16 and the same step code, so the fused kernel is kernel 9's
+    step applied to kernel 6's wgmma product of the same operands."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+    from trustedai_cl_vae_ad_tpu_torch.probes.r11 import ADAM
+
+    ops = _dga_case(cuda_device, shape, "bfloat16")
+    x = ops["xt"] if x_transposed else ops["x"]
+    got = [ops[k].clone() for k in DGA_NAMES]
+    want = [ops[k].clone() for k in DGA_NAMES]
+    assert dga.fused_arrangement(x, ops["dz"], *got, x_transposed=x_transposed) == "wgmma"
+    before = (dict(dga.fused_arrangements), dict(dga.dense_grad_arrangements))
+    dga.fused_dense_grad_adam(x, ops["dz"], *got, count=count, x_transposed=x_transposed, **ADAM)
+    g = dga.dense_grad(ops["x"], ops["dz"])
+    dga.adam_epilogue_step(g, *want, count=count, **ADAM)
+    torch.cuda.synchronize()
+    assert dga.fused_arrangements == dict(before[0], wgmma=before[0]["wgmma"] + 1)
+    assert dga.dense_grad_arrangements == dict(before[1], wgmma=before[1]["wgmma"] + 1)
+    for name, a, b in zip(DGA_NAMES, got, want):
+        assert torch.equal(a, b), (name, steps_apart(a, b))
+    assert not torch.equal(got[0], ops["w"])
+
+
+# (K, M, N, k, i, j): a 1 at x[k, i] and at dz[k, j] puts g's only nonzero at (i, j): corners
+# of a tile, the second warpgroup's rows, the last stage of K, the masked N edge, the last
+# (ragged) tile of M and of N, every k % 8 and 16-byte chunk c % 8 of both swizzles somewhere
+DGAW_ONE_HOT = [(200, 256, 200, 0, 0, 0), (200, 256, 200, 5, 64, 8),
+                (200, 256, 200, 199, 127, 199), (200, 256, 200, 130, 200, 131),
+                (200, 256, 200, 71, 71, 9), (200, 256, 200, 66, 250, 192),
+                (200, 256, 200, 127, 129, 63), (3, 64, 128, 2, 63, 127),
+                (200, 1000, 4000, 199, 999, 3999), (200, 1000, 4000, 64, 896, 3968),
+                (200, 1000, 4000, 13, 903, 3975), (64, 384, 136, 63, 383, 135)]
+DGAW_ONE_HOT_CASES = [(c, xt) for c in DGAW_ONE_HOT for xt in (False, True)
+                      if c[0] % 8 == 0 or not xt]
+
+
+@pytest.mark.parametrize("case, x_transposed", DGAW_ONE_HOT_CASES,
+                         ids=[f"{K}x{M}x{N}-k{k}-i{i}-j{j}-{'x_mk' if xt else 'x_km'}"
+                              for (K, M, N, k, i, j), xt in DGAW_ONE_HOT_CASES])
+def test_wgmma_fused_puts_a_one_hot_gradient_in_its_place(cuda_device, case, x_transposed):
+    """A wrong swizzle, descriptor, fragment map, staging row or epilogue chunk
+    moves or loses the single 1: w, mu, nu equal the plain step from that g
+    everywhere, and differ from a step from g = 0 at (i, j) alone."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+    from trustedai_cl_vae_ad_tpu_torch.probes.r11 import ADAM
+
+    K, M, N, k, i, j = case
+    ops = _dga_case(cuda_device, (K, M, N), "bfloat16")
+    x = torch.zeros((K, M), dtype=torch.bfloat16, device=cuda_device)
+    dz = torch.zeros((K, N), dtype=torch.bfloat16, device=cuda_device)
+    x[k, i] = 1.0
+    dz[k, j] = 1.0
+    g = torch.zeros((M, N), dtype=torch.bfloat16, device=cuda_device)
+    g[i, j] = 1.0
+    got, want, zero = ([ops[n].clone() for n in DGA_NAMES] for _ in range(3))
+    before = dga.fused_arrangements["wgmma"]
+    dga.fused_dense_grad_adam(x.t().contiguous() if x_transposed else x, dz, *got, count=2,
+                              x_transposed=x_transposed, **ADAM)
+    dga.adam_epilogue_reference(g, *want, count=2, **ADAM)
+    dga.adam_epilogue_reference(torch.zeros_like(g), *zero, count=2, **ADAM)
+    torch.cuda.synchronize()
+    assert dga.fused_arrangements["wgmma"] == before + 1
+    for name, a, b in zip(DGA_NAMES, got, want):
+        assert torch.equal(a, b), (name, steps_apart(a, b), (a != b).nonzero()[:4].tolist())
+    assert (got[1] != zero[1]).nonzero().tolist() == [[i, j]]
+
+
+# (shape, dtype, x_transposed, offset): float32, ragged M or N, a K off 8 with x as (M, K),
+# views off a 16-byte boundary
+DGAW_CUDA_CORE = [((64, 384, 256), "float32", False, 0), ((5, 37, 53), "bfloat16", False, 0),
+                  ((3, 1003, 250), "bfloat16", True, 0), ((100, 256, 200), "bfloat16", True, 0),
+                  ((64, 384, 256), "bfloat16", False, 1), ((64, 384, 256), "bfloat16", True, 1)]
+
+
+@pytest.mark.parametrize("shape, dtype, x_transposed, offset", DGAW_CUDA_CORE,
+                         ids=[f"{'x'.join(map(str, s))}-{d}-{'x_mk' if xt else 'x_km'}-{o}"
+                              for s, d, xt, o in DGAW_CUDA_CORE])
+def test_fused_keeps_the_cuda_core_arrangement_off_the_rule(cuda_device, shape, dtype,
+                                                           x_transposed, offset):
+    """Off the rule the 64 x 64 CUDA-core tile runs and counts under
+    "cuda_core"; forcing the tensor-core kernel on the same operands is refused
+    by its launcher and raises, leaving the state as it was."""
+    from trustedai_cl_vae_ad_tpu_torch.ops import dense_grad_adam as dga
+    from trustedai_cl_vae_ad_tpu_torch.probes.r11 import ADAM
+
+    ops = _dga_case(cuda_device, shape, dtype, offset)
+    x = ops["xt"] if x_transposed else ops["x"]
+    got = [ops[k] for k in DGA_NAMES]
+    ref = [ops[k].clone() for k in DGA_NAMES]
+    w_old = ref[0].clone()
+    assert dga.fused_arrangement(x, ops["dz"], *got, x_transposed=x_transposed) == "cuda_core"
+    with pytest.raises(RuntimeError, match="wgmma"):
+        dga._launch_fused("wgmma", x, ops["dz"], got, dga.adam_scalars(count=1, **ADAM),
+                          x_transposed)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref)), "a refused launch wrote"
+    before = dict(dga.fused_arrangements)
+    dga.fused_dense_grad_adam(x, ops["dz"], *got, count=1, x_transposed=x_transposed, **ADAM)
+    dga.fused_dense_grad_adam_reference(ops["x"], ops["dz"], *ref, count=1, **ADAM)
+    torch.cuda.synchronize()
+    assert dga.fused_arrangements == dict(before, cuda_core=before["cuda_core"] + 1)
+    scale = float((got[0].float() - ref[0].float()).abs().max() / ref[0].float().abs().max())
+    assert scale < 1 / 64 and not torch.equal(got[0], w_old)
 
 
 def test_dense_update_kernels_reject_bad_inputs(cuda_device):

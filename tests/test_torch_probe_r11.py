@@ -13,6 +13,7 @@ up to four steps, taken for mu at the size of its terms.
 
 import json
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,7 +100,7 @@ def test_diag_harness_follows_the_jax_harness_step_for_step(probes, monkeypatch,
     assert rec["variant"] == f"diag_{variant}" and (rec["K"], rec["M"], rec["N"]) == ALIGNED
     assert rec["device"] == "cpu" and rec["ms"] > 0 and rec["steps"] == 1
     assert rec["kernel"] == (None if variant == "torch" else {
-        "fused": "fused", "fused_big": "fused", "fused_xt": "fused_xt", "dot_only": "dense_grad",
+        "fused": "fused", "fused_xt": "fused_xt", "dot_only": "dense_grad",
         "copy_only": "stream_copy", "epi_bf16": "epilogue_bf16",
         "epi_only": "epilogue_f32"}[variant]) and set(dga.launches) >= {rec["kernel"]} - {None}
     # no device number from a CPU run
@@ -157,13 +158,19 @@ def test_shapes_and_scales_are_the_jax_harnesses(probes):
 
 @pytest.mark.parametrize("variant", r11.TPU_ONLY)
 def test_tpu_only_variants_are_refused(variant, tmp_path, capsys):
-    with pytest.raises(ValueError, match="TPU compiler options"):
+    """``xla_opt`` and ``fused_opt`` compile under TPU compiler options;
+    ``fused_big`` measures the TPU kernel's block budget, and the port's fused
+    kernel has one tile configuration a shape. Each is refused with its reason."""
+    why = f"{r11.TPU_ONLY[variant]} and has no counterpart on a GPU"
+    assert "TPU" in why
+    with pytest.raises(ValueError, match=re.escape(why)):
         r11.run("fused", variant, shape=ALIGNED, device="cpu")
     with pytest.raises(SystemExit):
         probe_r11_torch.main(["--device", "cpu", "--variants", variant,
                               "--out", str(tmp_path / "out.jsonl")])
-    assert "TPU compiler options" in capsys.readouterr().err
+    assert why in capsys.readouterr().err
     assert not (tmp_path / "out.jsonl").exists()
+    assert variant not in r11.DIAG_VARIANTS + r11.FUSED_VARIANTS
 
 
 def test_harness_rejects_what_it_does_not_have():
@@ -187,7 +194,7 @@ def test_cli_runs_both_harnesses_on_the_cpu_and_writes_only_its_own_file(tmp_pat
     assert rc == 0
     records = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["variant"] for r in records] == [
-        f"diag_{v}" for v in ("torch", "fused", "fused_xt", "fused_big", "dot_only", "epi_only")]
+        f"diag_{v}" for v in ("torch", "fused", "fused_xt", "dot_only", "epi_only")]
     assert all((r["K"], r["M"], r["N"]) == (8, 40, 24) and r["card"] == "cpu" for r in records)
     printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
                if line.startswith("{")]

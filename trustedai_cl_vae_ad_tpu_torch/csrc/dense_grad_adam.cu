@@ -2,18 +2,22 @@
 // pieces that step is made of: six kernels from three device functions.
 //
 // Replaces the archived TPU probes
-//   benchmarks/r11_kernel.py::_kernel (fused_dense_grad_adam)   tile_kernel<T, false, true, R>
-//   benchmarks/r11_diag.py   fused_xt  (x given as (M, K))       tile_kernel<T, true,  true, R>
-//   benchmarks/r11_diag.py   dot_only  (the product alone)       tile_kernel<T, false, false, R>
+//   benchmarks/r11_kernel.py::_kernel (fused_dense_grad_adam)   tile_kernel<T, false, true>
+//   benchmarks/r11_diag.py   fused_xt  (x given as (M, K))       tile_kernel<T, true,  true>
+//   benchmarks/r11_diag.py   dot_only  (the product alone)       tile_kernel<T, false, false>
 //   benchmarks/r11_diag.py   copy_only (w, mu, nu streamed)      copy_kernel
 //   benchmarks/r11_diag.py   epi_bf16  (the step, bf16 maths)    epilogue_kernel<bf16, true>
 //   benchmarks/r11_diag.py   epi_only  (the step, f32 maths)     epilogue_kernel<T, false>
+// The three tile kernels here take what the tensor cores do not: float32, ragged M or N (or
+// K with x as (M, K)), views off 16 bytes. bf16 operands on the rule go to the wgmma kernels:
+// the product alone to dense_grad_wgmma.cu, the fused step to dense_grad_adam_wgmma.cu
+// (ops/dense_grad_adam.py's dense_grad_arrangement and fused_arrangement say which).
 //
 // x (K, M) holds the inputs of a dense layer for K rows of a batch (or (M, K)
 // in the transposed variant), dz (K, N) the gradient of its outputs, w, mu, nu
 // (M, N) the kernel and its two Adam moments, all of one dtype T (bf16 in the
-// probes, float32 taken too). The step (adam_f32 below) is adam_epilogue of
-// benchmarks/r11_kernel.py, operation by operation.
+// probes, float32 taken too). The step (adam_f32 of adam_step.cuh) is
+// adam_epilogue of benchmarks/r11_kernel.py, operation by operation.
 //
 // The TPU kernels' grids (dz-resident, x-resident, 2-D), block budgets and
 // input_output_aliases answer VMEM and Mosaic's tiling; none of that is carried
@@ -27,20 +31,19 @@
 // and dz, which are small beside them, and does 2 K M N operations: at K = 768
 // that is 128 operations for each byte of the state, below the 295 at which
 // the tensor cores would leave the bytes as the bound, but far above what CUDA
-// cores sustain, so in this first version the product, not the bytes, sets the
+// cores sustain, so on CUDA cores the product, not the bytes, sets the
 // kernel's time (32 TFLOP/s on that card, 13 times the bound of the bytes).
 // The design is the simple one: a block of 256 threads owns one tile of
-// 64 x 64 or 128 x 128 outputs, walks all of K in steps of 16 (no split of K,
+// 64 x 64 outputs, walks all of K in steps of 16 (no split of K,
 // so nothing crosses blocks), stages x and dz as float32 in shared memory (one
-// global fetch ahead, in registers), and each thread keeps a 4 x 4 or 8 x 8
+// global fetch ahead, in registers), and each thread keeps a 4 x 4
 // patch of float32 sums fed by fmaf. With the epilogue on, the thread then
 // reads its patch of w, mu, nu, takes the step and writes the same addresses:
 // every element of the state is read and written by exactly one thread of one
 // block, which is what makes in place safe. Tiles are numbered so that the
 // axis with fewer tiles runs fastest: neighbouring blocks share the tile of
-// the larger operand and the smaller operand stays in L2. The 8 x 8 patch
-// needs about 145 registers, which leaves one block an SM, and is the slower
-// of the two on that card. A wgmma product fed by TMA is the next step.
+// the larger operand and the smaller operand stays in L2. (A 128 x 128 tile of
+// 8 x 8 patches took about 145 registers, one block an SM, and was the slower.)
 //
 // Numbers. The file is built with --fmad=false and the step is written with
 // __fmul_rn and friends, so each operation rounds once, as PyTorch's
@@ -54,178 +57,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adam_step.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kKT = 16;  // rows of K staged per step
+constexpr int R = 4;  // a thread's R x R outputs: 64 x 64 outputs a block
 
-struct AdamScalars {
-  float lr, b1, b2, eps, bc1, bc2;
-};
-
-// ---- element access: float32 in registers, T in memory -------------------------------------
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// 32-bit words of memory <-> E elements as float32 (a word holds one float or two bf16,
-// the lower address in the lower half)
-template <typename T, int E>
-struct Words {
-  static constexpr int kCount = E * static_cast<int>(sizeof(T)) / 4;
-};
-template <typename T>
-struct Tag {};
-
-template <int E>
-__device__ __forceinline__ void unpack(const unsigned (&words)[Words<float, E>::kCount],
-                                       float (&out)[E], Tag<float>) {
-#pragma unroll
-  for (int i = 0; i < E; ++i) out[i] = __uint_as_float(words[i]);
-}
-template <int E>
-__device__ __forceinline__ void unpack(const unsigned (&words)[Words<__nv_bfloat16, E>::kCount],
-                                       float (&out)[E], Tag<__nv_bfloat16>) {
-#pragma unroll
-  for (int i = 0; i < E / 2; ++i) {
-    out[2 * i] = __uint_as_float(words[i] << 16);
-    out[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
-template <int E>
-__device__ __forceinline__ void pack(const float (&in)[E],
-                                     unsigned (&words)[Words<float, E>::kCount], Tag<float>) {
-#pragma unroll
-  for (int i = 0; i < E; ++i) words[i] = __float_as_uint(in[i]);
-}
-template <int E>
-__device__ __forceinline__ void pack(const float (&in)[E],
-                                     unsigned (&words)[Words<__nv_bfloat16, E>::kCount],
-                                     Tag<__nv_bfloat16>) {
-#pragma unroll
-  for (int i = 0; i < E / 2; ++i) {
-    const unsigned lo = __bfloat16_as_ushort(__float2bfloat16_rn(in[2 * i]));
-    const unsigned hi = __bfloat16_as_ushort(__float2bfloat16_rn(in[2 * i + 1]));
-    words[i] = lo | (hi << 16);
-  }
-}
-
-// E contiguous elements at p, which is aligned to min(16, E * sizeof(T)) bytes
-template <typename T, int E>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[E]) {
-  constexpr int kWords = Words<T, E>::kCount;
-  static_assert(kWords == 2 || kWords % 4 == 0, "8 bytes or a multiple of 16");
-  unsigned words[kWords];
-  if constexpr (kWords == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    words[0] = v.x;
-    words[1] = v.y;
-  } else {
-#pragma unroll
-    for (int c = 0; c < kWords / 4; ++c) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[c];
-      words[4 * c] = v.x;
-      words[4 * c + 1] = v.y;
-      words[4 * c + 2] = v.z;
-      words[4 * c + 3] = v.w;
-    }
-  }
-  unpack<E>(words, out, Tag<T>());
-}
-
-template <typename T, int E>
-__device__ __forceinline__ void store_vec(T* p, const float (&in)[E]) {
-  constexpr int kWords = Words<T, E>::kCount;
-  static_assert(kWords == 2 || kWords % 4 == 0, "8 bytes or a multiple of 16");
-  unsigned words[kWords];
-  pack<E>(in, words, Tag<T>());
-  if constexpr (kWords == 2) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(words[0], words[1]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < kWords / 4; ++c)
-      reinterpret_cast<uint4*>(p)[c] =
-          make_uint4(words[4 * c], words[4 * c + 1], words[4 * c + 2], words[4 * c + 3]);
-  }
-}
-
-// ---- the step ------------------------------------------------------------------------------
-
-// adam_epilogue of benchmarks/r11_kernel.py in float32; the caller rounds w, mu, nu to T.
-// Every operation rounds once (no contraction), in the order of the plain PyTorch version.
-template <typename T>
-__device__ __forceinline__ void adam_f32(float g32, float& w, float& mu, float& nu,
-                                         const AdamScalars& s, float omb1, float omb2) {
-  const float g = to_f32(from_f32<T>(g32));  // the gradient of a T parameter is a T
-  const float mu_n = __fadd_rn(__fmul_rn(s.b1, mu), __fmul_rn(omb1, g));
-  const float nu_n = __fadd_rn(__fmul_rn(s.b2, nu), __fmul_rn(omb2, __fmul_rn(g, g)));
-  const float m_hat = __fdiv_rn(mu_n, s.bc1);
-  const float v_hat = __fdiv_rn(nu_n, s.bc2);
-  const float upd = __fdiv_rn(__fmul_rn(s.lr, m_hat), __fadd_rn(__fsqrt_rn(v_hat), s.eps));
-  w = __fsub_rn(w, upd);
-  mu = mu_n;
-  nu = nu_n;
-}
-
-// epi_bf16 of benchmarks/r11_diag.py: the scalars cast to bf16 (by the caller: `s` holds
-// bf16 values, omb1 and omb2 the bf16 differences) and every operation rounded to bf16.
-__device__ __forceinline__ void adam_bf16(float g, float& w, float& mu, float& nu,
-                                          const AdamScalars& s, float omb1, float omb2) {
-  const float mu_n = round_bf16(
-      __fadd_rn(round_bf16(__fmul_rn(s.b1, mu)), round_bf16(__fmul_rn(omb1, g))));
-  const float gg = round_bf16(__fmul_rn(g, g));
-  const float nu_n = round_bf16(
-      __fadd_rn(round_bf16(__fmul_rn(s.b2, nu)), round_bf16(__fmul_rn(omb2, gg))));
-  const float m_hat = round_bf16(__fdiv_rn(mu_n, s.bc1));
-  const float v_hat = round_bf16(__fdiv_rn(nu_n, s.bc2));
-  const float num = round_bf16(__fmul_rn(s.lr, m_hat));
-  const float den = round_bf16(__fadd_rn(round_bf16(__fsqrt_rn(v_hat)), s.eps));
-  const float upd = round_bf16(__fdiv_rn(num, den));
-  w = __fsub_rn(w, upd);  // rounded to bf16 where it is stored
-  mu = mu_n;
-  nu = nu_n;
-}
-
-template <bool BF16>
-struct StepScalars {
-  AdamScalars s;
-  float omb1, omb2;
-  __device__ explicit StepScalars(const AdamScalars& in) : s(in) {
-    if (BF16) {
-      s.lr = round_bf16(in.lr);
-      s.b1 = round_bf16(in.b1);
-      s.b2 = round_bf16(in.b2);
-      s.eps = round_bf16(in.eps);
-      s.bc1 = round_bf16(in.bc1);
-      s.bc2 = round_bf16(in.bc2);
-      omb1 = round_bf16(__fsub_rn(1.0f, s.b1));
-      omb2 = round_bf16(__fsub_rn(1.0f, s.b2));
-    } else {
-      omb1 = __fsub_rn(1.0f, in.b1);
-      omb2 = __fsub_rn(1.0f, in.b2);
-    }
-  }
-  template <typename T>
-  __device__ __forceinline__ void apply(float g, float& w, float& mu, float& nu) const {
-    if (BF16) adam_bf16(g, w, mu, nu, s, omb1, omb2);
-    else adam_f32<T>(g, w, mu, nu, s, omb1, omb2);
-  }
-};
+using adam_step::AdamScalars;
+using adam_step::from_f32;
+using adam_step::load_vec;
+using adam_step::StepScalars;
+using adam_step::store_vec;
+using adam_step::to_f32;
 
 // ---- streaming epilogue (epi_only, epi_bf16) -------------------------------------------------
 
@@ -312,13 +157,13 @@ __device__ __forceinline__ void fetch(const T* __restrict__ src, long long row, 
 }
 
 // A block of 256 threads (tx = thread % 16, ty = thread / 16) owns the outputs
-// [m0, m0 + 16 R) x [n0, n0 + 16 R); R = 4 or 8. A thread owns R x R of them, in R / 4
+// [m0, m0 + 16 R) x [n0, n0 + 16 R). A thread owns R x R of them, in R / 4
 // groups of 4 rows (ty * 4 + i, 64 apart) by R / 4 groups of 4 columns (tx * 4 + j, 64
 // apart), so that a warp's float4 reads of a staged row fall on neighbouring banks and
 // its stores of a row of w on neighbouring addresses.
 // XT: x is (M, K) and is transposed on its way into shared memory.
 // EPI: w, mu, nu are read, stepped and written in place; else `w` receives g in T.
-template <typename T, bool XT, bool EPI, int R>
+template <typename T, bool XT, bool EPI>
 __global__ void __launch_bounds__(kThreads)
 tile_kernel(const T* __restrict__ x, const T* __restrict__ dz, T* __restrict__ w,
             T* __restrict__ mu, T* __restrict__ nu, long long K, long long M, long long N,
@@ -437,7 +282,7 @@ tile_kernel(const T* __restrict__ x, const T* __restrict__ dz, T* __restrict__ w
 
 bool aligned(const void* p, size_t bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
-template <typename T, bool XT, bool EPI, int R>
+template <typename T, bool XT, bool EPI>
 cudaError_t launch_tile(const void* x, const void* dz, void* w, void* mu, void* nu, long long K,
                         long long M, long long N, const AdamScalars& scalars,
                         cudaStream_t stream) {
@@ -450,7 +295,7 @@ cudaError_t launch_tile(const void* x, const void* dz, void* w, void* mu, void* 
   const int vec_dz = N % R == 0 && aligned(dz, in_align);
   const int vec_out = N % 4 == 0 && aligned(w, out_align) &&
                       (!EPI || (aligned(mu, out_align) && aligned(nu, out_align)));
-  tile_kernel<T, XT, EPI, R><<<static_cast<unsigned>(tiles_m * tiles_n), kThreads, 0, stream>>>(
+  tile_kernel<T, XT, EPI><<<static_cast<unsigned>(tiles_m * tiles_n), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dz), static_cast<T*>(w),
       static_cast<T*>(mu), static_cast<T*>(nu), K, M, N, tiles_m, tiles_n,
       tiles_m < tiles_n ? 1 : 0, vec_x, vec_dz, vec_out, scalars);
@@ -459,18 +304,14 @@ cudaError_t launch_tile(const void* x, const void* dz, void* w, void* mu, void* 
 
 template <typename T>
 cudaError_t launch_tile_for(const void* x, const void* dz, void* w, void* mu, void* nu,
-                            long long K, long long M, long long N, bool xt, bool epi, bool big,
+                            long long K, long long M, long long N, bool xt, bool epi,
                             const AdamScalars& s, cudaStream_t stream) {
   if (!epi) {
     if (xt) return cudaErrorInvalidValue;  // the product alone takes x as (K, M) only
-    return big ? launch_tile<T, false, false, 8>(x, dz, w, mu, nu, K, M, N, s, stream)
-               : launch_tile<T, false, false, 4>(x, dz, w, mu, nu, K, M, N, s, stream);
+    return launch_tile<T, false, false>(x, dz, w, mu, nu, K, M, N, s, stream);
   }
-  if (xt)
-    return big ? launch_tile<T, true, true, 8>(x, dz, w, mu, nu, K, M, N, s, stream)
-               : launch_tile<T, true, true, 4>(x, dz, w, mu, nu, K, M, N, s, stream);
-  return big ? launch_tile<T, false, true, 8>(x, dz, w, mu, nu, K, M, N, s, stream)
-             : launch_tile<T, false, true, 4>(x, dz, w, mu, nu, K, M, N, s, stream);
+  if (xt) return launch_tile<T, true, true>(x, dz, w, mu, nu, K, M, N, s, stream);
+  return launch_tile<T, false, true>(x, dz, w, mu, nu, K, M, N, s, stream);
 }
 
 template <typename T, bool BF16>
@@ -494,8 +335,8 @@ cudaError_t launch_epilogue(const void* g, void* w, void* mu, void* nu, long lon
 // written to w in the operands' dtype; mu and nu are not touched (pass null).
 extern "C" int dga_tile_launch(const void* x, const void* dz, void* w, void* mu, void* nu,
                                long long K, long long M, long long N, int dtype,
-                               int x_transposed, int epilogue, int big_tile, float lr, float b1,
-                               float b2, float eps, float bc1, float bc2, void* stream) {
+                               int x_transposed, int epilogue, float lr, float b1, float b2,
+                               float eps, float bc1, float bc2, void* stream) {
   if (K <= 0 || M <= 0 || N <= 0 || x == nullptr || dz == nullptr || w == nullptr ||
       (epilogue && (mu == nullptr || nu == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -504,10 +345,10 @@ extern "C" int dga_tile_launch(const void* x, const void* dz, void* w, void* mu,
   cudaError_t rc;
   if (dtype == 0)
     rc = launch_tile_for<__nv_bfloat16>(x, dz, w, mu, nu, K, M, N, x_transposed != 0,
-                                        epilogue != 0, big_tile != 0, s, st);
+                                        epilogue != 0, s, st);
   else if (dtype == 1)
-    rc = launch_tile_for<float>(x, dz, w, mu, nu, K, M, N, x_transposed != 0, epilogue != 0,
-                                big_tile != 0, s, st);
+    rc = launch_tile_for<float>(x, dz, w, mu, nu, K, M, N, x_transposed != 0, epilogue != 0, s,
+                                st);
   else
     rc = cudaErrorInvalidValue;
   return static_cast<int>(rc);

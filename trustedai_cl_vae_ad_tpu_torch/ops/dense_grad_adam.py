@@ -25,10 +25,11 @@ function with the operands swapped: ``fused_dense_grad_adam(x=dz, dz=x, w=W,
 ...)`` contracts the same K rows and gives the (N, M) update.
 
 On CUDA tensors every function launches its hand-written kernel from
-``csrc/dense_grad_adam.cu``, or for the bf16 product alone from
-``csrc/dense_grad_wgmma.cu`` (each source's header says what bounds its
-kernels and what their design does about it), or raises. On CPU tensors it runs the plain
-PyTorch version beside it (``*_reference``), which is what the kernels are
+``csrc/dense_grad_adam.cu``, or, for bf16 operands on the tensor cores' rule,
+the product alone from ``csrc/dense_grad_wgmma.cu`` and the product with the
+step from ``csrc/dense_grad_adam_wgmma.cu`` (each source's header says what
+bounds its kernels and what their design does about it), or raises. On CPU
+tensors it runs the plain PyTorch version beside it (``*_reference``), which is what the kernels are
 held against on the card: the streaming kernels bit for bit, the products
 within the order of their sums.
 """
@@ -45,15 +46,19 @@ launches: Dict[str, int] = {"fused": 0, "fused_xt": 0, "dense_grad": 0, "stream_
                             "epilogue_bf16": 0, "epilogue_f32": 0}
 #: launches of ``dense_grad`` by arrangement (each is also one of launches["dense_grad"])
 dense_grad_arrangements: Dict[str, int] = {"wgmma": 0, "cuda_core": 0}
+#: launches of ``fused_dense_grad_adam`` by arrangement (each is also one of
+#: launches["fused"] or launches["fused_xt"])
+fused_arrangements: Dict[str, int] = {"wgmma": 0, "cuda_core": 0}
 
-TILES = ("default", "big")  # 64 x 64 and 128 x 128 outputs a block
 ARITHMETICS = ("float32", "bfloat16")
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 _LIB_NAME = "dense_grad_adam"
 _WGMMA_LIB_NAME = "dense_grad_wgmma"
+_FUSED_WGMMA_LIB_NAME = "dense_grad_adam_wgmma"
 _lib = None
 _wgmma_lib = None
+_fused_wgmma_lib = None
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -66,7 +71,7 @@ def build():
 
         lib = load_library(_LIB_NAME)
         p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        lib.dga_tile_launch.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, i,
+        lib.dga_tile_launch.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i,
                                         f, f, f, f, f, f, p]
         lib.dga_epilogue_launch.argtypes = [p, p, p, p, ll, i, i, f, f, f, f, f, f, p]
         lib.dga_copy_launch.argtypes = [p, p, p, p, p, p, ll, p]
@@ -92,6 +97,23 @@ def build_wgmma():
         lib.dgw_error_string.restype = ctypes.c_char_p
         _wgmma_lib = lib
     return _wgmma_lib
+
+
+def build_fused_wgmma():
+    """Compile (first call) and load the tensor-core product with the step; returns the
+    library."""
+    global _fused_wgmma_lib
+    if _fused_wgmma_lib is None:
+        from trustedai_cl_vae_ad_tpu_torch.ops._build import load_library
+
+        lib = load_library(_FUSED_WGMMA_LIB_NAME)
+        p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+        lib.dgaw_launch.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, f, f, f, f, f, f, p]
+        lib.dgaw_launch.restype = ctypes.c_int
+        lib.dgaw_error_string.argtypes = [ctypes.c_int]
+        lib.dgaw_error_string.restype = ctypes.c_char_p
+        _fused_wgmma_lib = lib
+    return _fused_wgmma_lib
 
 
 # -- the six scalars -------------------------------------------------------------
@@ -181,6 +203,12 @@ def _raise_on_wgmma(rc: int) -> None:
     if rc != 0:
         raise RuntimeError(
             f"dense_grad (wgmma) kernel launch failed: {_wgmma_lib.dgw_error_string(rc).decode()}")
+
+
+def _raise_on_fused_wgmma(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError("fused_dense_grad_adam (wgmma) kernel launch failed: "
+                           f"{_fused_wgmma_lib.dgaw_error_string(rc).decode()}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -285,11 +313,17 @@ def dense_grad_arrangement(x: torch.Tensor, dz: torch.Tensor, out: torch.Tensor)
     (``tile_kernel`` of ``csrc/dense_grad_adam.cu``) for everything else:
     float32, ragged M or N, views off a 16-byte boundary, counts past an int."""
     (k, m), n = x.shape, dz.shape[1]
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dz, out))
+    return "wgmma" if _on_the_wgmma_rule(x.dtype, k, m, n, (x, dz, out)) else "cuda_core"
+
+
+def _on_the_wgmma_rule(dtype: torch.dtype, k: int, m: int, n: int,
+                       tensors: Sequence[torch.Tensor]) -> bool:
+    """The tensor-core kernels' shared rule (``dgw_launch``'s and ``dgaw_launch``'s
+    refusals): bfloat16, M and N multiples of 8, every tensor on a 16-byte
+    boundary, K's stages of 64 rows and the 128 x 128 tiles each below 2^31."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
     counts_fit = -(-k // 64) < 2**31 and -(-m // 128) * -(-n // 128) < 2**31
-    if x.dtype == torch.bfloat16 and m % 8 == 0 and n % 8 == 0 and aligned and counts_fit:
-        return "wgmma"
-    return "cuda_core"
+    return dtype == torch.bfloat16 and m % 8 == 0 and n % 8 == 0 and aligned and counts_fit
 
 
 def dense_grad(x: torch.Tensor, dz: torch.Tensor, out: Optional[torch.Tensor] = None
@@ -334,7 +368,7 @@ def _launch_dense_grad(arrangement: str, x: torch.Tensor, dz: torch.Tensor,
     lib = build()
     with torch.cuda.device(x.device):
         rc = lib.dga_tile_launch(x.data_ptr(), dz.data_ptr(), out.data_ptr(), None, None,
-                                 k, m, n, _DTYPES[x.dtype], 0, 0, 0,
+                                 k, m, n, _DTYPES[x.dtype], 0, 0,
                                  0.0, 0.0, 0.0, 0.0, 1.0, 1.0, _stream(x))
     _raise_on(rc, "dense_grad")
 
@@ -353,10 +387,25 @@ def fused_dense_grad_adam_reference(x: torch.Tensor, dz: torch.Tensor, w: torch.
     return adam_epilogue_reference(g32, w, mu, nu, lr=lr, b1=b1, b2=b2, eps=eps, count=count)
 
 
+def fused_arrangement(x: torch.Tensor, dz: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
+                      nu: torch.Tensor, x_transposed: bool = False) -> str:
+    """Which kernel ``fused_dense_grad_adam`` launches for these operands on
+    the card, by dtype, shape and alignment alone: "wgmma"
+    (``csrc/dense_grad_adam_wgmma.cu``, the tensor cores) for bfloat16 with M
+    and N multiples of 8 (and K too when x is (M, K)), all five tensors
+    starting on 16-byte boundaries, and K's stages of 64 rows and the 128 x 128
+    tiles each fewer than 2^31 (the kernel's int counts); "cuda_core" (the
+    64 x 64 ``tile_kernel`` of ``csrc/dense_grad_adam.cu``) for everything
+    else: float32, ragged M, N or K, views off a 16-byte boundary, counts past
+    an int."""
+    m, k = x.shape if x_transposed else x.shape[::-1]
+    on_rule = _on_the_wgmma_rule(x.dtype, k, m, dz.shape[1], (x, dz, w, mu, nu))
+    return "wgmma" if on_rule and (k % 8 == 0 or not x_transposed) else "cuda_core"
+
+
 def fused_dense_grad_adam(x: torch.Tensor, dz: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
                           nu: torch.Tensor, *, lr: float, b1: float = 0.9, b2: float = 0.999,
-                          eps: float = 1e-8, count: int, x_transposed: bool = False,
-                          tile: str = "default") -> State:
+                          eps: float = 1e-8, count: int, x_transposed: bool = False) -> State:
     """One Adam step on the dense kernel ``w`` (M, N) from the layer's inputs
     ``x`` (K, M), or (M, K) with ``x_transposed``, and the gradient of its
     outputs ``dz`` (K, N); the gradient x^T . dz is never written to device
@@ -365,13 +414,16 @@ def fused_dense_grad_adam(x: torch.Tensor, dz: torch.Tensor, w: torch.Tensor, mu
     w, mu and nu are updated **in place** and returned (the JAX function is
     pure and its callers donate the state). All five tensors are contiguous
     matrices of one dtype (bfloat16 or float32) on one device; w, mu, nu must
-    not overlap each other, x or dz. ``tile`` picks the block's tile of
-    outputs ("default" 64 x 64, "big" 128 x 128). For a weight stored (out,
-    in), swap the operands: ``fused_dense_grad_adam(x=dz, dz=x, w=W, ...)``.
+    not overlap each other, x or dz. For a weight stored (out, in), swap the
+    operands: ``fused_dense_grad_adam(x=dz, dz=x, w=W, ...)``.
+
+    On the card the kernel is chosen by ``fused_arrangement``: bfloat16 on
+    the tensor cores' rule runs on ``wgmma``, anything else on CUDA cores. The
+    choice is never made on failure: a launch that fails raises. Each launch
+    counts in ``launches["fused"]`` (``"fused_xt"`` with ``x_transposed``) and
+    in ``fused_arrangements``.
     """
-    if tile not in TILES:
-        raise ValueError(f"tile must be one of {TILES}, got {tile!r}")
-    k, m, n = _check_product(x, dz, x_transposed)
+    _, m, n = _check_product(x, dz, x_transposed)
     _check_matrix("w", w, x.dtype, x.device, (m, n))
     _check_state(w, mu, nu)
     _check_disjoint([("w", w), ("mu", mu), ("nu", nu)], [("x", x), ("dz", dz)])
@@ -379,14 +431,34 @@ def fused_dense_grad_adam(x: torch.Tensor, dz: torch.Tensor, w: torch.Tensor, mu
     if w.device.type == "cpu":
         return fused_dense_grad_adam_reference(x, dz, w, mu, nu, lr=lr, b1=b1, b2=b2, eps=eps,
                                                count=count, x_transposed=x_transposed)
+    arrangement = fused_arrangement(x, dz, w, mu, nu, x_transposed)
+    _launch_fused(arrangement, x, dz, (w, mu, nu), scalars, x_transposed)
+    launches["fused_xt" if x_transposed else "fused"] += 1
+    fused_arrangements[arrangement] += 1
+    return w, mu, nu
+
+
+def _launch_fused(arrangement: str, x: torch.Tensor, dz: torch.Tensor, state: State,
+                  scalars: Sequence[float], x_transposed: bool) -> None:
+    """One launch of the named arrangement on checked CUDA operands, ``scalars``
+    from ``adam_scalars``; counts nothing (``fused_dense_grad_adam`` counts).
+    The tensor-core kernel refuses what its rule excludes, with an error."""
+    m, k = x.shape if x_transposed else x.shape[::-1]
+    n = dz.shape[1]
+    w, mu, nu = state
+    pointers = (x.data_ptr(), dz.data_ptr(), w.data_ptr(), mu.data_ptr(), nu.data_ptr())
+    if arrangement == "wgmma":
+        lib = build_fused_wgmma()
+        with torch.cuda.device(w.device):
+            rc = lib.dgaw_launch(*pointers, k, m, n, _DTYPES[w.dtype], int(x_transposed),
+                                 *scalars, _stream(w))
+        _raise_on_fused_wgmma(rc)
+        return
     lib = build()
     with torch.cuda.device(w.device):
-        rc = lib.dga_tile_launch(x.data_ptr(), dz.data_ptr(), w.data_ptr(), mu.data_ptr(),
-                                 nu.data_ptr(), k, m, n, _DTYPES[w.dtype], int(x_transposed), 1,
-                                 int(tile == "big"), *scalars, _stream(w))
+        rc = lib.dga_tile_launch(*pointers, k, m, n, _DTYPES[w.dtype], int(x_transposed), 1,
+                                 *scalars, _stream(w))
     _raise_on(rc, "fused_dense_grad_adam")
-    launches["fused_xt" if x_transposed else "fused"] += 1
-    return w, mu, nu
 
 
 # -- the streaming copy (row 7) -----------------------------------------------------

@@ -213,6 +213,17 @@ def steps_apart(got, ref, terms=None, floor: float = 0.0) -> Tuple[float, float]
     return n / got.numel(), float(((a - b).abs()[differ] / step).max())
 
 
+# How far one Adam step may move w, mu and nu, in their own steps (``steps_apart`` with the
+# terms of w and mu), where its bfloat16 g is one step from the plain version's. The
+# tensor-core product sums K in another order than the plain float32 product and rounds g a
+# step apart on a few 1e-4 of the elements; everywhere else the step is exact and the bits
+# are equal. nu = b2 nu + (1 - b2) g g moves by up to 2.9 of its steps before each side
+# rounds (where nu is small), so by less than 4 after; mu moves by a tenth of g's
+# difference, and w through both where its update is of the size of w. Measured on an
+# H100 at the flagship's encoder Dense: w 3.5, mu 2.0, nu 3.0.
+FLIPPED_G_STEPS = 4.0
+
+
 def shifted(t, offset: int):
     """A contiguous copy of ``t`` that starts ``offset`` elements into its
     allocation (so not on a 16-byte boundary when offset is 1)."""
